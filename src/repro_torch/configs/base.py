@@ -1,0 +1,115 @@
+"""Model / shape configuration system (port of ``repro.configs.base``).
+
+Each ported configuration is a ``repro_torch/configs/<id>.py`` exporting
+``CONFIG``.  Field names and defaults equal the reference dataclass, so a
+config compares field by field with its JAX counterpart; fields that
+select parts the port does not run yet (SSM mixers, encoder-decoder,
+vocab padding) keep their defaults.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+from repro_torch.models.moe import MoECfg
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """One position in the repeating layer pattern."""
+
+    mixer: str          # 'attn' | 'ssm'
+    ffn: str            # 'dense' | 'moe' | 'none'
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                       # dense|moe|hybrid|ssm|vlm|audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    mlp_type: str = "swiglu"
+    moe: Optional[MoECfg] = None
+    ssm: Optional[object] = None         # SSM mixers are not ported yet
+    pattern: Optional[Tuple[BlockSpec, ...]] = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None
+    always_swa: bool = False
+    logit_softcap: Optional[float] = None
+    tie_embeddings: bool = False
+    qkv_bias: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    prefix_len: int = 0
+    dtype: str = "bfloat16"
+    source: str = ""                     # citation
+    seq_parallel: bool = False
+    onehot_embed: bool = False
+    kv_dtype: str = "bfloat16"
+    quantized_serve: bool = False
+    ring_kv: bool = False
+    remat_policy: str = "full"
+    pad_vocab_to: int = 1
+
+    @property
+    def padded_vocab(self) -> int:
+        pv = self.pad_vocab_to
+        return ((self.vocab_size + pv - 1) // pv) * pv if pv > 1 \
+            else self.vocab_size
+
+    @property
+    def block_pattern(self) -> Tuple[BlockSpec, ...]:
+        if self.pattern is not None:
+            return self.pattern
+        ffn = "moe" if self.moe is not None else "dense"
+        mixer = "ssm" if self.arch_type == "ssm" else "attn"
+        if self.arch_type == "ssm":
+            ffn = "none"
+        return (BlockSpec(mixer, ffn),)
+
+    @property
+    def n_periods(self) -> int:
+        plen = len(self.block_pattern)
+        if self.n_layers % plen != 0:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"pattern length {plen}")
+        return self.n_layers // plen
+
+    @property
+    def has_attention(self) -> bool:
+        return any(b.mixer == "attn" for b in self.block_pattern)
+
+    @property
+    def has_moe(self) -> bool:
+        return any(b.ffn == "moe" for b in self.block_pattern)
+
+    def param_count(self) -> int:
+        """Total parameters (embedding included)."""
+        from repro_torch.models.model import param_shapes, shape_leaves
+
+        total = 0
+        for shape in shape_leaves(param_shapes(self)):
+            n = 1
+            for s in shape:
+                n *= s
+            total += n
+        return total
+
+
+# Paper-reproduction MoE configs (DeepSeek-V2-Lite / Qwen1.5-MoE structure).
+REPRO_IDS = ("deepseek-v2-lite-repro", "qwen15-moe-repro")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    mod = importlib.import_module(
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
+    return mod.CONFIG

@@ -1,0 +1,629 @@
+"""SliceMoE inference engine (port of ``repro.core.engine``, sync path).
+
+Runs the PyTorch MoE model token by token while simulating the DRAM/Flash
+offload hierarchy.  Per decode step:
+
+  1. ``decode_step`` runs with the current cache residency masks, the
+     static :class:`RoutingPolicy` and the Cache-Prior boost ``alpha``; it
+     returns next-token logits plus per-layer routing traces;
+  2. the routing trace comes to the host in one transfer and the
+     :class:`SliceCache` replays the slice demand (MSB always, LSB per
+     DBSC criticality), charging the :class:`CostLedger`;
+  3. the :class:`MissRateController` updates ``alpha`` from the rolling
+     miss rate.
+
+Prefill runs once per request, collecting the hotness PCW needs; the
+prefill→decode transition applies the configured warmup.
+
+State splits into :class:`PersistentEngine` (shared across requests:
+quantized store, slice cache, hotness tracker, ledger) and per-request
+state (KV cache, controller ``alpha``); :class:`SliceMoEEngine` is the
+single-request API.
+
+This slice ports the serialized (sync) charge path on one device.  The
+knobs of the parts still in the queue (``ep_shards > 1``,
+``prefetch_top_m``, ``async_io``, an SLO ``controller``, ``buddy``
+routing, the ``tpu_offload`` profile) raise ``NotImplementedError``
+naming their ROADMAP.md item; the remaining reference knobs (prefetch
+predictor settings, placement policies) arrive with those items.
+
+``run_prefill`` and ``decode_batch`` mark their model forward and their
+charge path as ``torch.profiler`` ranges (``slicemoe.prefill_forward``,
+``slicemoe.prefill_charge``, ``slicemoe.decode_forward``,
+``slicemoe.decode_charge``); the charge ranges include the wait for the
+device, since moving the routing trace to the host synchronizes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.amat import MatConfig
+from repro_torch.core.cache import SliceCache
+from repro_torch.core.routing import MissRateController
+from repro_torch.core.slices import SliceKey, quantize_moe_params
+from repro_torch.core.warmup import HotnessTracker, INIT_STATES, pcw_reshape
+from repro_torch.device import resolve_device
+from repro_torch.hw.energy import CostLedger, expert_weight_step_bytes
+from repro_torch.hw.specs import SYSTEM_PROFILES
+from repro_torch.models import model as MDL
+from repro_torch.models.moe import RoutingPolicy
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    mat: MatConfig = dataclasses.field(
+        default_factory=lambda: MatConfig(8, 4))
+    cache_bytes: float = 64e6
+    policy: RoutingPolicy = dataclasses.field(default_factory=RoutingPolicy)
+    miss_rate_target: Optional[float] = None      # e.g. 0.05
+    warmup: str = "pcw"        # 'pcw' | 'empty' | 'last_layer' | 'random'
+    lsb_keep_frac: float = 0.125
+    system: str = "mobile_soc"
+    max_seq: int = 256
+    # Whole-expert caching (high-bit baseline): both slices move together.
+    fused_slices: bool = False
+    # Layer-transition prefetching; None disables (the only value ported).
+    prefetch_top_m: Optional[int] = None
+    # Asynchronous slice-I/O timeline; False (serialized) is ported.
+    async_io: bool = False
+    # Cross-request hotness aging at each request boundary.
+    hotness_request_decay: float = 0.5
+    # Expert-parallel shards; 1 (one device) is ported.
+    ep_shards: int = 1
+    # Online SLO controller; None (static policy) is ported.
+    controller: Optional[object] = None
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for settings of unported parts."""
+        todo = []
+        if self.ep_shards != 1:
+            todo.append("ep_shards > 1 (queue 1, 'EP, placement, control')")
+        if self.controller is not None:
+            todo.append("controller (queue 1, 'EP, placement, control')")
+        if self.prefetch_top_m:
+            todo.append("prefetch_top_m (queue 1, 'async timeline and "
+                        "prefetch')")
+        if self.async_io:
+            todo.append("async_io (queue 1, 'async timeline and prefetch')")
+        if self.policy.kind == "buddy":
+            todo.append("policy.kind='buddy' (queue 1, 'buddy routing')")
+        if self.system not in SYSTEM_PROFILES:
+            todo.append(f"system={self.system!r} (queue 1, 'tpu_offload "
+                        "profile')")
+        if todo:
+            raise NotImplementedError(
+                "not ported yet, see ROADMAP.md: " + "; ".join(todo))
+
+    def cache(self) -> SliceCache:
+        slice_aware = self.policy.slice_mode == "dbsc" and not self.fused_slices
+        return SliceCache(self.cache_bytes, slice_aware=slice_aware)
+
+    def ledger(self) -> CostLedger:
+        return CostLedger(system=SYSTEM_PROFILES[self.system])
+
+
+@dataclasses.dataclass
+class StepCharge:
+    """Result of replaying one decode step into the cache + ledger."""
+
+    miss_rate: float                      # fleet expert-level miss rate
+    accesses: int
+    misses: int
+    per_slot_miss: np.ndarray             # [B] selection-weighted miss rate
+    ledger_delta: dict                    # cost delta for this step
+    # Per-tenant counters {tenant: {tokens, accesses, misses}}; None unless
+    # slot tenants were supplied.
+    per_tenant: Optional[dict] = None
+
+
+def aux_to_host(moe_aux: dict, keys) -> dict:
+    """Routing-trace leaves ``keys`` of one step as numpy arrays, moved
+    from the device in ONE transfer.
+
+    The reference converts each aux leaf with ``np.asarray`` (one device
+    sync per leaf).  Here every leaf is flattened into one f32 buffer
+    first: expert ids (< 2^24), bf16/f32 gates and bool masks are all
+    exact in f32.  Ids come back as int64, masks as bool, gates as f64
+    (the reference's replay dtype).
+    """
+    leaves = [moe_aux[k] for k in keys]
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in leaves])
+    host = flat.cpu().numpy()
+    out, off = {}, 0
+    for k, t in zip(keys, leaves):
+        n = t.numel()
+        a = host[off:off + n].reshape(tuple(t.shape))
+        off += n
+        if t.dtype == torch.bool:
+            out[k] = a.astype(bool)
+        elif t.dtype.is_floating_point:
+            out[k] = a.astype(np.float64)
+        else:
+            out[k] = a.astype(np.int64)
+    return out
+
+
+@dataclasses.dataclass
+class _StepTrace:
+    """One decode step's routing trace + mutable replay counters."""
+
+    ids: np.ndarray                       # [P, npos, T, k]
+    gates: np.ndarray
+    active: np.ndarray
+    critical: np.ndarray
+    slot_mask: np.ndarray                 # [T] bool
+    slot_accesses: np.ndarray             # [T] int64 (mutated during replay)
+    slot_misses: np.ndarray
+    accesses: int = 0
+    misses: int = 0
+    slot_tenants: Optional[list] = None
+
+    @property
+    def P(self) -> int:
+        return self.ids.shape[0]
+
+    @classmethod
+    def from_aux(cls, aux, slot_active: Optional[np.ndarray],
+                 slot_tenants: Optional[list] = None) -> "_StepTrace":
+        h = aux_to_host(aux["moe"], ("ids", "gates", "active", "critical"))
+        T = h["ids"].shape[2]
+        slot_mask = np.ones(T, bool) if slot_active is None \
+            else np.asarray(slot_active, bool)
+        return cls(
+            ids=h["ids"], gates=h["gates"], active=h["active"],
+            critical=h["critical"], slot_mask=slot_mask,
+            slot_accesses=np.zeros(T, np.int64),
+            slot_misses=np.zeros(T, np.int64),
+            slot_tenants=slot_tenants,
+        )
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class PersistentEngine:
+    """Shared-state engine: one instance serves many requests.
+
+    ``run_prefill`` produces a fresh KV cache against the *warm* shared
+    slice cache; ``decode_batch`` advances a batch of sequences one token.
+    Runs on ``device`` (``cuda`` unless told otherwise); parameters are
+    moved there if they are elsewhere.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict, ecfg: EngineConfig,
+                 *, device=None):
+        if not cfg.has_moe:
+            raise ValueError(f"{cfg.name} has no MoE layers; SliceMoE "
+                             "expert caching is inapplicable")
+        ecfg.check_ported()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.ecfg = ecfg
+        params = _to_device(params, self.device)
+        self.qparams, self.store, self.layer_map = quantize_moe_params(
+            params, cfg, ecfg.mat,
+            quant_execution=ecfg.policy.quant_execution)
+        self.n_moe_layers = len(self.layer_map)
+        self.n_experts = cfg.moe.n_experts
+
+        self.cache = ecfg.cache()
+        self.ledger = ecfg.ledger()
+        self.tracker = HotnessTracker(self.n_moe_layers, self.n_experts)
+        self.requests_served = 0
+        self.moe_positions = [i for i, s in enumerate(cfg.block_pattern)
+                              if s.ffn == "moe"]
+        # Prefill routes with the configured policy only when it is
+        # state-free (cumsum); compute stays high-bit either way.
+        self._prefill_policy = ecfg.policy \
+            if ecfg.policy.kind == "cumsum" else None
+
+        # Non-expert resident weight bytes touched per decode step (INT8
+        # per the paper's G128 non-expert quantization).
+        total = MDL.count_params(params)
+        expert_total = 0
+        for i in self.moe_positions:
+            e = params["blocks"][f"pos{i}"]["moe"]["experts"]
+            expert_total += sum(int(np.prod(x.shape)) for x in e.values())
+        self.resident_bytes = float(total - expert_total)
+
+        m = cfg.moe
+        wi_cols = 2 * m.d_ff if m.mlp_type in ("swiglu", "geglu") else m.d_ff
+        self.expert_macs_per_token = cfg.d_model * wi_cols + m.d_ff * cfg.d_model
+
+    # ------------------------------------------------------- introspection
+    def expert_weight_bytes_per_step(self, *,
+                                     quant_execution: Optional[bool] = None
+                                     ) -> float:
+        """Analytic device-memory expert-weight traffic of one decode step
+        (:func:`repro_torch.hw.energy.expert_weight_step_bytes`)."""
+        if quant_execution is None:
+            quant_execution = self.ecfg.policy.quant_execution
+        n_codes = n_groups = 0.0
+        for le in self.store.layers.values():
+            for q in (le.wi_q, le.wo_q):
+                n_codes += float(np.prod(q.codes.shape))
+                n_groups += float(np.prod(q.scales.shape))
+        return expert_weight_step_bytes(
+            n_codes, n_groups, quant_execution=quant_execution,
+            dense_itemsize=MDL._dt(self.cfg).itemsize)
+
+    # --------------------------------------------------- per-request state
+    def new_controller(self) -> Optional[MissRateController]:
+        """Fresh per-request miss-rate controller (None if unconstrained)."""
+        if self.ecfg.miss_rate_target is None:
+            return None
+        return MissRateController(self.ecfg.miss_rate_target)
+
+    def init_batch_cache(self, max_batch: int) -> dict:
+        """Batched KV-cache tree with per-sequence positions."""
+        cache = MDL.init_cache(self.cfg, max_batch, self.ecfg.max_seq,
+                               device=self.device)
+        cache["pos"] = torch.zeros((max_batch,), dtype=torch.int64,
+                                   device=self.device)
+        return cache
+
+    @staticmethod
+    def install_slot(batch_cache: dict, request_cache: dict,
+                     slot: int) -> dict:
+        """Copy a batch-1 prefill cache into ``slot`` of a batched cache
+        (in place; returns ``batch_cache``).  Leaves are
+        ``[n_periods, B, ...]``; the prefill cache has B=1."""
+        for key, entry in batch_cache.items():
+            if key == "pos":
+                continue
+            for name, leaf in entry.items():
+                leaf[:, slot] = request_cache[key][name][:, 0].to(leaf.dtype)
+        batch_cache["pos"][slot] = request_cache["pos"]
+        return batch_cache
+
+    @staticmethod
+    def clear_slot(batch_cache: dict, slot: int) -> dict:
+        """Retire ``slot``: reset its position (KV rows become dead)."""
+        batch_cache["pos"][slot] = 0
+        return batch_cache
+
+    # ------------------------------------------------------------- prefill
+    def run_prefill(self, tokens, *, label: Optional[str] = None,
+                    inflight: int = 0, tenant: str = "default"):
+        """Prefill one request against the warm shared cache.
+
+        Returns ``(logits, kv_cache, info)``.  ``label`` archives the
+        request's prefill hit/miss counters as a stats epoch; ``inflight``
+        (sequences decoding) scales the hotness boundary decay.
+        """
+        self._begin_request(label, inflight, tenant=tenant)
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                 device=self.device)
+        with record_function("slicemoe.prefill_forward"):
+            logits, kv_cache, aux = MDL.prefill(
+                self.qparams, self.cfg, tokens, self.ecfg.max_seq,
+                collect_trace=True, mat=self.ecfg.mat,
+                quant_execution=self.ecfg.policy.quant_execution,
+                policy=self._prefill_policy)
+        with record_function("slicemoe.prefill_charge"):
+            keys = ("ids", "gates") + (("active",) if "active" in aux["moe"]
+                                       else ())
+            h = aux_to_host(aux["moe"], keys)
+            active = h.get("active")
+            if active is not None and active.all():
+                active = None
+            self._charge_prefill(h["ids"], h["gates"], active)
+            info = self._finish_prefill(label)
+        return logits, kv_cache, info
+
+    def _begin_request(self, label: Optional[str], inflight: int,
+                       tenant: str = "default") -> None:
+        """Request-boundary bookkeeping: hotness aging + stats epoch."""
+        self.cache.set_active_tenant(tenant)
+        if self.requests_served > 0:
+            decay = self.ecfg.hotness_request_decay \
+                ** (1.0 / (1.0 + max(inflight, 0)))
+            self.tracker.begin_request(decay)
+        self.requests_served += 1
+        if label is not None:
+            self.cache.begin_epoch(f"{label}/prefill")
+
+    def _charge_prefill(self, ids: np.ndarray, gates: np.ndarray,
+                        active: Optional[np.ndarray] = None) -> None:
+        """Replay one prompt's layer-streaming fills + compute charges.
+
+        ``ids``/``gates``/``active``: ``[n_periods, n_moe_pos, T, k]``;
+        deactivated selections charge neither fills nor hotness.
+        """
+        if active is None:
+            active = np.ones(ids.shape, bool)
+        led = self.ledger
+        for period in range(ids.shape[0]):
+            for pidx, pos in enumerate(self.moe_positions):
+                lidx = self.layer_map[(pos, period)]
+                a2d = active[period, pidx]                       # [T, k]
+                sel_ids = ids[period, pidx][a2d]
+                sel_gates = gates[period, pidx][a2d]
+                self.tracker.observe(lidx, sel_ids, sel_gates)
+                for e in np.unique(sel_ids):
+                    for kind in ("msb", "lsb"):   # prefill is high-bit
+                        key = SliceKey(lidx, int(e), kind)
+                        nb = self.store.slice_bytes(key)
+                        hit = self.cache.access(key, nb)
+                        if hit or key in self.cache:
+                            if not hit:           # fill landed
+                                led.miss_fill(nb)
+                            led.dram_read(nb)
+                        else:                     # dropped: direct stream
+                            led.flash_stream(nb)
+                led.matmul(sel_ids.size, self.cfg.d_model,
+                           self.expert_macs_per_token // self.cfg.d_model,
+                           self.ecfg.mat.high_bits)
+
+    def _finish_prefill(self, label: Optional[str]) -> dict:
+        """Prefill→decode transition: warmup reshape + epoch rollover."""
+        if self.ecfg.warmup == "pcw":
+            warmup_summary = pcw_reshape(
+                self.cache, self.store, self.tracker,
+                lsb_keep_frac=self.ecfg.lsb_keep_frac)
+        else:
+            INIT_STATES[self.ecfg.warmup](self.cache, self.store)
+            warmup_summary = {"init": self.ecfg.warmup}
+        snapshot = self.ledger.snapshot()
+        if label is not None:
+            self.cache.begin_epoch(f"{label}/decode")
+        else:
+            self.cache.stats.reset()
+        return {"warmup": warmup_summary, "snapshot": snapshot}
+
+    # -------------------------------------------------------------- decode
+    def _policy_state(self) -> dict:
+        """Residency masks ``cached_msb``/``cached_lsb`` [n_periods, E] per
+        MoE position, moved to the device in one transfer."""
+        msb, lsb = self.cache.residency(self.n_moe_layers, self.n_experts)
+        n_periods = self.cfg.n_periods
+        npos = len(self.moe_positions)
+        host = np.zeros((npos, 2, n_periods, self.n_experts), bool)
+        for j, pos in enumerate(self.moe_positions):
+            for period in range(n_periods):
+                lidx = self.layer_map[(pos, period)]
+                host[j, 0, period] = msb[lidx]
+                host[j, 1, period] = lsb[lidx]
+        dev = torch.from_numpy(host).to(self.device)
+        return {f"pos{pos}": {"cached_msb": dev[j, 0], "cached_lsb": dev[j, 1]}
+                for j, pos in enumerate(self.moe_positions)}
+
+    def _decode(self, token: torch.Tensor, kv_cache: dict, alpha: float,
+                token_mask: Optional[torch.Tensor]):
+        # The reference feeds alpha as an f32 scalar; round it the same way.
+        return MDL.decode_step(
+            self.qparams, self.cfg, token, kv_cache, collect_trace=True,
+            policy=self.ecfg.policy, policy_state=self._policy_state(),
+            alpha=float(np.float32(alpha)), mat=self.ecfg.mat,
+            token_mask=token_mask,
+            quant_execution=self.ecfg.policy.quant_execution)
+
+    def decode_batch(self, token: torch.Tensor, kv_cache: dict, *,
+                     alpha: float = 0.0,
+                     slot_active: Optional[np.ndarray] = None,
+                     slot_tenants: Optional[list] = None):
+        """One batched decode step for the scheduler.
+
+        ``token``: [B] (padding slots carry an arbitrary token);
+        ``slot_active``: [B] bool — padding slots are masked out of MoE
+        routing and of cache/cost accounting.
+        Returns ``(logits [B, V], kv_cache, StepCharge)``.
+        """
+        mask = None if slot_active is None else torch.as_tensor(
+            np.asarray(slot_active, bool), device=self.device)
+        with record_function("slicemoe.decode_forward"):
+            logits, kv_cache, aux = self._decode(token, kv_cache, alpha, mask)
+        with record_function("slicemoe.decode_charge"):
+            charge = self.charge_decode_step(aux, slot_active=slot_active,
+                                             slot_tenants=slot_tenants)
+        return logits, kv_cache, charge
+
+    def charge_decode_step(self, aux,
+                           slot_active: Optional[np.ndarray] = None,
+                           slot_tenants: Optional[list] = None
+                           ) -> StepCharge:
+        """Replay one decode step's slice demand into cache + ledger."""
+        return self.charge_step_trace(
+            _StepTrace.from_aux(aux, slot_active, slot_tenants))
+
+    def charge_step_trace(self, tr: _StepTrace) -> StepCharge:
+        """Charge an already-assembled :class:`_StepTrace` (serialized
+        issue: every Flash fill, DRAM read and matmul blocks the
+        timeline)."""
+        return self._charge_sync(tr)
+
+    # -------------------------------------------------- shared replay bits
+    def _slice_nbytes(self, key: SliceKey) -> float:
+        if self.ecfg.fused_slices:
+            return self.store.highbit_expert_bytes()
+        return self.store.slice_bytes(key)
+
+    def _layer_demand(self, tr: _StepTrace, period: int, pidx: int):
+        """Demand for one (period, position) layer over *active* slots."""
+        mode = self.ecfg.policy.slice_mode
+        act2d = tr.active[period, pidx] & tr.slot_mask[:, None]   # [T, k]
+        flat_ids = tr.ids[period, pidx][act2d]
+        flat_gates = tr.gates[period, pidx][act2d]
+        msb_demand = np.unique(flat_ids)
+        crit2d = act2d & tr.critical[period, pidx]
+        if mode == "highbit":
+            lsb_wanted = set(int(e) for e in msb_demand)
+        elif mode in ("lowbit", "amat_static"):
+            lsb_wanted = set()
+        else:   # dbsc
+            lsb_wanted = set(int(e) for e in np.unique(
+                tr.ids[period, pidx][crit2d]))
+        tok_per_e = np.bincount(flat_ids, minlength=self.n_experts)
+        return flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e
+
+    def _expert_bits(self, lsb_available: bool) -> int:
+        """Matmul bit-width from the slot-masked demand."""
+        mat = self.ecfg.mat
+        mode = self.ecfg.policy.slice_mode
+        if self.ecfg.fused_slices or mode == "highbit":
+            return mat.high_bits
+        if mode in ("lowbit", "amat_static"):
+            return mat.low_bits
+        return mat.high_bits if lsb_available else mat.low_bits  # dbsc
+
+    def _attribute_slot_misses(self, tr: _StepTrace, period: int, pidx: int,
+                               missed_expert: np.ndarray) -> None:
+        """Charge each slot for every selection that landed on an expert
+        whose slice(s) missed this layer-step."""
+        for b in np.nonzero(tr.slot_mask)[0]:
+            sel = tr.ids[period, pidx][b][tr.active[period, pidx][b]]
+            tr.slot_accesses[b] += sel.size
+            tr.slot_misses[b] += int(missed_expert[sel].sum())
+
+    def _per_tenant_counts(self, tr: _StepTrace) -> Optional[dict]:
+        """Per-slot replay counters aggregated by tenant."""
+        if tr.slot_tenants is None:
+            return None
+        out: dict = {}
+        for b in np.nonzero(tr.slot_mask)[0]:
+            t = tr.slot_tenants[b] if tr.slot_tenants[b] is not None \
+                else "default"
+            row = out.setdefault(t, {"tokens": 0, "accesses": 0,
+                                     "misses": 0})
+            row["tokens"] += 1
+            row["accesses"] += int(tr.slot_accesses[b])
+            row["misses"] += int(tr.slot_misses[b])
+        return out
+
+    def _step_charge(self, tr: _StepTrace, base: dict) -> StepCharge:
+        return StepCharge(
+            miss_rate=tr.misses / max(tr.accesses, 1),
+            accesses=tr.accesses,
+            misses=tr.misses,
+            per_slot_miss=tr.slot_misses / np.maximum(tr.slot_accesses, 1),
+            ledger_delta=self.ledger.delta_since(base),
+            per_tenant=self._per_tenant_counts(tr),
+        )
+
+    # ----------------------------------------- serialized (sync) replay
+    def _charge_expert_sync(self, tr: _StepTrace, lidx: int, e: int,
+                            ntok: int, lsb_wanted: set) -> bool:
+        """Slice demand + matmul for one expert.  Returns whether any of
+        its slices missed."""
+        cache, led = self.cache, self.ledger
+        missed = False
+        key = SliceKey(lidx, e, "msb")
+        nb = self._slice_nbytes(key)
+        hit = cache.access(key, nb)
+        tr.accesses += 1
+        if not hit:
+            tr.misses += 1
+            missed = True
+            if key in cache:           # fill landed
+                led.miss_fill(nb)
+            else:                      # dropped: direct stream
+                led.flash_stream(nb)
+        if hit or key in cache:
+            led.dram_read(nb)
+        lsb_available = False
+        if e in lsb_wanted and not self.ecfg.fused_slices:
+            fetch = self.ecfg.policy.fetch_lsb_on_miss
+            lkey = SliceKey(lidx, e, "lsb")
+            lnb = self.store.slice_bytes(lkey)
+            lhit = cache.access(lkey, lnb, fill_on_miss=fetch)
+            tr.accesses += 1
+            if not lhit:
+                tr.misses += 1
+                missed = True
+                if fetch:
+                    if lkey in cache:
+                        led.miss_fill(lnb)
+                    else:
+                        led.flash_stream(lnb)
+            if lhit or fetch:
+                if lhit or lkey in cache:
+                    led.dram_read(lnb)
+                lsb_available = True
+        led.matmul(ntok, self.cfg.d_model,
+                   self.expert_macs_per_token // self.cfg.d_model,
+                   self._expert_bits(lsb_available))
+        return missed
+
+    def _charge_sync(self, tr: _StepTrace) -> StepCharge:
+        base = self.ledger.snapshot()
+        for period in range(tr.P):
+            for pidx, pos in enumerate(self.moe_positions):
+                lidx = self.layer_map[(pos, period)]
+                flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e = \
+                    self._layer_demand(tr, period, pidx)
+                self.tracker.observe(lidx, flat_ids, flat_gates)
+                missed_expert = np.zeros(self.n_experts, bool)
+                for e in msb_demand:
+                    e = int(e)
+                    if self._charge_expert_sync(tr, lidx, e,
+                                                int(tok_per_e[e]),
+                                                lsb_wanted):
+                        missed_expert[e] = True
+                self._attribute_slot_misses(tr, period, pidx, missed_expert)
+        self._charge_resident_sync(tr)
+        return self._step_charge(tr, base)
+
+    def _charge_resident_sync(self, tr: _StepTrace) -> None:
+        """Non-expert resident weights: one pass per decode step."""
+        share = max(int(tr.slot_mask.sum()), 1)
+        self.ledger.dram_read(self.resident_bytes)
+        self.ledger.matmul(share, self.cfg.d_model,
+                           int(self.resident_bytes / self.cfg.d_model) + 1, 8)
+
+
+class SliceMoEEngine(PersistentEngine):
+    """Single-request convenience API (the paper's Fig. 1a deployment):
+    one request's ``kv_cache``, controller and ``alpha`` on top of the
+    shared :class:`PersistentEngine`."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, ecfg: EngineConfig,
+                 *, device=None):
+        super().__init__(cfg, params, ecfg, device=device)
+        self.controller = self.new_controller()
+        self.alpha = 0.0
+
+    def prefill(self, tokens):
+        """Run prefill; simulate layer-streaming cache fills; apply warmup."""
+        logits, self.kv_cache, info = self.run_prefill(tokens)
+        self.warmup_summary = info["warmup"]
+        self.prefill_snapshot = info["snapshot"]
+        return logits
+
+    def decode(self, first_token: torch.Tensor, n_steps: int):
+        """Greedy decode ``n_steps`` tokens with full offload simulation.
+
+        Returns (tokens [B, n_steps], metrics dict).
+        """
+        token = torch.as_tensor(first_token, device=self.device)
+        tokens_out = []
+        step_metrics = []
+        for _ in range(n_steps):
+            logits, self.kv_cache, aux = self._decode(
+                token, self.kv_cache, self.alpha, None)
+            token = torch.argmax(logits, dim=-1)
+            tokens_out.append(token)
+            charge = self.charge_decode_step(aux)
+            step_miss = charge.miss_rate
+            if self.controller is not None:
+                self.alpha = self.controller.update(step_miss)
+            step_metrics.append({
+                "miss_rate": step_miss,
+                "alpha": self.alpha,
+                **charge.ledger_delta,
+            })
+        metrics = {
+            "per_step": step_metrics,
+            "cache_stats": self.cache.stats.snapshot(),
+            "decode_totals": self.ledger.delta_since(self.prefill_snapshot),
+        }
+        return torch.stack(tokens_out, dim=1), metrics

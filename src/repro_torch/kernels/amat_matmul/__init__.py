@@ -1,0 +1,15 @@
+"""Batched-expert fused AMAT group-dequant matmul (Hopper CUDA kernel).
+
+:func:`amat_expert_matmul` / :func:`amat_expert_matmul_t` are the
+quantized-execution path of the expert FFN: packed uint8 codes are
+dequantized on chip inside the matmul's K loop with per-expert
+high/low-bit selection, so dense expert weights never exist in device
+memory.
+"""
+
+from repro_torch.kernels.amat_matmul.ops import (LAUNCHES, amat_expert_matmul,
+                                                 amat_expert_matmul_qt,
+                                                 amat_expert_matmul_t)
+
+__all__ = ["LAUNCHES", "amat_expert_matmul", "amat_expert_matmul_qt",
+           "amat_expert_matmul_t"]

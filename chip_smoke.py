@@ -2,23 +2,35 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (an H100 for the sm_90a kernel) and ``nvcc``; builds
-every kernel of the main path from the sources in this checkout.  Phases,
-each printing as it goes, any failure exiting non-zero:
+Needs one CUDA card (an H100 for the sm_90a kernels) and ``nvcc``; builds
+every kernel from the sources in this checkout.  Phases, each printing as
+it goes, any failure exiting non-zero:
 
 1. device: the card's name, count and power limit;
-2. build: the kernel library, with the ptxas register / shared-memory /
-   spill report;
-3. kernels against their plain PyTorch versions on the card (tolerance
-   1e-4 + 1e-4*|plain|: f32 accumulation in another order): both code
-   layouts with the bf16 activations the main path gives them at its
-   decode (4 sequences) and prefill (128 tokens) capacities, with f32
-   activations at the decode capacity, and a ragged case; the decode
-   shapes are then timed with CUDA events beside the plain version, one
-   ``torch.bmm`` on pre-dequantized f32 weights (the nearest library
-   call; it reads dense f32 weights, not the packed codes) and the card's
-   bound.  The kernels line reports the bf16 decode variant, the one the
-   decode steps launch;
+2. build: every kernel source, one ``nvcc`` each, all started together,
+   with the ptxas register / shared-memory / spill report;
+3. the batched AMAT kernels (K1 ``wi``, K2 ``wo``) against their plain
+   PyTorch versions on the card (tolerance 1e-4 + 1e-4*|plain|: f32
+   accumulation in another order): both code layouts with the bf16
+   activations the main path gives them at its decode (4 sequences) and
+   prefill (128 tokens) capacities, with f32 activations at the decode
+   capacity, and a ragged case; the decode shapes are then timed with
+   CUDA events beside the plain version, one ``torch.bmm`` on
+   pre-dequantized f32 weights (the nearest library call; it reads dense
+   f32 weights, not the packed codes) and the card's bound.  The kernels
+   line reports the bf16 decode variant, the one the decode steps launch;
+3b. the slice's kernels against their plain versions at the same
+   tolerance, at the widths of configs in the repo: K3 ``amat_matmul``
+   (one qwen15-moe-a2.7b expert matrix), K4 ``expert_matmul`` (K1's
+   shapes) and K5 ``flash_attention`` (qwen15-moe-a2.7b's causal
+   attention, llama4-scout-17b-a16e's windowed GQA attention), each with
+   a ragged or small case; timed rows beside the plain version, one
+   library call (``torch.matmul`` / ``torch.bmm`` on dense f32 weights,
+   ``scaled_dot_product_attention``) and the card's bound;
+3c. the slice's path: the public entry points of K3-K5 driven once each
+   at those full widths, with the launch counts set to 0 just before and
+   read just after; every kernel must have launched and every output be
+   finite;
 4. a small reference check: the qwen15-moe-repro model (2 layers, f32)
    served on the card through the kernel and on the CPU through the
    plain dense-dequant path must agree (tokens exact, logits 1e-4);
@@ -31,14 +43,17 @@ each printing as it goes, any failure exiting non-zero:
 
 ``--profile`` adds a sixth phase: a second round of the same traffic
 with its decode steps under ``torch.profiler`` (device time and launches
-per step by kernel, the engine's host ranges, the device's busy share).  The run the driver makes has no flag.
+per step by kernel, the engine's host ranges, the device's busy share).
+Without arguments the script runs phases 1 to 5.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels' JSON record.
+holds the kernels' JSON record (K1-K5; ``launches`` counts phase 5's run
+for K1 and K2 and phase 3c's for K3-K5).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -50,9 +65,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Card peaks (NVIDIA H100 SXM data sheet) for the bound of each kernel.
+# Card peaks (NVIDIA H100 SXM data sheet, dense) for the bound of each
+# kernel: HBM3, and operations by the type of their operands: bf16 on the
+# tensor cores (a bf16 x bf16 product is exact in an f32 accumulator),
+# f32 on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 
@@ -99,17 +117,28 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels._build import build_library
-    from repro_torch.kernels.amat_matmul.ops import SOURCE
+    """Every kernel source, one ``nvcc`` each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    t0 = time.perf_counter()
-    lib, log = build_library(SOURCE, force=True)
-    say(f"[build] {os.path.relpath(SOURCE, HERE)} -> "
-        f"{os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if any(w in line for w in ("Compiling entry", "registers",
-                                   "spill", "smem")):
-            say("[build]   " + line.strip())
+    from repro_torch.kernels._build import build_library
+    from repro_torch.kernels.amat_matmul.ops import SOURCE as AMAT_SOURCE
+    from repro_torch.kernels.flash_attn.ops import SOURCE as FLASH_SOURCE
+
+    def build(source):
+        t0 = time.perf_counter()
+        lib, log = build_library(source, force=True)
+        return lib, log, time.perf_counter() - t0
+
+    sources = (AMAT_SOURCE, FLASH_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build, sources))
+    for source, (lib, log, dt) in zip(sources, built):
+        say(f"[build] {os.path.relpath(source, HERE)} -> "
+            f"{os.path.relpath(lib, HERE)} in {dt:.1f} s")
+        for line in log.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "smem")):
+                say("[build]   " + line.strip())
 
 
 def _kernel_inputs(E, M, K, N, *, seed, transposed, x_dtype):
@@ -127,6 +156,71 @@ def _kernel_inputs(E, M, K, N, *, seed, transposed, x_dtype):
     use_lsb = torch.rand((E,), generator=g, device="cuda") < 0.5
     use_lsb[0], use_lsb[-1] = True, False
     return x, codes, qt.scales, qt.zero_points, use_lsb
+
+
+def _bound(nbytes: float, flops: dict):
+    """The least time the card could take: the largest of the bytes over
+    HBM3's rate and, for each operand type, its operations (``flops``,
+    by key of :data:`PEAK_FLOPS`) over the card's peak for that type.
+    The tensor cores and the CUDA cores run side by side, so the types'
+    times do not add."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n / PEAK_FLOPS[kind] * 1e3 for kind, n in flops.items())
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _amat_flops(x_dtype, n: float) -> dict:
+    """The operations of an AMAT dequant-matmul by operand type.  Its
+    weights are integers of at most 8 bits, exact in bf16, times one
+    scale per 32-row group, which can be applied after the group's
+    product: with bf16 activations the whole product is bf16 work."""
+    return {"bf16" if x_dtype == torch.bfloat16 else "f32": n}
+
+
+def _visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the attention mask lets through, per sequence
+    and head: the work this input needs."""
+    q = np.arange(sq, dtype=np.int64)
+    last = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    first = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(last - first + 1, 0, None).sum())
+
+
+def _rotating(fn, items):
+    """A call of ``fn`` on the next of ``items`` each time, in turn."""
+    it = itertools.cycle(items)
+    return lambda: fn(next(it))
+
+
+def _check_row(name, got, want, shape) -> float:
+    torch.cuda.synchronize()
+    if tuple(got.shape) != tuple(shape) or not bool(torch.isfinite(got).all()):
+        fail(f"kernel {name}: bad output {tuple(got.shape)}")
+    err = (got - want).abs()
+    max_err = float(err.max())
+    ok = bool((err <= TOL_ABS + TOL_REL * want.abs()).all())
+    say(f"[kernel] {name}: max|kernel-plain| = {max_err:.3e} "
+        f"(tol 1e-4 + 1e-4*|plain|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"kernel {name} disagrees with its plain version")
+    return max_err
+
+
+def _timed(name, kern, plain, library, library_what, nbytes, flops, note):
+    t = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5)}
+    try:
+        t["library_ms"] = time_ms(library)
+    except RuntimeError as e:       # out of memory, or no backend for it
+        say(f"[kernel] {name}: library call {library_what} not timed: {e}")
+        t["library_ms"] = None
+    t["bound_ms"], t["bound_by"] = _bound(nbytes, flops)
+    lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    say(f"[kernel] {name} timing: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, {library_what} {lib}; bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({nbytes / 1e6:.1f} MB, "
+        + ", ".join(f"{n / 1e9:.2f} GFLOP {kind}"
+                    for kind, n in flops.items()) + f"); {note}")
+    return t
 
 
 def phase_kernels(cfg):
@@ -183,18 +277,8 @@ def phase_kernels(cfg):
         def plain():
             return ref(*args, group_size=32, shift=4)
 
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        if got.shape != (E, M, N) or not bool(torch.isfinite(got).all()):
-            fail(f"kernel {name}: bad output {tuple(got.shape)}")
-        err = (got - want).abs()
-        max_err = float(err.max())
-        ok = bool((err <= TOL_ABS + TOL_REL * want.abs()).all())
-        say(f"[kernel] {name} E={E} M={M} K={K} N={N}: max|kernel-plain| = "
-            f"{max_err:.3e} (tol 1e-4 + 1e-4*|plain|) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"kernel {name} disagrees with its plain version")
+        max_err = _check_row(f"{name} E={E} M={M} K={K} N={N}", kern(),
+                             plain(), (E, M, N))
         row = results[layout]
         row["max_abs_err"] = max(row["max_abs_err"], max_err)
         if timed:
@@ -203,28 +287,293 @@ def phase_kernels(cfg):
             w_dense = _dequant_mixed_ref(codes_kn, scales, zps, use_lsb,
                                          group_size=32, shift=4).contiguous()
             x32 = x.float()             # exact for bf16 x: the same function
-            t = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
-                 "library_ms": time_ms(lambda: torch.bmm(x32, w_dense))}
-            del w_dense, x32
             nbytes = (codes.numel() + scales.numel() * 4 + zps.numel()
                       + x.numel() * x.element_size() + E * M * N * 4
                       + use_lsb.numel())
-            flops = 2.0 * E * M * K * N
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS * 1e3
-            t["bound_ms"] = max(t_bytes, t_ops)
-            t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            say(f"[kernel] {name} timing: kernel {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, torch.bmm on dense f32 weights "
-                f"{t['library_ms']:.4f} ms (reads {E * K * N * 4 / 1e6:.0f} "
-                f"MB of f32 weights, not the {codes.numel() / 1e6:.0f} MB of "
-                f"codes); bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            t = _timed(name, kern, plain, lambda: torch.bmm(x32, w_dense),
+                       "torch.bmm on dense f32 weights", nbytes,
+                       _amat_flops(x_dtype, 2.0 * E * M * K * N),
+                       f"the library call reads {E * K * N * 4 / 1e6:.0f} MB "
+                       f"of f32 weights, not the {codes.numel() / 1e6:.0f} MB "
+                       "of codes")
+            del w_dense, x32
             if reported:
                 row.update(t)
         del args
         torch.cuda.empty_cache()
     return results
+
+
+def phase_slice_kernels(cfg):
+    """This slice's kernels against their plain versions on the card, at
+    the widths of configs in the repo, and the timed rows beside the
+    plain version, one library call and the card's bound:
+
+    * K3 ``amat_matmul``: one qwen15-moe-a2.7b expert's ``wi`` (K=2048,
+      N=2816) at the prefill capacity (M=128) in each precision mode and
+      at one decode token, and the reference's ragged M=7, K=96, N=33;
+    * K4 ``expert_matmul``: K1's ``wi`` shapes (E=60 at the decode and
+      prefill capacities) and the reference's ragged E=8, C=33, K=96;
+    * K5 ``flash_attention``: qwen15-moe-a2.7b's causal attention at 4
+      sequences of 4096, llama4-scout-17b-a16e's windowed GQA attention
+      at 12288 tokens, and two of the reference's small cases.
+
+    Returns, per launch-counter key, the reported row's timings and the
+    largest error over all that kernel's rows."""
+    from repro_torch.core.amat import MatConfig, amat_quantize
+    from repro_torch.kernels.amat_matmul import ops as amat_ops
+    from repro_torch.kernels.amat_matmul.ref import (_dequant_mixed_ref,
+                                                     amat_matmul_ref)
+    from repro_torch.kernels.expert_matmul import ops as expert_ops
+    from repro_torch.kernels.expert_matmul.ref import expert_matmul_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.models.moe import capacity
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda")
+    g.manual_seed(100)
+    results = {k: {"max_abs_err": 0.0} for k in ("single", "expert", "flash")}
+
+    def record(key, max_err, timing, reported):
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                          max_err)
+        if reported:
+            results[key].update(timing)
+
+    # K3: one matrix.  Ten quantized copies (58 MB of codes) rotate in the
+    # timed loops, so that the bytes come from HBM and not the 50 MB L2.
+    mat = MatConfig(8, 4)
+
+    def quantized(k, n):
+        return amat_quantize(
+            torch.randn((k, n), generator=g, device="cuda") * k ** -0.5, mat)
+
+    m = cfg.moe
+    K, N = cfg.d_model, 2 * m.d_ff
+    copies = [quantized(K, N) for _ in range(10)]
+    single_rows = [
+        # name, M, K, N, x dtype, mode, shift, timed, reported
+        ("amat_single_prefill_high", 128, K, N, bf16, "high", 0, True, True),
+        ("amat_single_prefill_high_f32", 128, K, N, f32, "high", 0, False,
+         False),
+        ("amat_single_prefill_low4", 128, K, N, bf16, "low", 4, True, False),
+        ("amat_single_prefill_low2", 128, K, N, bf16, "low", 2, False, False),
+        ("amat_single_decode_low4", 1, K, N, bf16, "low", 4, True, False),
+        ("amat_single_ragged", 7, 96, 33, f32, "low", 4, False, False),
+    ]
+    for name, M, k, n, xd, mode, shift, timed, reported in single_rows:
+        qts = copies if k == K else [quantized(k, n)]
+        x = torch.randn((M, k), generator=g, device="cuda").to(xd)
+
+        def kern(qt):
+            return amat_ops.amat_matmul_qt(x, qt, shift=shift, mode=mode)
+
+        def plain(qt):
+            return amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points,
+                                   shift=shift, mode=mode)
+
+        err = _check_row(f"{name} M={M} K={k} N={n} {mode} shift={shift} "
+                         f"{str(xd)[6:]}", kern(qts[0]), plain(qts[0]),
+                         (M, n))
+        t = None
+        if timed:
+            hi = torch.tensor([mode == "high"], device="cuda")
+            dense = [_dequant_mixed_ref(
+                qt.codes[None], qt.scales[None], qt.zero_points[None], hi,
+                group_size=32, shift=shift)[0] for qt in qts]
+            x32 = x.float()         # exact for bf16 x: the same function
+            nbytes = (k * n + (k // 32) * n * 5
+                      + x.numel() * x.element_size() + M * n * 4)
+            t = _timed(name, _rotating(kern, qts), _rotating(plain, qts),
+                       _rotating(lambda w: torch.matmul(x32, w), dense),
+                       "torch.matmul on dense f32 weights", nbytes,
+                       _amat_flops(xd, 2.0 * M * k * n),
+                       "each loop rotates over 10 copies (58 MB of codes, "
+                       "231 MB of dense f32 for the library call)")
+            del dense
+        record("single", err, t, reported)
+    del copies
+    torch.cuda.empty_cache()
+
+    # K4: the batched expert matmul at K1's wi shapes.
+    E = m.n_experts
+    c_dec = capacity(4, m.top_k, E, m.capacity_factor)
+    c_pre = capacity(128, m.top_k, E, m.capacity_factor)
+    expert_rows = [
+        # name, (E, C, K, N), x dtype, timed, reported
+        ("expert_decode", (E, c_dec, K, N), bf16, True, True),
+        ("expert_decode_f32", (E, c_dec, K, N), f32, False, False),
+        ("expert_prefill", (E, c_pre, K, N), bf16, False, False),
+        ("expert_ragged", (8, 33, 96, 128), f32, False, False),
+    ]
+    for seed, (name, (e, c, k, n), xd, timed, reported) in enumerate(
+            expert_rows, start=20):
+        args = _kernel_inputs(e, c, k, n, seed=seed, transposed=False,
+                              x_dtype=xd)
+
+        def kern():
+            return expert_ops.expert_matmul(*args, group_size=32, shift=4)
+
+        def plain():
+            return expert_matmul_ref(*args, group_size=32, shift=4)
+
+        err = _check_row(f"{name} E={e} C={c} K={k} N={n} {str(xd)[6:]}",
+                         kern(), plain(), (e, c, n))
+        t = None
+        if timed:
+            x, codes, scales, zps, use_lsb = args
+            w_dense = _dequant_mixed_ref(codes, scales, zps, use_lsb,
+                                         group_size=32, shift=4).contiguous()
+            x32 = x.float()
+            nbytes = (codes.numel() + scales.numel() * 4 + zps.numel()
+                      + x.numel() * x.element_size() + e * c * n * 4 + e)
+            t = _timed(name, kern, plain, lambda: torch.bmm(x32, w_dense),
+                       "torch.bmm on dense f32 weights", nbytes,
+                       _amat_flops(xd, 2.0 * e * c * k * n),
+                       f"{codes.numel() / 1e6:.0f} MB of codes, past the L2")
+            del w_dense, x32
+        record("expert", err, t, reported)
+        del args
+        torch.cuda.empty_cache()
+
+    # K5: attention.  llama4-scout-17b-a16e's widths are those of
+    # src/repro/configs/llama4_scout_17b_a16e.py (40 heads, 8 KV heads of
+    # 128, sliding window 8192); the port does not carry that config.
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    flash_rows = [
+        # name, (B, Sq, Sk, H, Hkv, D), causal, window, dtype, timed, reported
+        ("flash_qwen_causal", (4, 4096, 4096, hq, hkv, d), True, None, bf16,
+         True, True),
+        ("flash_qwen_causal_f32", (4, 4096, 4096, hq, hkv, d), True, None,
+         f32, True, False),
+        ("flash_scout_window", (1, 12288, 12288, 40, 8, 128), True, 8192,
+         bf16, True, False),
+        ("flash_small_noncausal", (1, 16, 16, 4, 2, 32), False, None, f32,
+         False, False),
+        ("flash_small_ragged", (1, 17, 33, 4, 4, 64), True, 8, f32, False,
+         False),
+    ]
+    for name, (b, sq, sk, h, hk, dd), causal, win, dt, timed, reported \
+            in flash_rows:
+        q = torch.randn((b, sq, h, dd), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, sk, hk, dd), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, sk, hk, dd), generator=g, device="cuda").to(dt)
+
+        def kern():
+            return flash_ops.flash_attention(q, k, v, causal=causal,
+                                             sliding_window=win)
+
+        def plain():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       sliding_window=win)
+
+        want = plain()
+        err = _check_row(f"{name} B={b} Sq={sq} Sk={sk} H={h} Hkv={hk} "
+                         f"D={dd} causal={causal} window={win} "
+                         f"{str(dt)[6:]}", kern(), want, (b, sq, h, dd))
+        t = None
+        if timed:
+            qf, kf, vf = (t_.float().repeat_interleave(h // t_.shape[2], 2)
+                          .transpose(1, 2).contiguous() for t_ in (q, k, v))
+            mask = None
+            if win is not None:
+                qpos = torch.arange(sq, device="cuda")[:, None]
+                kpos = torch.arange(sk, device="cuda")[None, :]
+                mask = qpos - kpos < win
+                if causal:
+                    mask &= qpos >= kpos
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qf, kf, vf, attn_mask=mask,
+                    is_causal=causal and mask is None)
+
+            what = ("scaled_dot_product_attention on f32 [B, H, S, D] with "
+                    + ("is_causal" if mask is None else "a boolean mask"))
+            try:
+                lib_err = float((library().transpose(1, 2) - want).abs().max())
+                note = f"library max|sdpa-plain| = {lib_err:.3e}"
+            except RuntimeError as e:
+                note = f"library call failed: {e}"
+            del want
+            nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
+                      + q.numel() * 4)
+            # 2*D for q.k and 2*D for p.v per visible (query, key) pair;
+            # q.k is bf16 work for bf16 inputs, p.v keeps its f32
+            # probabilities.
+            half = 2.0 * dd * b * h * _visible_pairs(sq, sk, causal, win)
+            flops = ({"bf16": half, "f32": half} if dt == bf16
+                     else {"f32": 2 * half})
+            t = _timed(name, kern, plain, library, what, nbytes, flops, note)
+            del qf, kf, vf, mask
+        record("flash", err, t, reported)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_slice_path(cfg):
+    """This slice's path: the public entry points of K3-K5
+    (``amat_matmul_qt`` in both precisions, ``expert_matmul_qt``,
+    ``flash_attention`` causal and windowed), driven once each at the
+    full-width shapes of phase 3b, with every launch count set to 0 just
+    before and read just after.  Returns the counts."""
+    from repro_torch.core.amat import MatConfig, amat_quantize
+    from repro_torch.kernels.amat_matmul import ops as amat_ops
+    from repro_torch.kernels.expert_matmul import ops as expert_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models.moe import capacity
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(200)
+    bf16 = torch.bfloat16
+    m = cfg.moe
+    E, K, N = m.n_experts, cfg.d_model, 2 * m.d_ff
+    C = capacity(4, m.top_k, E, m.capacity_factor)
+    mat = MatConfig(8, 4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    qt_one = amat_quantize(randn(K, N) * K ** -0.5, mat)
+    qt_experts = amat_quantize(randn(E, K, N) * K ** -0.5, mat)
+    use_lsb = torch.rand((E,), generator=g, device="cuda") < 0.5
+    x_pre, x_dec, x_exp = (randn(128, K).to(bf16), randn(1, K).to(bf16),
+                           randn(E, C, K).to(bf16))
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qwen = [randn(4, 4096, h, d).to(bf16) for h in (hq, hkv, hkv)]
+    scout = [randn(1, 12288, h, 128).to(bf16) for h in (40, 8, 8)]
+    torch.cuda.synchronize()
+
+    counters = (amat_ops.LAUNCHES, expert_ops.LAUNCHES, flash_ops.LAUNCHES)
+    for c in counters:
+        c.reset()
+    outs = {
+        "amat_matmul_qt high, M=128": (amat_ops.amat_matmul_qt(
+            x_pre, qt_one, mode="high"), (128, N)),
+        "amat_matmul_qt low shift 4, M=1": (amat_ops.amat_matmul_qt(
+            x_dec, qt_one, shift=4, mode="low"), (1, N)),
+        f"expert_matmul_qt E={E} C={C}": (expert_ops.expert_matmul_qt(
+            x_exp, qt_experts, use_lsb, shift=4), (E, C, N)),
+        "flash_attention causal (qwen)": (flash_ops.flash_attention(
+            *qwen, causal=True), (4, 4096, hq, d)),
+        "flash_attention window 8192 (scout)": (flash_ops.flash_attention(
+            *scout, causal=True, sliding_window=8192), (1, 12288, 40, 128)),
+    }
+    torch.cuda.synchronize()
+    launches = {k: n for c in counters for k, n in c.by_key.items()}
+    for what, (out, shape) in outs.items():
+        finite = bool(torch.isfinite(out).all())
+        say(f"[path] {what}: {tuple(out.shape)} f32, finite {finite}")
+        if tuple(out.shape) != shape or not finite:
+            fail(f"slice path: {what} gave a bad output")
+    want = {"k_major": 0, "output_major": 0, "single": 2, "expert": 1,
+            "flash": 2}
+    say(f"[path] kernel launches: {launches} (want {want})")
+    if launches != want:
+        fail("the slice's entry points did not each launch their kernel")
+    return launches
 
 
 def phase_small_reference():
@@ -345,7 +694,8 @@ def phase_serving(cfg, device: str = "cuda"):
     completions = sched.run()
     sync()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES.by_layout)
+    launches = {k: ops.LAUNCHES.by_key[k]
+                for k in ("k_major", "output_major")}
 
     def new_requests(n_new):
         return [Request(request_id=100 + i,
@@ -457,22 +807,32 @@ def main() -> None:
     cfg = get_config("qwen15-moe-a2.7b")
     phase_build()
     timings = phase_kernels(cfg)
+    timings.update(phase_slice_kernels(cfg))
+    launches = phase_slice_path(cfg)
     phase_small_reference()
-    launches, engine, new_requests, wall_step = phase_serving(cfg)
+    serve_launches, engine, new_requests, wall_step = phase_serving(cfg)
+    launches.update(serve_launches)     # k_major and output_major
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, new_requests, wall_step)
+    amat_src = "src/repro_torch/kernels/amat_matmul/csrc/amat_batched_matmul.cu"
     kernels = []
-    for variant, layout, replaces in (
-            ("amat_batched_matmul (wi, K-major codes)", "k_major",
+    for variant, key, source, replaces in (
+            ("amat_batched_matmul (wi, K-major codes)", "k_major", amat_src,
              "src/repro/kernels/amat_matmul/kernel.py:225"),
             ("amat_batched_matmul_t (wo, output-major codes)",
-             "output_major", "src/repro/kernels/amat_matmul/kernel.py:234")):
-        t = timings[layout]
+             "output_major", amat_src,
+             "src/repro/kernels/amat_matmul/kernel.py:234"),
+            ("amat_matmul (one matrix, static precision)", "single",
+             amat_src, "src/repro/kernels/amat_matmul/kernel.py:101"),
+            ("expert_matmul (per-expert sliced, K-major codes)", "expert",
+             amat_src, "src/repro/kernels/expert_matmul/kernel.py:81"),
+            ("flash_attention (causal GQA, sliding window)", "flash",
+             "src/repro_torch/kernels/flash_attn/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attn/kernel.py:115")):
+        t = timings[key]
         kernels.append({
-            "name": variant, "route": "cuda",
-            "source": "src/repro_torch/kernels/amat_matmul/csrc/"
-                      "amat_batched_matmul.cu",
-            "replaces": replaces, "launches": launches[layout],
+            "name": variant, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -11,8 +11,10 @@ Entry points (``init_params``, the engines, the server and the
 scheduler) run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for ``cuda`` without a card raises.  The expert FFN's fused AMAT
 dequant-matmul is a CUDA C++ kernel for ``sm_90a``
-(:mod:`repro_torch.kernels.amat_matmul`); on CPU tensors its wrapper runs
-the plain PyTorch version instead.
+(:mod:`repro_torch.kernels.amat_matmul`); the counterparts of the JAX
+package's other Pallas kernels sit beside it under
+:mod:`repro_torch.kernels`.  On CPU tensors each wrapper runs its plain
+PyTorch version instead.
 """
 
 from repro_torch.device import resolve_device

@@ -6,6 +6,11 @@ the on-card comparison use) and ``csrc/`` (the CUDA C++ source, built at
 first use by :mod:`repro_torch.kernels._build`).
 
 Subpackages:
-  * :mod:`repro_torch.kernels.amat_matmul` — the batched-expert fused
-    AMAT dequant-matmul (``wi`` K-major and ``wo`` output-major).
+  * :mod:`repro_torch.kernels.amat_matmul` — the fused AMAT
+    dequant-matmuls: batched experts (``wi`` K-major and ``wo``
+    output-major) and one matrix at a static precision;
+  * :mod:`repro_torch.kernels.expert_matmul` — the per-expert sliced
+    matmul, on the batched K-major kernel of ``amat_matmul``;
+  * :mod:`repro_torch.kernels.flash_attn` — causal GQA flash attention
+    with an optional sliding window.
 """

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's CUDA kernels at first use, load them with ctypes, and
+count their launches.
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
@@ -76,3 +77,20 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
     """Build (if needed) and ``dlopen`` the library compiled from ``source``."""
     lib, _ = build_library(source)
     return ctypes.CDLL(str(lib))
+
+
+class LaunchCounter:
+    """Kernel launches since the last :meth:`reset`, by entry: each
+    wrapper adds one to its key where it launches its kernel, and nowhere
+    else, so a run can show which kernels its path went through."""
+
+    def __init__(self, *keys: str) -> None:
+        self.by_key = dict.fromkeys(keys, 0)
+
+    @property
+    def count(self) -> int:
+        return sum(self.by_key.values())
+
+    def reset(self) -> None:
+        for k in self.by_key:
+            self.by_key[k] = 0

@@ -1,17 +1,25 @@
 // Fused AMAT group-dequant + batched expert matmul for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_amat_batched_kernel` in
-// src/repro/kernels/amat_matmul/kernel.py (entry points
-// `amat_batched_matmul_pallas` and `amat_batched_matmul_t_pallas`): one body,
-// with the output-major (`wo`) code layout as the TRANSPOSED template flag.
+// Replaces three Pallas TPU kernels with one body, `amat_tiles`:
+//  * `_amat_batched_kernel` in src/repro/kernels/amat_matmul/kernel.py
+//    (entry points `amat_batched_matmul_pallas` and
+//    `amat_batched_matmul_t_pallas`), with the output-major (`wo`) code
+//    layout as the TRANSPOSED template flag: C entry `amat_batched_matmul`;
+//  * `_amat_matmul_kernel` in the same file (`amat_matmul_pallas`, one
+//    matrix, static mode 'high' | 'low'): C entry `amat_single_matmul`, the
+//    K-major body at E = 1 with the precision passed by value;
+//  * `_expert_matmul_kernel` in src/repro/kernels/expert_matmul/kernel.py
+//    (`expert_matmul_pallas`, the batched function with the flag in a (1, 1)
+//    block): C entry `amat_batched_matmul` on K-major codes.
 //
 //   out[e] = x[e] @ W_e                          (f32 accumulation)
 //   W_e    = (c - z) * s                         if use_lsb[e]   (MSB+LSB)
 //   W_e    = ((c >> shift) - (z >> shift)) * s * 2^shift   else  (MSB only)
 //
-// x [E, M, K] (f32 or bf16), codes [E, K, N] uint8 with N % 4 == 0 (or
-// codes_t [E, N, K] when TRANSPOSED), scales [E, K/G, N] f32, zps [E, K/G, N]
-// uint8, use_lsb [E] uint8, out [E, M, N] f32.  The integer right shift equals the
+// x [E, M, K] (f32 or bf16), codes [E, K, N] uint8 with N % 4 == 0 (the
+// wrapper pads a ragged N; or codes_t [E, N, K] when TRANSPOSED), scales
+// [E, K/G, N] f32, zps [E, K/G, N] uint8, use_lsb [E] uint8, out [E, M, N]
+// f32.  The integer right shift equals the
 // reference's floor(c * 2^-shift), so the dequantized weights are
 // bit-identical to the plain version's; only the order of the f32 sums
 // differs.
@@ -28,7 +36,8 @@
 // scale and one zero-point per column.
 //
 // Layout of the work: grid (ceil(N/256), ceil(M/8), E); each block reads its
-// own use_lsb[e] (the TPU kernel's scalar prefetch), loops over K in 32-row
+// own use_lsb[e] (the TPU kernel's scalar prefetch; the single-matrix entry
+// takes the precision as a kernel argument), loops over K in 32-row
 // tiles, stages the x tile and the dequantized weight tile in shared memory,
 // and keeps 8 f32 accumulators per thread (one output column, 8 rows).  The
 // ragged M and N edges are masked in the block.  No tensor cores, TMA or
@@ -52,33 +61,23 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// One block's [BM, BN] output tile of x [M, K] @ W [K, N] for one matrix:
+// `sh` and `mult` are its precision (0 and 1 for MSB+LSB; shift and
+// 2^shift for MSB only).
 template <typename XT, bool TRANSPOSED>
-__global__ void __launch_bounds__(THREADS)
-amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-                    const float* __restrict__ scales,
-                    const uint8_t* __restrict__ zps,
-                    const uint8_t* __restrict__ use_lsb,
-                    float* __restrict__ out, int M, int K, int N,
-                    int group_size, int shift) {
+__device__ __forceinline__ void amat_tiles(const XT* __restrict__ xe,
+                                           const uint8_t* __restrict__ ce,
+                                           const float* __restrict__ se,
+                                           const uint8_t* __restrict__ ze,
+                                           float* __restrict__ oe, int M,
+                                           int K, int N, int group_size,
+                                           int sh, float mult) {
   __shared__ __align__(16) float xs[BM][BK];
   __shared__ __align__(16) float ws[BK][BN];
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int e = blockIdx.z;
-
-  // Per-expert precision: the low-bit path shifts code and zero-point and
-  // scales by 2^shift; the high-bit path uses them as they are.
-  const bool hi = use_lsb[e] != 0;
-  const int sh = hi ? 0 : shift;
-  const float mult = hi ? 1.0f : static_cast<float>(1 << shift);
-
-  const int G = K / group_size;
-  const XT* xe = x + static_cast<size_t>(e) * M * K;
-  const uint8_t* ce = codes + static_cast<size_t>(e) * K * N;
-  const float* se = scales + static_cast<size_t>(e) * G * N;
-  const uint8_t* ze = zps + static_cast<size_t>(e) * G * N;
 
   float acc[BM];
 #pragma unroll
@@ -98,7 +97,7 @@ amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 
     // Dequantized weight tile [BK, BN], zero past the N edge.
     if (TRANSPOSED) {
-      // codes_t[e, n, k]: the tile's 32 codes of column n are contiguous
+      // codes_t[n, k]: the tile's 32 codes of column n are contiguous
       // (two 16-byte loads); the transpose happens on the way into `ws`.
       const int n = n0 + tid;
       if (n < N) {
@@ -120,7 +119,7 @@ amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
         for (int kk = 0; kk < BK; ++kk) ws[kk][tid] = 0.f;
       }
     } else {
-      // codes[e, k, n], rows of N bytes (N % 4 == 0, checked by the
+      // codes[k, n], rows of N bytes (N % 4 == 0, padded by the
       // wrapper): 64 threads cover one 256-column row with 4-byte loads,
       // 4 rows per pass, 8 passes.
       const int c4 = tid & 63;
@@ -177,7 +176,6 @@ amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 
   const int n = n0 + tid;
   if (n < N) {
-    float* oe = out + static_cast<size_t>(e) * M * N;
 #pragma unroll
     for (int r = 0; r < BM; ++r) {
       const int m = m0 + r;
@@ -186,11 +184,41 @@ amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
   }
 }
 
+template <typename XT, bool TRANSPOSED>
+__global__ void __launch_bounds__(THREADS)
+amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+                    const float* __restrict__ scales,
+                    const uint8_t* __restrict__ zps,
+                    const uint8_t* __restrict__ use_lsb,
+                    float* __restrict__ out, int M, int K, int N,
+                    int group_size, int shift) {
+  const int e = blockIdx.z;
+  // Per-expert precision: the low-bit path shifts code and zero-point and
+  // scales by 2^shift; the high-bit path uses them as they are.
+  const bool hi = use_lsb[e] != 0;
+  const size_t G = K / group_size;
+  amat_tiles<XT, TRANSPOSED>(
+      x + static_cast<size_t>(e) * M * K, codes + static_cast<size_t>(e) * K * N,
+      scales + e * G * N, zps + e * G * N, out + static_cast<size_t>(e) * M * N,
+      M, K, N, group_size, hi ? 0 : shift,
+      hi ? 1.0f : static_cast<float>(1 << shift));
+}
+
 template <typename XT>
-void launch(bool transposed, dim3 grid, cudaStream_t stream, const void* x,
-            const uint8_t* codes, const float* scales, const uint8_t* zps,
-            const uint8_t* use_lsb, float* out, int M, int K, int N,
-            int group_size, int shift) {
+__global__ void __launch_bounds__(THREADS)
+amat_single_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+                   const float* __restrict__ scales,
+                   const uint8_t* __restrict__ zps, float* __restrict__ out,
+                   int M, int K, int N, int group_size, int sh, float mult) {
+  amat_tiles<XT, false>(x, codes, scales, zps, out, M, K, N, group_size, sh,
+                        mult);
+}
+
+template <typename XT>
+void launch_batched(bool transposed, dim3 grid, cudaStream_t stream,
+                    const void* x, const uint8_t* codes, const float* scales,
+                    const uint8_t* zps, const uint8_t* use_lsb, float* out,
+                    int M, int K, int N, int group_size, int shift) {
   const XT* xt = static_cast<const XT*>(x);
   if (transposed) {
     amat_batched_kernel<XT, true><<<grid, THREADS, 0, stream>>>(
@@ -205,8 +233,11 @@ void launch(bool transposed, dim3 grid, cudaStream_t stream, const void* x,
 
 extern "C" {
 
-// x_dtype: 0 = float32, 1 = bfloat16.  Returns the CUDA error
-// code of the launch (0 on success); the caller checks it.
+// x_dtype: 0 = float32, 1 = bfloat16.  Each entry returns the CUDA error
+// code of its launch (0 on success); the caller checks it.
+
+// Batched experts, per-expert precision use_lsb [E]; transposed = 1 reads
+// output-major codes [E, N, K].
 int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
                         const void* scales, const void* zps,
                         const void* use_lsb, void* out, int E, int M, int K,
@@ -221,12 +252,43 @@ int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
   float* o = static_cast<float*>(out);
   switch (x_dtype) {
     case 0:
-      launch<float>(transposed != 0, grid, s, x, c, sc, z, u, o, M, K, N,
-                    group_size, shift);
+      launch_batched<float>(transposed != 0, grid, s, x, c, sc, z, u, o, M, K,
+                            N, group_size, shift);
       break;
     case 1:
-      launch<__nv_bfloat16>(transposed != 0, grid, s, x, c, sc, z, u, o, M,
-                            K, N, group_size, shift);
+      launch_batched<__nv_bfloat16>(transposed != 0, grid, s, x, c, sc, z, u,
+                                    o, M, K, N, group_size, shift);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One matrix: x [M, K] @ dequant(codes [K, N]) with a static precision,
+// high = 1 for MSB+LSB ('high'), 0 for MSB only at `shift` ('low').
+int amat_single_matmul(const void* x, int x_dtype, const void* codes,
+                       const void* scales, const void* zps, void* out, int M,
+                       int K, int N, int group_size, int shift, int high,
+                       void* stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const float* sc = static_cast<const float*>(scales);
+  const uint8_t* z = static_cast<const uint8_t*>(zps);
+  float* o = static_cast<float*>(out);
+  const int sh = high ? 0 : shift;
+  const float mult = high ? 1.0f : static_cast<float>(1 << shift);
+  switch (x_dtype) {
+    case 0:
+      amat_single_kernel<float><<<grid, THREADS, 0, s>>>(
+          static_cast<const float*>(x), c, sc, z, o, M, K, N, group_size, sh,
+          mult);
+      break;
+    case 1:
+      amat_single_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), c, sc, z, o, M, K, N,
+          group_size, sh, mult);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

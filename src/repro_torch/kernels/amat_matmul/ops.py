@@ -1,19 +1,27 @@
-"""Public wrapper of the batched-expert fused AMAT dequant-matmul.
+"""Public wrappers of the fused AMAT dequant-matmuls.
 
-:func:`amat_expert_matmul` keeps the semantics of the reference wrapper
-(``repro/kernels/amat_matmul/ops.py::amat_expert_matmul``):
-``[E, M, K] @ per-expert-dequant([E, K, N] codes) -> [E, M, N] f32``, with
-``use_lsb [E]`` choosing MSB+LSB or MSB-only per expert and
-``transposed=True`` reading output-major ``[E, N, K]`` codes (the ``wo``
-layout).
+They keep the semantics of the reference wrappers
+(``repro/kernels/amat_matmul/ops.py``):
 
-* On CUDA tensors it launches the hand-written Hopper kernel
-  (``csrc/amat_batched_matmul.cu``) or raises; it checks device, dtype,
-  shape, contiguity and alignment, allocates the output, checks the
-  launch's return code and adds one to :data:`LAUNCHES`.
-* On CPU tensors it runs the plain PyTorch version in :mod:`.ref`.
+* :func:`amat_expert_matmul`: ``[E, M, K] @ per-expert-dequant([E, K, N]
+  codes) -> [E, M, N] f32``, with ``use_lsb [E]`` choosing MSB+LSB or
+  MSB-only per expert and ``transposed=True`` reading output-major
+  ``[E, N, K]`` codes (the ``wo`` layout);
+* :func:`amat_matmul`: one matrix, ``[M, K] @ dequant([K, N] codes) ->
+  [M, N] f32`` at a static precision, ``mode='high'`` (MSB+LSB) or
+  ``'low'`` (MSB only at ``shift``).
 
-The kernel handles ragged M and N itself, so no padding happens here.
+On CUDA tensors each launches the hand-written Hopper kernel
+(``csrc/amat_batched_matmul.cu``) or raises: it checks device, dtype,
+shape, contiguity and alignment, allocates the output, checks the
+launch's return code and adds one to its key of :data:`LAUNCHES`.  On CPU
+tensors it runs the plain PyTorch version in :mod:`.ref`.
+
+The kernel masks ragged M and N itself.  Its K-major loads take 4 codes
+at a time, so :func:`launch`, the one launch path of every wrapper here
+and of ``expert_matmul``, pads the columns of K-major codes whose N is
+not a multiple of 4 (zero scales null the pad).  No model shape has such
+an N, so the copy never runs on them.
 """
 
 from __future__ import annotations
@@ -23,103 +31,136 @@ import functools
 import pathlib
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels._build import LaunchCounter
 from repro_torch.kernels.amat_matmul.ref import (amat_batched_matmul_ref,
-                                                 amat_batched_matmul_t_ref)
+                                                 amat_batched_matmul_t_ref,
+                                                 amat_matmul_ref)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" \
     / "amat_batched_matmul.cu"
 
-_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# k_major: ``wi`` (K-major codes); output_major: ``wo`` (transposed);
+# single: the one-matrix kernel of :func:`amat_matmul`.
+LAUNCHES = LaunchCounter("k_major", "output_major", "single")
 
-class LaunchCounter:
-    """Kernel launches since the last :meth:`reset`, by code layout:
-    ``k_major`` (``wi``) and ``output_major`` (``wo``, transposed)."""
-
-    def __init__(self) -> None:
-        self.by_layout = {"k_major": 0, "output_major": 0}
-
-    @property
-    def count(self) -> int:
-        return sum(self.by_layout.values())
-
-    def reset(self) -> None:
-        for k in self.by_layout:
-            self.by_layout[k] = 0
-
-
-LAUNCHES = LaunchCounter()
+MODES = ("high", "low")
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def library() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C entries typed."""
     from repro_torch.kernels._build import load_library
 
+    P, I = ctypes.c_void_p, ctypes.c_int
     lib = load_library(SOURCE)
-    fn = lib.amat_batched_matmul
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = lib.amat_error_string
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err
+    lib.amat_batched_matmul.argtypes = [P, I, P, P, P, P, P,
+                                        I, I, I, I, I, I, I, P]
+    lib.amat_single_matmul.argtypes = [P, I, P, P, P, P,
+                                       I, I, I, I, I, I, P]
+    for fn in (lib.amat_batched_matmul, lib.amat_single_matmul):
+        fn.restype = ctypes.c_int
+    lib.amat_error_string.argtypes = [I]
+    lib.amat_error_string.restype = ctypes.c_char_p
+    return lib
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"amat_expert_matmul: {msg}")
-
-
-def _launch(x, codes, scales, zps, use_lsb, group_size, shift, transposed):
-    E, M, K = x.shape
-    N = codes.shape[1] if transposed else codes.shape[2]
-    dev = x.device
-    for name, t in (("codes", codes), ("scales", scales), ("zps", zps),
-                    ("use_lsb", use_lsb)):
-        _check(t.device == dev, f"{name} on {t.device}, x on {dev}")
-    _check(x.dtype in _X_DTYPES,
-           f"x dtype {x.dtype}: the kernel takes float32 or bfloat16")
-    _check(codes.dtype == torch.uint8, f"codes dtype {codes.dtype}")
-    _check(scales.dtype == torch.float32, f"scales dtype {scales.dtype}")
-    _check(zps.dtype == torch.uint8, f"zps dtype {zps.dtype}")
-    _check(group_size % 32 == 0 and K % group_size == 0,
-           f"K={K} and group_size={group_size}: the kernel needs "
-           "group_size % 32 == 0 and K % group_size == 0")
-    want = (E, N, K) if transposed else (E, K, N)
-    _check(tuple(codes.shape) == want, f"codes {tuple(codes.shape)} != {want}")
-    _check(transposed or N % 4 == 0,
-           f"N={N}: K-major codes need N % 4 == 0 (4-byte row loads)")
-    G = K // group_size
-    _check(tuple(scales.shape) == (E, G, N), f"scales {tuple(scales.shape)}")
-    _check(tuple(zps.shape) == (E, G, N), f"zps {tuple(zps.shape)}")
-    _check(tuple(use_lsb.shape) == (E,), f"use_lsb {tuple(use_lsb.shape)}")
-    for name, t in (("x", x), ("codes", codes), ("scales", scales),
-                    ("zps", zps), ("use_lsb", use_lsb)):
-        _check(t.is_contiguous(), f"{name} is not contiguous")
-    _check(codes.data_ptr() % 16 == 0, "codes are not 16-byte aligned")
-    if use_lsb.dtype != torch.bool:
-        use_lsb = use_lsb != 0
-    out = torch.empty((E, M, N), dtype=torch.float32, device=dev)
-    if E == 0 or M == 0 or N == 0:
-        return out
-    fn, err = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), _X_DTYPES[x.dtype], codes.data_ptr(),
-                scales.data_ptr(), zps.data_ptr(), use_lsb.data_ptr(),
-                out.data_ptr(), E, M, K, N, group_size, shift,
-                int(transposed), stream)
+def raise_on_error(rc: int, entry: str) -> None:
     if rc != 0:
-        raise RuntimeError(
-            f"amat_batched_matmul launch failed: {err(rc).decode()}")
-    LAUNCHES.by_layout["output_major" if transposed else "k_major"] += 1
-    return out
+        msg = library().amat_error_string(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg}")
+
+
+def stream_of(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def check_operands(who: str, x, codes, scales, zps, *, group_size: int,
+                   codes_shape, meta_shape, use_lsb=None):
+    """Raise ``ValueError`` on what the kernel does not take.  Returns
+    ``use_lsb`` as bool."""
+    def check(cond: bool, msg: str) -> None:
+        if not cond:
+            raise ValueError(f"{who}: {msg}")
+
+    K = x.shape[-1]
+    dev = x.device
+    named = [("x", x), ("codes", codes), ("scales", scales), ("zps", zps)]
+    if use_lsb is not None:
+        named.append(("use_lsb", use_lsb))
+    for name, t in named[1:]:
+        check(t.device == dev, f"{name} on {t.device}, x on {dev}")
+    check(x.dtype in X_DTYPES,
+          f"x dtype {x.dtype}: the kernel takes float32 or bfloat16")
+    check(codes.dtype == torch.uint8, f"codes dtype {codes.dtype}")
+    check(scales.dtype == torch.float32, f"scales dtype {scales.dtype}")
+    check(zps.dtype == torch.uint8, f"zps dtype {zps.dtype}")
+    check(group_size % 32 == 0 and K % group_size == 0,
+          f"K={K} and group_size={group_size}: the kernel needs "
+          "group_size % 32 == 0 and K % group_size == 0")
+    check(tuple(codes.shape) == tuple(codes_shape),
+          f"codes {tuple(codes.shape)} != {tuple(codes_shape)}")
+    check(tuple(scales.shape) == tuple(meta_shape),
+          f"scales {tuple(scales.shape)}")
+    check(tuple(zps.shape) == tuple(meta_shape), f"zps {tuple(zps.shape)}")
+    if use_lsb is not None:
+        check(tuple(use_lsb.shape) == (x.shape[0],),
+              f"use_lsb {tuple(use_lsb.shape)}")
+    for name, t in named:
+        check(t.is_contiguous(), f"{name} is not contiguous")
+    check(codes.data_ptr() % 16 == 0, "codes are not 16-byte aligned")
+    if use_lsb is not None and use_lsb.dtype != torch.bool:
+        use_lsb = use_lsb != 0
+    return use_lsb
+
+
+def pad_columns(n_to: int, codes, scales, zps):
+    """Zero-pad the last (N) dimension of codes and metadata to ``n_to``
+    columns.  A padded column has scale 0, so its weights are 0 and its
+    output columns, which the caller drops, are 0."""
+    n = codes.shape[-1]
+    return tuple(F.pad(t, (0, n_to - n)) for t in (codes, scales, zps))
+
+
+def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
+           zps, use_lsb, *, group_size: int, shift: int,
+           transposed: bool = False, high: bool = False):
+    """Check the operands, pad a ragged K-major N to a multiple of 4,
+    launch the kernel on ``x``'s card and add one to ``counter``'s
+    ``key``.  ``x`` is ``[E, M, K]`` with ``use_lsb [E]`` (C entry
+    ``amat_batched_matmul``) or ``[M, K]`` with ``use_lsb=None`` and the
+    static precision ``high`` (C entry ``amat_single_matmul``)."""
+    *lead, M, K = x.shape
+    N = codes.shape[-2] if transposed else codes.shape[-1]
+    use_lsb = check_operands(
+        who, x, codes, scales, zps, group_size=group_size,
+        codes_shape=(*lead, N, K) if transposed else (*lead, K, N),
+        meta_shape=(*lead, K // group_size, N), use_lsb=use_lsb)
+    n_pad = 0 if transposed else -N % 4
+    if n_pad:
+        codes, scales, zps = pad_columns(N + n_pad, codes, scales, zps)
+    out = torch.empty((*lead, M, N + n_pad), dtype=torch.float32,
+                      device=x.device)
+    if out.numel():
+        lib = library()
+        ptrs = (x.data_ptr(), X_DTYPES[x.dtype], codes.data_ptr(),
+                scales.data_ptr(), zps.data_ptr())
+        with torch.cuda.device(x.device):
+            if use_lsb is None:
+                rc = lib.amat_single_matmul(
+                    *ptrs, out.data_ptr(), M, K, N + n_pad, group_size,
+                    shift, int(high), stream_of(x.device))
+            else:
+                rc = lib.amat_batched_matmul(
+                    *ptrs, use_lsb.data_ptr(), out.data_ptr(), lead[0], M, K,
+                    N + n_pad, group_size, shift, int(transposed),
+                    stream_of(x.device))
+        raise_on_error(rc, who)
+        counter.by_key[key] += 1
+    return out[..., :N].contiguous() if n_pad else out
 
 
 def amat_expert_matmul(x, codes, scales, zps, use_lsb, *,
@@ -132,8 +173,10 @@ def amat_expert_matmul(x, codes, scales, zps, use_lsb, *,
     with the metadata still K-major ``[E, K//G, N]``.
     """
     if x.device.type == "cuda":
-        return _launch(x, codes, scales, zps, use_lsb, group_size, shift,
-                       transposed)
+        return launch("amat_expert_matmul", LAUNCHES,
+                      "output_major" if transposed else "k_major", x, codes,
+                      scales, zps, use_lsb, group_size=group_size,
+                      shift=shift, transposed=transposed)
     if x.device.type == "cpu":
         ref = amat_batched_matmul_t_ref if transposed \
             else amat_batched_matmul_ref
@@ -156,3 +199,31 @@ def amat_expert_matmul_t(x, codes_t, scales, zps, use_lsb, *, shift: int,
     return amat_expert_matmul(x, codes_t, scales, zps, use_lsb,
                               group_size=group_size, shift=shift,
                               transposed=True)
+
+
+def amat_matmul(x, codes, scales, zps, *, group_size: int = 32,
+                shift: int = 0, mode: str = "high"):
+    """x [M, K] @ dequant(codes [K, N]) -> [M, N] f32.
+
+    ``mode='high'`` dequantizes ``(c - z) * s`` and ignores ``shift``;
+    ``mode='low'`` the MSB-only ``(c >> shift - z >> shift) * s *
+    2^shift``.  scales / zps are ``[K // group_size, N]``.
+    """
+    if mode not in MODES:
+        raise ValueError(f"amat_matmul: mode {mode!r} is not one of {MODES}")
+    if x.device.type == "cuda":
+        return launch("amat_matmul", LAUNCHES, "single", x, codes, scales,
+                      zps, None, group_size=group_size, shift=shift,
+                      high=mode == "high")
+    if x.device.type == "cpu":
+        return amat_matmul_ref(x, codes, scales, zps, group_size=group_size,
+                               shift=shift, mode=mode)
+    raise ValueError(f"amat_matmul: no path for device {x.device}")
+
+
+def amat_matmul_qt(x, qt, *, shift: int = 0, mode: str = "high"):
+    """QuantizedTensor convention for the single-matrix kernel."""
+    if not qt.asymmetric:
+        raise ValueError("AMAT kernel expects asymmetric group quant")
+    return amat_matmul(x, qt.codes, qt.scales, qt.zero_points,
+                       group_size=qt.group_size, shift=shift, mode=mode)

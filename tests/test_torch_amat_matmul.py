@@ -1,0 +1,196 @@
+"""Port parity: the single-matrix AMAT dequant-matmul (``amat_matmul``).
+
+CPU tests hold the plain PyTorch version and the wrapper's CPU path
+against the JAX package's wrapper run in Pallas interpret mode, on the
+reference's own cases (``tests/test_kernels.py``: its M, K, N shapes x
+the three precision modes x f32 and bf16 activations), at atol
+1e-4 * max(1, max|ref|).  bf16 activations are cast to f32 exactly on
+both sides, so 1e-4 holds for them too.  The ``gpu`` tests hold the CUDA
+kernel against the plain version on the card; they decide inside the test
+whether a card is present and import nothing of JAX, so they run on a
+machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_amat_matmul.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.amat_matmul import ops as TOPS
+from repro_torch.kernels.amat_matmul.ref import amat_matmul_ref
+from repro_torch.quant.groupquant import quantize
+
+# One intra-op thread per test process: parallel test workers would
+# otherwise oversubscribe the cores.
+torch.set_num_threads(1)
+
+# The reference's kernel cases (tests/test_kernels.py::SHAPES_MKN).
+SHAPES_MKN = [(8, 32, 16), (16, 64, 48), (128, 256, 128), (7, 96, 33),
+              (1, 32, 128)]
+MODES = [("high", 0), ("low", 4), ("low", 2)]
+X_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+CASES = [(mkn, mode, shift, xd) for mkn in SHAPES_MKN
+         for mode, shift in MODES for xd in X_DTYPES]
+CASE_IDS = [f"{m}x{k}x{n}-{mode}{shift}-{xd}"
+            for (m, k, n), mode, shift, xd in CASES]
+
+
+def _inputs(M, K, N, x_dtype, *, seed, device="cpu"):
+    """x [M, K] in ``x_dtype`` and the AMAT (8-bit, G32, asymmetric)
+    quantization of a [K, N] weight drawn as the reference test draws it."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.1)
+                         .astype(np.float32))
+    qt = quantize(w.to(device), bits=8, group_size=32, asymmetric=True)
+    return x.to(x_dtype).to(device), qt
+
+
+def _case_inputs(case):
+    (M, K, N), _, _, xd = case
+    return _inputs(M, K, N, X_DTYPES[xd], seed=M * 1000 + N)
+
+
+def _jax_amat_matmul(x, qt, *, shift, mode):
+    import jax.numpy as jnp
+
+    from repro.kernels.amat_matmul.ops import amat_matmul
+
+    xj = jnp.asarray(x.to(torch.float32).numpy())
+    if x.dtype == torch.bfloat16:
+        xj = xj.astype(jnp.bfloat16)            # exact: already bf16 values
+    out = amat_matmul(xj, jnp.asarray(qt.codes.numpy()),
+                      jnp.asarray(qt.scales.numpy()),
+                      jnp.asarray(qt.zero_points.numpy()), group_size=32,
+                      shift=shift, mode=mode, interpret=True)
+    return np.asarray(out)
+
+
+@pytest.fixture(scope="module")
+def jax_result():
+    """The JAX wrapper's output for a case, computed once per module."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            _, mode, shift, _ = case
+            x, qt = _case_inputs(case)
+            cache[case] = _jax_amat_matmul(x, qt, shift=shift, mode=mode)
+        return cache[case]
+    return get
+
+
+def _assert_matches(got, want):
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(
+        got, want, atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_plain_matches_reference(jax_result, case):
+    _, mode, shift, _ = case
+    x, qt = _case_inputs(case)
+    got = amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points,
+                          group_size=32, shift=shift, mode=mode)
+    _assert_matches(got.numpy(), jax_result(case))
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_cpu_wrapper_matches_reference(jax_result, case):
+    _, mode, shift, _ = case
+    x, qt = _case_inputs(case)
+    before = TOPS.LAUNCHES.count
+    got = TOPS.amat_matmul_qt(x, qt, shift=shift, mode=mode)
+    assert TOPS.LAUNCHES.count == before     # the CPU path launches nothing
+    _assert_matches(got.numpy(), jax_result(case))
+
+
+def test_single_matrix_is_the_batched_function_at_one_expert():
+    """What lets the CUDA entry reuse the batched body: 'high' is
+    use_lsb = True, 'low' at a shift is use_lsb = False at that shift, and
+    'low' at shift 0 truncates nothing."""
+    x, qt = _inputs(7, 96, 36, torch.float32, seed=5)
+    for mode, shift in MODES + [("low", 0)]:
+        single = TOPS.amat_matmul(x, qt.codes, qt.scales, qt.zero_points,
+                                  shift=shift, mode=mode)
+        batched = TOPS.amat_expert_matmul(
+            x[None], qt.codes[None], qt.scales[None], qt.zero_points[None],
+            torch.tensor([mode == "high"]), shift=shift)[0]
+        torch.testing.assert_close(single, batched, rtol=0, atol=1e-5)
+    high = TOPS.amat_matmul(x, qt.codes, qt.scales, qt.zero_points,
+                            mode="high")
+    low0 = TOPS.amat_matmul(x, qt.codes, qt.scales, qt.zero_points,
+                            shift=0, mode="low")
+    torch.testing.assert_close(high, low0, rtol=0, atol=0)
+
+
+def test_column_padding_keeps_the_function():
+    """The card wrapper's pad of a ragged N: padded columns give zeros and
+    leave the others as they were."""
+    x, qt = _inputs(7, 96, 33, torch.float32, seed=2)
+    want = amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points)
+    codes, scales, zps = TOPS.pad_columns(36, qt.codes, qt.scales,
+                                          qt.zero_points)
+    assert codes.shape == (96, 36) and scales.shape == zps.shape == (3, 36)
+    got = amat_matmul_ref(x, codes, scales, zps)
+    torch.testing.assert_close(got[:, :33], want, rtol=0, atol=1e-6)
+    assert bool((got[:, 33:] == 0).all())
+
+
+def test_wrapper_rejects_an_unknown_mode_and_device():
+    x, qt = _inputs(2, 32, 8, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="mode"):
+        TOPS.amat_matmul_qt(x, qt, mode="mid")
+    with pytest.raises(ValueError, match="no path for device"):
+        TOPS.amat_matmul(x.to("meta"), qt.codes.to("meta"),
+                         qt.scales.to("meta"), qt.zero_points.to("meta"))
+
+
+# --------------------------------------------------------------------------
+# On the card: the CUDA kernel against its plain version.
+# --------------------------------------------------------------------------
+# The reference's shapes, then one qwen15-moe-a2.7b expert's ``wi`` at the
+# prefill capacity and at one decode token.
+GPU_SHAPES = SHAPES_MKN + [(128, 2048, 2816), (1, 2048, 2816)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m gpu)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xd", sorted(X_DTYPES))
+@pytest.mark.parametrize("mode,shift", MODES + [("low", 0)])
+@pytest.mark.parametrize("mkn", GPU_SHAPES, ids=str)
+def test_cuda_kernel_matches_plain(cuda_device, mkn, mode, shift, xd):
+    M, K, N = mkn
+    x, qt = _inputs(M, K, N, X_DTYPES[xd], seed=11, device=cuda_device)
+    plain = amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points,
+                            shift=shift, mode=mode)
+    before = TOPS.LAUNCHES.by_key["single"]
+    got = TOPS.amat_matmul_qt(x, qt, shift=shift, mode=mode)
+    torch.cuda.synchronize()
+    assert TOPS.LAUNCHES.by_key["single"] == before + 1
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    # f32 accumulation in another order than the plain version's matmul.
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_on_bad_input(cuda_device):
+    x, qt = _inputs(3, 64, 8, torch.float32, seed=0, device=cuda_device)
+    args = (qt.codes, qt.scales, qt.zero_points)
+    with pytest.raises(ValueError, match="group_size"):
+        TOPS.amat_matmul(x, *args, group_size=16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TOPS.amat_matmul(x.half(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        TOPS.amat_matmul(x.t().contiguous().t(), *args)
+    with pytest.raises(ValueError, match="codes"):
+        TOPS.amat_matmul(x, qt.codes[:32], *args[1:])

@@ -1,0 +1,183 @@
+"""Port parity: flash attention (causal, GQA, optional sliding window).
+
+CPU tests hold the plain PyTorch version and the wrapper's CPU path
+against the JAX package's wrapper run in Pallas interpret mode (with the
+reference test's 8 x 8 tiles), on the reference's own cases
+(``tests/test_kernels.py::TestFlashAttention``), at atol
+1e-4 * max(1, max|ref|).  The ``gpu`` tests hold the CUDA kernel against
+the plain version on the card; they decide inside the test whether a card
+is present and import nothing of JAX, so they run on a machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_flash_attn.py
+
+Every case keeps a visible key for every query row: rows without one are
+outside the contract (``repro_torch/kernels/flash_attn/ref.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attn import ops as TOPS
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+
+# One intra-op thread per test process: parallel test workers would
+# otherwise oversubscribe the cores.
+torch.set_num_threads(1)
+
+# The reference's cases: (B, Sq, Sk, H, Hkv, D, causal, window).
+DIMS = [(1, 16, 16, 4, 2, 32, True, None),
+        (2, 24, 40, 8, 2, 32, True, None),
+        (1, 17, 33, 4, 4, 64, True, 8),      # ragged + sliding window
+        (1, 16, 16, 4, 2, 32, False, None)]  # non-causal (encoder)
+
+
+def _inputs(B, Sq, Sk, H, Hkv, D, *, seed, dtype=torch.float32,
+            device="cpu"):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dtype).to(device)
+               for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    return q, k, v
+
+
+def _case_inputs(dims):
+    return _inputs(*dims[:6], seed=sum(dims[:6]))
+
+
+@pytest.fixture(scope="module")
+def jax_result():
+    """The JAX wrapper's output (interpret mode, 8 x 8 tiles) for a case,
+    computed once per module."""
+    cache = {}
+
+    def get(dims):
+        if dims not in cache:
+            import jax.numpy as jnp
+
+            from repro.kernels.flash_attn.ops import flash_attention
+
+            q, k, v = _case_inputs(dims)
+            out = flash_attention(
+                *(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                causal=dims[6], sliding_window=dims[7], bq=8, bk=8,
+                interpret=True)
+            cache[dims] = np.asarray(out)
+        return cache[dims]
+    return get
+
+
+def _assert_matches(got, want):
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(
+        got, want, atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=str)
+def test_plain_matches_reference(jax_result, dims):
+    q, k, v = _case_inputs(dims)
+    got = flash_attention_ref(q, k, v, causal=dims[6],
+                              sliding_window=dims[7])
+    _assert_matches(got.numpy(), jax_result(dims))
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=str)
+def test_cpu_wrapper_matches_reference(jax_result, dims):
+    q, k, v = _case_inputs(dims)
+    before = TOPS.LAUNCHES.count
+    got = TOPS.flash_attention(q, k, v, causal=dims[6],
+                               sliding_window=dims[7])
+    assert TOPS.LAUNCHES.count == before     # the CPU path launches nothing
+    _assert_matches(got.numpy(), jax_result(dims))
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_plain_matches_the_oracle_across_query_chunks(window):
+    """The plain version works through the query rows 1024 at a time (so
+    that the full-width shapes fit on the card); with more rows than that
+    it still computes the reference oracle's function."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attn.ref import flash_attention_ref as oracle
+
+    q, k, v = _inputs(1, 1030, 1030, 2, 1, 16, seed=8)
+    want = oracle(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                  sliding_window=window)
+    got = flash_attention_ref(q, k, v, sliding_window=window)
+    _assert_matches(got.numpy(), np.asarray(want))
+
+
+def test_gqa_query_head_reads_kv_head_h_div_rep():
+    """Query head h reads KV head h // rep, as the reference's (hkv, rep)
+    reshape does: heads 0-1 of a 4-head, 2-KV-head case see KV head 0."""
+    q, k, v = _inputs(1, 6, 6, 4, 2, 16, seed=9)
+    out = flash_attention_ref(q, k, v)
+    for h in range(4):
+        one = flash_attention_ref(q[:, :, h:h + 1], k[:, :, h // 2:h // 2 + 1],
+                                  v[:, :, h // 2:h // 2 + 1])
+        torch.testing.assert_close(out[:, :, h:h + 1], one, rtol=0, atol=1e-6)
+
+
+def test_wrapper_rejects_an_unsupported_device():
+    q, k, v = _inputs(1, 4, 4, 2, 1, 16, seed=0)
+    with pytest.raises(ValueError, match="no path for device"):
+        TOPS.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# --------------------------------------------------------------------------
+# On the card: the CUDA kernel against its plain version.
+# --------------------------------------------------------------------------
+# The reference's cases, then each head dim the kernel is built for, with
+# ragged lengths (tiles of 64 rows and keys), GQA, a window and Sq != Sk.
+GPU_DIMS = DIMS + [
+    (b, sq, sk, h, hkv, d, causal, win)
+    for d in (16, 32, 64, 128)
+    for b, sq, sk, h, hkv, causal, win in (
+        (2, 100, 130, 8, 2, True, None),
+        (1, 200, 200, 4, 1, True, 48),
+        (1, 70, 50, 4, 4, False, None),
+        (1, 130, 190, 6, 3, False, 40))]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card with -m gpu)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", GPU_DIMS, ids=str)
+def test_cuda_kernel_matches_plain(cuda_device, dims, dtype):
+    B, Sq, Sk, H, Hkv, D, causal, win = dims
+    q, k, v = _inputs(B, Sq, Sk, H, Hkv, D, seed=11, dtype=dtype,
+                      device=cuda_device)
+    plain = flash_attention_ref(q, k, v, causal=causal, sliding_window=win)
+    before = TOPS.LAUNCHES.by_key["flash"]
+    got = TOPS.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    torch.cuda.synchronize()
+    assert TOPS.LAUNCHES.by_key["flash"] == before + 1
+    assert got.shape == (B, Sq, H, D) and got.dtype == torch.float32
+    # f32 sums in another order (online softmax over tiles of 64 keys).
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_on_bad_input(cuda_device):
+    q, k, v = _inputs(1, 8, 8, 4, 2, 48, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        TOPS.flash_attention(q, k, v)
+    q, k, v = _inputs(1, 8, 8, 4, 3, 32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        TOPS.flash_attention(q, k, v)
+    q, k, v = _inputs(1, 8, 8, 4, 2, 32, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TOPS.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtype"):
+        TOPS.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        TOPS.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v)

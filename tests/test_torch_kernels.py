@@ -23,11 +23,13 @@ from repro_torch.kernels.amat_matmul.ref import (amat_batched_matmul_ref,
 # keeps parallel test workers from oversubscribing the cores.
 torch.set_num_threads(1)
 
-# (E, M, K, N): qwen15-moe-repro wi / wo at decode capacity, a ragged case.
+# (E, M, K, N): qwen15-moe-repro wi / wo at decode capacity, a ragged case,
+# and an N that is not a multiple of 4 (the card wrapper pads K-major codes).
 CASES = {
     "repro_wi": (60, 8, 256, 128),
     "repro_wo": (60, 8, 64, 256),
     "ragged": (3, 5, 96, 72),
+    "ragged_n": (3, 5, 96, 70),
 }
 
 
@@ -144,6 +146,5 @@ def test_cuda_wrapper_raises_on_bad_input(cuda_device):
         TOPS.amat_expert_matmul(*bad)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         TOPS.amat_expert_matmul(args[0].half(), *args[1:])
-    odd = _inputs(2, 3, 64, 6, seed=0, transposed=False, device=cuda_device)
-    with pytest.raises(ValueError, match="N % 4"):
-        TOPS.amat_expert_matmul(*odd)
+    with pytest.raises(ValueError, match="use_lsb"):
+        TOPS.amat_expert_matmul(*args[:4], args[4][:1])

@@ -14,11 +14,15 @@ it goes, any failure exiting non-zero:
    accumulation in another order): both code layouts with the bf16
    activations the main path gives them at its decode (4 sequences) and
    prefill (128 tokens) capacities, with f32 activations at the decode
-   capacity, and a ragged case; the decode shapes are then timed with
-   CUDA events beside the plain version, one ``torch.bmm`` on
-   pre-dequantized f32 weights (the nearest library call; it reads dense
-   f32 weights, not the packed codes) and the card's bound.  The kernels
-   line reports the bf16 decode variant, the one the decode steps launch;
+   capacity, and a ragged case; the decode shapes are then timed beside
+   the plain version, one ``torch.bmm`` on pre-dequantized f32 weights
+   (the nearest library call; it reads dense f32 weights, not the packed
+   codes) and the card's bound.  Every timed row gives ``ms`` (CUDA events
+   around 20 calls: what a caller of the wrapper sees, host cost
+   included) and, for the kernel and the library call, ``graph_ms`` (the
+   same 20 calls captured in one CUDA graph and replayed: device time).
+   The kernels line reports the bf16 decode variant, the one the decode
+   steps launch;
 3b. the slice's kernels against their plain versions at the same
    tolerance, at the widths of configs in the repo: K3 ``amat_matmul``
    (one qwen15-moe-a2.7b expert matrix), K4 ``expert_matmul`` (K1's
@@ -26,7 +30,12 @@ it goes, any failure exiting non-zero:
    attention, llama4-scout-17b-a16e's windowed GQA attention), each with
    a ragged or small case; timed rows beside the plain version, one
    library call (``torch.matmul`` / ``torch.bmm`` on dense f32 weights,
-   ``scaled_dot_product_attention``) and the card's bound;
+   ``scaled_dot_product_attention``) and the card's bound, and for the
+   bf16 K3 and K5 rows (the tensor-core kernels) a ``[versus]`` line
+   comparing ``graph_ms`` with the library call's;
+   Then a sweep of K3's K split: ``graph_ms`` of the bf16 tensor-core
+   kernel at M = 1, 16, 64 and 128 for each split count, the plan's
+   choice marked (the evidence for ``mma_plan``);
 3c. the slice's path: the public entry points of K3-K5 driven once each
    at those full widths, with the launch counts set to 0 just before and
    read just after; every kernel must have launched and every output be
@@ -48,7 +57,8 @@ Without arguments the script runs phases 1 to 5.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5; ``launches`` counts phase 5's run
-for K1 and K2 and phase 3c's for K3-K5).
+for K1 and K2 and phase 3c's for K3-K5; ``graph_ms`` and
+``library_graph_ms`` beside ``ms`` and ``library_ms``).
 """
 
 from __future__ import annotations
@@ -103,6 +113,42 @@ def time_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, what: str, *, warmup: int = 3, iters: int = 20) -> float:
+    """The same ``iters`` calls as :func:`time_ms`, after warm-up on a side
+    stream, captured once in a CUDA graph and replayed between CUDA events:
+    device time without the host's launch gaps.  A capture that the
+    default mode refuses is said and retried in the relaxed mode; raises
+    ``RuntimeError`` if neither takes it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for mode in ("global", "relaxed"):
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode=mode):
+                for _ in range(iters):
+                    fn()
+        except RuntimeError as e:
+            say(f"[graph] {what}: capture in mode {mode!r} refused: {e}")
+            torch.cuda.synchronize()
+            continue
+        graph.replay()                  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / iters
+    raise RuntimeError(f"{what}: no CUDA graph could be captured")
 
 
 # --------------------------------------------------------------------------
@@ -207,20 +253,40 @@ def _check_row(name, got, want, shape) -> float:
 
 
 def _timed(name, kern, plain, library, library_what, nbytes, flops, note):
-    t = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5)}
+    t = {"ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+         "library_ms": None, "library_graph_ms": None}
+    try:
+        t["graph_ms"] = graph_ms(kern, name)
+    except RuntimeError as e:
+        fail(str(e))
     try:
         t["library_ms"] = time_ms(library)
+        t["library_graph_ms"] = graph_ms(library, f"{name} library call")
     except RuntimeError as e:       # out of memory, or no backend for it
         say(f"[kernel] {name}: library call {library_what} not timed: {e}")
-        t["library_ms"] = None
     t["bound_ms"], t["bound_by"] = _bound(nbytes, flops)
-    lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-    say(f"[kernel] {name} timing: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, {library_what} {lib}; bound "
+    lib = ", ".join(f"{k} {'null' if t[k] is None else f'{t[k]:.4f}'}"
+                    for k in ("library_ms", "library_graph_ms"))
+    say(f"[kernel] {name} timing: kernel {t['ms']:.4f} ms (graph "
+        f"{t['graph_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+        f"{library_what} {lib}; bound "
         f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({nbytes / 1e6:.1f} MB, "
         + ", ".join(f"{n / 1e9:.2f} GFLOP {kind}"
                     for kind, n in flops.items()) + f"); {note}")
+    torch.cuda.empty_cache()
     return t
+
+
+def _versus_library(name, t) -> None:
+    """Say whether the kernel's graph time is no slower than the library
+    call's (the yardstick of a redesigned kernel)."""
+    if t["library_graph_ms"] is None:
+        say(f"[versus] {name}: library call not timed")
+        return
+    ratio = t["graph_ms"] / t["library_graph_ms"]
+    say(f"[versus] {name}: graph_ms kernel {t['graph_ms']:.4f} / library "
+        f"{t['library_graph_ms']:.4f} = {ratio:.3f} "
+        f"({'no slower' if ratio <= 1.0 else 'SLOWER'} than the library)")
 
 
 def phase_kernels(cfg):
@@ -310,8 +376,9 @@ def phase_slice_kernels(cfg):
     plain version, one library call and the card's bound:
 
     * K3 ``amat_matmul``: one qwen15-moe-a2.7b expert's ``wi`` (K=2048,
-      N=2816) at the prefill capacity (M=128) in each precision mode and
-      at one decode token, and the reference's ragged M=7, K=96, N=33;
+      N=2816) at the prefill capacity (M=128) in each precision mode, with
+      bf16 (tensor cores) and f32 (CUDA cores) activations, and at one
+      decode token, and the reference's ragged M=7, K=96, N=33 in both;
     * K4 ``expert_matmul``: K1's ``wi`` shapes (E=60 at the decode and
       prefill capacities) and the reference's ragged E=8, C=33, K=96;
     * K5 ``flash_attention``: qwen15-moe-a2.7b's causal attention at 4
@@ -355,12 +422,13 @@ def phase_slice_kernels(cfg):
     single_rows = [
         # name, M, K, N, x dtype, mode, shift, timed, reported
         ("amat_single_prefill_high", 128, K, N, bf16, "high", 0, True, True),
-        ("amat_single_prefill_high_f32", 128, K, N, f32, "high", 0, False,
+        ("amat_single_prefill_high_f32", 128, K, N, f32, "high", 0, True,
          False),
         ("amat_single_prefill_low4", 128, K, N, bf16, "low", 4, True, False),
         ("amat_single_prefill_low2", 128, K, N, bf16, "low", 2, False, False),
         ("amat_single_decode_low4", 1, K, N, bf16, "low", 4, True, False),
         ("amat_single_ragged", 7, 96, 33, f32, "low", 4, False, False),
+        ("amat_single_ragged_bf16", 7, 96, 33, bf16, "low", 4, False, False),
     ]
     for name, M, k, n, xd, mode, shift, timed, reported in single_rows:
         qts = copies if k == K else [quantized(k, n)]
@@ -391,6 +459,8 @@ def phase_slice_kernels(cfg):
                        _amat_flops(xd, 2.0 * M * k * n),
                        "each loop rotates over 10 copies (58 MB of codes, "
                        "231 MB of dense f32 for the library call)")
+            if xd == bf16:
+                _versus_library(name, t)
             del dense
         record("single", err, t, reported)
     del copies
@@ -499,18 +569,52 @@ def phase_slice_kernels(cfg):
             del want
             nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
                       + q.numel() * 4)
-            # 2*D for q.k and 2*D for p.v per visible (query, key) pair;
-            # q.k is bf16 work for bf16 inputs, p.v keeps its f32
-            # probabilities.
+            # 2*D for q.k and 2*D for p.v per visible (query, key) pair.
+            # With bf16 inputs the cheapest route that holds the tolerance
+            # is three bf16 products: q.k (exact) and p.v as p_hi.v +
+            # p_lo.v (the f32 p split in two bf16 parts); f32 inputs stay
+            # f32 work.
             half = 2.0 * dd * b * h * _visible_pairs(sq, sk, causal, win)
-            flops = ({"bf16": half, "f32": half} if dt == bf16
-                     else {"f32": 2 * half})
+            flops = {"bf16": 3 * half} if dt == bf16 else {"f32": 2 * half}
             t = _timed(name, kern, plain, library, what, nbytes, flops, note)
+            if dt == bf16:
+                _versus_library(name, t)
             del qf, kf, vf, mask
         record("flash", err, t, reported)
         del q, k, v
         torch.cuda.empty_cache()
     return results
+
+
+def phase_sweep_splits(cfg):
+    """``graph_ms`` of K3's tensor-core kernel (bf16 x, 'low' at shift 4,
+    one qwen15-moe-a2.7b ``wi``, rotating over 10 copies) for each K split
+    in turn, the plan's choice marked: the evidence for the split rule."""
+    from repro_torch.core.amat import MatConfig, amat_quantize
+    from repro_torch.kernels.amat_matmul import ops as amat_ops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(300)
+    K, N = cfg.d_model, 2 * cfg.moe.d_ff
+    qts = [amat_quantize(torch.randn((K, N), generator=g, device="cuda")
+                         * K ** -0.5, MatConfig(8, 4)) for _ in range(10)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = amat_ops.mma_plan
+    try:
+        for M in (1, 16, 64, 128):
+            x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+            m_tiles, chosen = plan(M, K, N, 32, sms)
+            row = []
+            for splits in (1, 2, 4, 6, 8, 12, 16):
+                amat_ops.mma_plan = (lambda *a, s=splits, t=m_tiles: (t, s))
+                t = graph_ms(_rotating(lambda qt: amat_ops.amat_matmul_qt(
+                    x, qt, shift=4, mode="low"), qts), f"sweep M={M}")
+                row.append(f"{splits}{'*' if splits == chosen else ''}: "
+                           f"{t:.4f}")
+            say(f"[sweep] K3 bf16 M={M} K={K} N={N} m_tiles={m_tiles}, "
+                f"graph_ms by splits (* = the plan's): " + ", ".join(row))
+    finally:
+        amat_ops.mma_plan = plan
 
 
 def phase_slice_path(cfg):
@@ -808,6 +912,7 @@ def main() -> None:
     phase_build()
     timings = phase_kernels(cfg)
     timings.update(phase_slice_kernels(cfg))
+    phase_sweep_splits(cfg)
     launches = phase_slice_path(cfg)
     phase_small_reference()
     serve_launches, engine, new_requests, wall_step = phase_serving(cfg)
@@ -834,8 +939,10 @@ def main() -> None:
             "name": variant, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_graph_ms": t["library_graph_ms"]})
     say(smi_name_power())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

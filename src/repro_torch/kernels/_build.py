@@ -4,8 +4,9 @@ count their launches.
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 placed under ``build/kernels/`` at the root of the checkout and named by
-a hash of the source and flags, so an edited source never loads a stale
-library.  Concurrent builders each compile to a private temporary name
+a hash of the source, the shared headers of ``kernels/csrc/`` (on the
+include path) and the flags, so an edited source or header never loads a
+stale library.  Concurrent builders each compile to a private temporary name
 and the last ``os.replace`` wins with identical content.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -24,6 +25,7 @@ from typing import Tuple
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+INCLUDE_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,7 +53,8 @@ def build_library(source: pathlib.Path, *, force: bool = False
     existing library was reused.  ``force`` rebuilds regardless (the
     chip smoke test does, to print the ptxas report).
     """
-    text = source.read_bytes()
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(INCLUDE_DIR.glob("*.cuh")))
     digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"lib{source.stem}_{digest[:12]}.so"
     if lib.exists() and not force:
@@ -61,7 +64,8 @@ def build_library(source: pathlib.Path, *, force: bool = False
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp,
+             str(source)],
             capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

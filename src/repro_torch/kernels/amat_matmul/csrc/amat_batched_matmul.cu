@@ -1,13 +1,15 @@
-// Fused AMAT group-dequant + batched expert matmul for Hopper (sm_90a).
+// Fused AMAT group-dequant + matmuls for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels with one body, `amat_tiles`:
+// Replaces three Pallas TPU kernels:
 //  * `_amat_batched_kernel` in src/repro/kernels/amat_matmul/kernel.py
 //    (entry points `amat_batched_matmul_pallas` and
 //    `amat_batched_matmul_t_pallas`), with the output-major (`wo`) code
-//    layout as the TRANSPOSED template flag: C entry `amat_batched_matmul`;
+//    layout as the TRANSPOSED template flag: C entry `amat_batched_matmul`,
+//    body `amat_tiles`;
 //  * `_amat_matmul_kernel` in the same file (`amat_matmul_pallas`, one
-//    matrix, static mode 'high' | 'low'): C entry `amat_single_matmul`, the
-//    K-major body at E = 1 with the precision passed by value;
+//    matrix, static mode 'high' | 'low'): C entry `amat_single_matmul`.
+//    bf16 x runs on the tensor cores (`amat_single_mma_kernel`, below);
+//    f32 x runs `amat_tiles` at E = 1 with the precision passed by value;
 //  * `_expert_matmul_kernel` in src/repro/kernels/expert_matmul/kernel.py
 //    (`expert_matmul_pallas`, the batched function with the flag in a (1, 1)
 //    block): C entry `amat_batched_matmul` on K-major codes.
@@ -28,26 +30,54 @@
 // Qwen1.5-MoE-A2.7B (E=60, M=8, K=2048, N=2816 for `wi`) the codes alone are
 // 346 MB against 5.5 GFLOP, about 16 FLOP per byte, far below the ~20
 // FLOP/byte at which f32 CUDA-core arithmetic (67 TFLOP/s) would overtake
-// HBM3 (3.35 TB/s).  The design therefore reads every code byte once, as
+// HBM3 (3.35 TB/s).  `amat_tiles` therefore reads every code byte once, as
 // uint8, and never writes a dequantized weight to device memory: a block
 // dequantizes its [32, 256] weight tile straight into shared memory and
 // every thread reads its column from there.  Each K tile is 32 rows, so it
 // lies inside one quantization group (group_size % 32 == 0) and needs one
-// scale and one zero-point per column.
+// scale and one zero-point per column.  Its grid is (ceil(N/256),
+// ceil(M/8), E); each block reads its own use_lsb[e] (the TPU kernel's
+// scalar prefetch), loops over K in 32-row tiles, stages the x tile and the
+// dequantized weight tile in shared memory, and keeps 8 f32 accumulators
+// per thread (one output column, 8 rows), on the CUDA cores.
 //
-// Layout of the work: grid (ceil(N/256), ceil(M/8), E); each block reads its
-// own use_lsb[e] (the TPU kernel's scalar prefetch; the single-matrix entry
-// takes the precision as a kernel argument), loops over K in 32-row
-// tiles, stages the x tile and the dequantized weight tile in shared memory,
-// and keeps 8 f32 accumulators per thread (one output column, 8 rows).  The
-// ragged M and N edges are masked in the block.  No tensor cores, TMA or
-// wgmma yet: this is the simple version that is right first.
+// The single matrix with bf16 x (`amat_single_mma_kernel`) is bound by
+// bytes too: one expert's `wi` (K=2048, N=2816) is 5.8 MB of codes and
+// 0.9 MB of metadata, 2.0 us at 3.35 TB/s, against 1.5 us of bf16 tensor
+// work at M=128 and 0.006 us at M=1.  `amat_tiles` there filled 11 of 132
+// SMs at M=1 and dequantized every code once per 8 rows of M at M=128.  The
+// design:
+//  * each weight is an integer of at most 8 bits, (c - z) or (c >> s) -
+//    (z >> s), exact in bf16, and x is bf16, so each 32-row group's
+//    product runs exactly on the tensor cores (`mma.sync m16n8k16` bf16 ->
+//    f32, x fragments by `ldmatrix`) into a group accumulator; the group's
+//    scale (times 2^shift in 'low') applies after it in f32;
+//  * a block owns 64 columns and up to 128 rows of M (8 warps: two along
+//    M from 32 rows up, the rest along the columns), so a code is read
+//    from device memory once per block and dequantized by the warps that
+//    own its column (one or two per block), straight from the code tile in
+//    shared memory into their B fragments in registers: no bf16 tile and
+//    no second barrier per chunk;
+//  * x, codes, scales and zero-points arrive by 16-byte `cp.async` in a
+//    ring of chunks of 32 rows; a barrier admits 2 or 4 chunks at once
+//    while the next two batches are in flight;
+//  * K is split across blocks in whole groups (blockIdx.z) so that the
+//    grid fills the card with two blocks per SM; each split writes f32
+//    partials [splits, M, N] and `sum_splits_kernel` adds them in split
+//    order: deterministic, no atomics.  The sum is launched as a
+//    programmatic dependent of the main kernel, which hides its launch.
+// Ragged M rows and columns past N arrive as zeros (cp.async zero-fill)
+// and are not stored; this route takes N % 16 == 0 (the wrapper pads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 8;        // x rows per block: the decode capacity floor
 constexpr int BN = 256;      // output columns per block, one per thread
@@ -229,6 +259,303 @@ void launch_batched(bool transposed, dim3 grid, cudaStream_t stream,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route of the single matrix, bf16 x (see the note at the top).
+
+constexpr int TC_BN = 64;          // output columns per block
+constexpr int TC_THREADS = 256;    // 8 warps
+constexpr int TC_LDX = BK + 8;     // x tile row: 40 bf16 (80 bytes)
+constexpr int TC_LDC = TC_BN + 16; // code tile row: 80 bytes
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_BATCH = 8;       // partials loaded before they are added
+
+// Padded rows: the 8 rows an `ldmatrix` of x reads fall in 8 distinct
+// 16-byte bank groups, and the 4 code rows 2q (q = lane % 4) a B fragment
+// gathers fall in 4 distinct banks.
+template <int MT>
+struct __align__(16) TcStage {
+  __nv_bfloat16 x[16 * MT][TC_LDX];  // x rows m0 .. m0 + 16*MT, 32 of K
+  uint8_t codes[BK][TC_LDC];
+  float scales[TC_BN];
+  uint8_t zps[TC_BN];
+};
+
+// The warps of a block: two along M when the block has two or more m16
+// tiles, the rest along its 64 columns.
+template <int MT>
+struct TcWarps {
+  static constexpr int WM = MT >= 2 ? 2 : 1;   // warps along M
+  static constexpr int WN = 8 / WM;            // warps along N
+  static constexpr int MW = MT / WM;           // m16 tiles per warp
+  static constexpr int COLS = TC_BN / WN;      // columns per warp: 8 or 16
+  static constexpr int NT = COLS / 8;          // n8 tiles per warp
+  // Chunks of 32 rows a block computes between two barriers (independent
+  // chains for the warps' schedulers), and the ring of chunks: two
+  // iterations' chunks in flight while one iteration computes (49 KB of
+  // shared memory at one m16 tile, 77 KB at eight).
+  static constexpr int CPI = MT <= 2 ? 4 : 2;
+  static constexpr int STAGES = 3 * CPI;
+};
+
+// One block: rows m0 .. m0 + 16*MT of x [M, K] against columns n0 .. n0+64
+// of the codes [K, N], over the quantization groups of split blockIdx.z of
+// gridDim.z.  Each warp builds the B fragments of its columns straight
+// from the code tile in registers (each weight an exact bf16 integer), so
+// one barrier per CPI chunks suffices.  With one split the block writes
+// `out` [M, N]; otherwise its partial sums go to partials[blockIdx.z].
+template <int MT>
+__global__ void __launch_bounds__(TC_THREADS)
+amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const uint8_t* __restrict__ codes,
+                       const float* __restrict__ scales,
+                       const uint8_t* __restrict__ zps,
+                       float* __restrict__ out, float* __restrict__ partials,
+                       int M, int K, int N, int group_size, int sh,
+                       float mult) {
+  using W = TcWarps<MT>;
+  constexpr int STAGES = W::STAGES;
+  constexpr int CPI = W::CPI;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  TcStage<MT>* st = reinterpret_cast<TcStage<MT>*>(tc_smem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / W::WN;
+  const int wn = warp % W::WN;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.y * 16 * MT;
+  const int splits = gridDim.z;
+  const int G = K / group_size;
+  const int per_group = group_size / BK;
+  const int g_begin = blockIdx.z * G / splits;
+  const int g_end = (blockIdx.z + 1) * G / splits;
+  const int c_begin = g_begin * per_group;
+  const int n_chunks = (g_end - g_begin) * per_group;
+
+  // Chunk c (32 rows of K, inside one group) into ring slot `slot`.
+  auto load = [&](int c, int slot) {
+    TcStage<MT>& s = st[slot];
+    const int k0 = (c_begin + c) * BK;
+    const size_t meta = static_cast<size_t>(k0 / group_size) * N;
+    for (int i = tid; i < 16 * MT * 4; i += TC_THREADS) {
+      const int r = i >> 2;
+      const int p = i & 3;
+      const bool ok = m0 + r < M;
+      cp_async16(&s.x[r][p * 8],
+                 ok ? x + static_cast<size_t>(m0 + r) * K + k0 + p * 8 : x,
+                 ok);
+    }
+    if (tid < 128) {
+      const int r = tid >> 2;
+      const int p = tid & 3;
+      const int n = n0 + p * 16;
+      const bool ok = n < N;
+      cp_async16(&s.codes[r][p * 16],
+                 ok ? codes + static_cast<size_t>(k0 + r) * N + n : codes, ok);
+    } else if (tid < 144) {
+      const int i = tid - 128;
+      const int n = n0 + i * 4;
+      const bool ok = n < N;
+      cp_async16(&s.scales[i * 4], ok ? scales + meta + n : scales, ok);
+    } else if (tid < 148) {
+      const int i = tid - 144;
+      const int n = n0 + i * 16;
+      const bool ok = n < N;
+      cp_async16(&s.zps[i * 16], ok ? zps + meta + n : zps, ok);
+    }
+  };
+
+  float acc[W::MW][W::NT][4];
+#pragma unroll
+  for (int i = 0; i < W::MW; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - CPI; ++c) {
+    if (c < n_chunks) load(c, c);
+    cp_async_commit();
+  }
+
+  launch_dependent_grid();  // the split sum may launch and wait now
+  for (int c0 = 0; c0 < n_chunks; c0 += CPI) {
+    // Chunks c0 .. c0 + CPI - 1 have landed once at most STAGES - 2 CPI
+    // later groups are pending; after the barrier every warp is done with
+    // the last iteration's slots, which the next loads refill.
+    cp_async_wait<STAGES - 2 * CPI>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < CPI; ++i) {
+      const int next = c0 + STAGES - CPI + i;
+      if (next < n_chunks) load(next, next % STAGES);
+      cp_async_commit();
+    }
+
+#pragma unroll
+    for (int ci = 0; ci < CPI; ++ci) {
+      if (c0 + ci >= n_chunks) break;
+      const TcStage<MT>& s = st[(c0 + ci) % STAGES];
+
+      // B fragments of this warp's n8 tiles: column wn*COLS + 8j + g, rows
+      // kk + 2q, 2q+1 (b0) and kk + 8 + 2q, 2q+1 (b1), as bf16 integers.
+      uint32_t b[2][W::NT][2];
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j) {
+        const int n = wn * W::COLS + 8 * j + g;
+        const int z = s.zps[n] >> sh;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 16 * kk + 8 * h + 2 * q;
+            b[kk][j][h] = pack_bf16(
+                static_cast<float>((s.codes[k][n] >> sh) - z),
+                static_cast<float>((s.codes[k + 1][n] >> sh) - z));
+          }
+      }
+
+      // The group's exact product, then its scale.
+      float gacc[W::MW][W::NT][4];
+#pragma unroll
+      for (int i = 0; i < W::MW; ++i)
+#pragma unroll
+        for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gacc[i][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int i = 0; i < W::MW; ++i) {
+          uint32_t a[4];
+          ldmatrix_x4(a, &s.x[(wm * W::MW + i) * 16 + (lane & 15)]
+                             [16 * kk + (lane >> 4) * 8]);
+#pragma unroll
+          for (int j = 0; j < W::NT; ++j)
+            mma_bf16(gacc[i][j], a, b[kk][j][0], b[kk][j][1]);
+        }
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j) {
+        const float2 sc = *reinterpret_cast<const float2*>(
+            &s.scales[wn * W::COLS + 8 * j + 2 * q]);
+        const float s0 = sc.x * mult;
+        const float s1 = sc.y * mult;
+#pragma unroll
+        for (int i = 0; i < W::MW; ++i) {
+          acc[i][j][0] = fmaf(s0, gacc[i][j][0], acc[i][j][0]);
+          acc[i][j][1] = fmaf(s1, gacc[i][j][1], acc[i][j][1]);
+          acc[i][j][2] = fmaf(s0, gacc[i][j][2], acc[i][j][2]);
+          acc[i][j][3] = fmaf(s1, gacc[i][j][3], acc[i][j][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = splits == 1
+                   ? out
+                   : partials + static_cast<size_t>(blockIdx.z) * M * N;
+#pragma unroll
+  for (int i = 0; i < W::MW; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j) {
+      const int row = m0 + (wm * W::MW + i) * 16 + g;
+      const int col = n0 + wn * W::COLS + 8 * j + 2 * q;
+      if (col >= N) continue;
+      if (row < M)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * N + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (row + 8 < M)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(row + 8) * N +
+                                   col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// out[i] = sum over s of partials[s][i], in split order; count % 4 == 0.
+// Launched as a programmatic dependent of the main kernel, so that its
+// launch overlaps the main kernel; it waits for that grid's completion and
+// memory before reading.  Each thread loads SUM_BATCH partials before
+// adding them, so that their reads overlap.
+__global__ void __launch_bounds__(SUM_THREADS)
+sum_splits_kernel(const float* __restrict__ partials, float* __restrict__ out,
+                  int splits, size_t count) {
+  wait_for_primary_grid();
+  const size_t i =
+      (static_cast<size_t>(blockIdx.x) * SUM_THREADS + threadIdx.x) * 4;
+  if (i >= count) return;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < splits; s0 += SUM_BATCH) {
+    float4 v[SUM_BATCH];
+#pragma unroll
+    for (int j = 0; j < SUM_BATCH; ++j)
+      if (s0 + j < splits)
+        v[j] = *reinterpret_cast<const float4*>(
+            partials + static_cast<size_t>(s0 + j) * count + i);
+#pragma unroll
+    for (int j = 0; j < SUM_BATCH; ++j)
+      if (s0 + j < splits) {
+        acc.x += v[j].x;
+        acc.y += v[j].y;
+        acc.z += v[j].z;
+        acc.w += v[j].w;
+      }
+  }
+  *reinterpret_cast<float4*>(out + i) = acc;
+}
+
+template <int MT>
+int launch_single_mma(const __nv_bfloat16* x, const uint8_t* codes,
+                      const float* scales, const uint8_t* zps, float* out,
+                      float* partials, int splits, int M, int K, int N,
+                      int group_size, int sh, float mult,
+                      cudaStream_t stream) {
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 16 * MT - 1) / (16 * MT),
+                  splits);
+  constexpr size_t bytes = TcWarps<MT>::STAGES * sizeof(TcStage<MT>);
+  // Set once per device, so that a launch inside a CUDA graph capture
+  // makes no other API call than cudaGetDevice.
+  constexpr int MAX_DEVICES = 64;
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(amat_single_mma_kernel<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < MAX_DEVICES) attr_set[dev] = true;
+  }
+  amat_single_mma_kernel<MT><<<grid, TC_THREADS, bytes, stream>>>(
+      x, codes, scales, zps, out, partials, M, K, N, group_size, sh, mult);
+  if (splits > 1) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t count = static_cast<size_t>(M) * N;
+    const size_t blocks = (count / 4 + SUM_THREADS - 1) / SUM_THREADS;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    cfg.blockDim = dim3(SUM_THREADS);
+    cfg.stream = stream;
+    cudaLaunchAttribute pdl;
+    pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &pdl;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, sum_splits_kernel,
+                             static_cast<const float*>(partials), out, splits,
+                             count);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -267,33 +594,51 @@ int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
 
 // One matrix: x [M, K] @ dequant(codes [K, N]) with a static precision,
 // high = 1 for MSB+LSB ('high'), 0 for MSB only at `shift` ('low').
+// f32 x runs `amat_single_kernel` (m_tiles, splits and partials unused).
+// bf16 x runs the tensor-core kernel on blocks of 16 * m_tiles rows (1, 2,
+// 4 or 8) and 64 columns, with K split `splits` ways in whole groups; with
+// splits > 1, partials is f32 scratch of splits * M * N.  The bf16 route
+// takes N % 16 == 0 and 16-byte aligned x, codes, scales and zps.
 int amat_single_matmul(const void* x, int x_dtype, const void* codes,
-                       const void* scales, const void* zps, void* out, int M,
-                       int K, int N, int group_size, int shift, int high,
+                       const void* scales, const void* zps, void* out,
+                       void* partials, int m_tiles, int splits, int M, int K,
+                       int N, int group_size, int shift, int high,
                        void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   const uint8_t* z = static_cast<const uint8_t*>(zps);
   float* o = static_cast<float*>(out);
+  float* part = static_cast<float*>(partials);
   const int sh = high ? 0 : shift;
   const float mult = high ? 1.0f : static_cast<float>(1 << shift);
-  switch (x_dtype) {
-    case 0:
-      amat_single_kernel<float><<<grid, THREADS, 0, s>>>(
-          static_cast<const float*>(x), c, sc, z, o, M, K, N, group_size, sh,
-          mult);
-      break;
+  if (x_dtype == 0) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
+    amat_single_kernel<float><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(x), c, sc, z, o, M, K, N, group_size, sh,
+        mult);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (x_dtype != 1 || N % 16 != 0 || splits < 1 ||
+      splits > K / group_size || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  switch (m_tiles) {
     case 1:
-      amat_single_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), c, sc, z, o, M, K, N,
-          group_size, sh, mult);
-      break;
+      return launch_single_mma<1>(xb, c, sc, z, o, part, splits, M, K, N,
+                                  group_size, sh, mult, s);
+    case 2:
+      return launch_single_mma<2>(xb, c, sc, z, o, part, splits, M, K, N,
+                                  group_size, sh, mult, s);
+    case 4:
+      return launch_single_mma<4>(xb, c, sc, z, o, part, splits, M, K, N,
+                                  group_size, sh, mult, s);
+    case 8:
+      return launch_single_mma<8>(xb, c, sc, z, o, part, splits, M, K, N,
+                                  group_size, sh, mult, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* amat_error_string(int code) {

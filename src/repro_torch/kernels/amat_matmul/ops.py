@@ -11,17 +11,31 @@ They keep the semantics of the reference wrappers
   [M, N] f32`` at a static precision, ``mode='high'`` (MSB+LSB) or
   ``'low'`` (MSB only at ``shift``).
 
-On CUDA tensors each launches the hand-written Hopper kernel
+On CUDA tensors each launches a hand-written Hopper kernel
 (``csrc/amat_batched_matmul.cu``) or raises: it checks device, dtype,
 shape, contiguity and alignment, allocates the output, checks the
 launch's return code and adds one to its key of :data:`LAUNCHES`.  On CPU
 tensors it runs the plain PyTorch version in :mod:`.ref`.
 
-The kernel masks ragged M and N itself.  Its K-major loads take 4 codes
-at a time, so :func:`launch`, the one launch path of every wrapper here
-and of ``expert_matmul``, pads the columns of K-major codes whose N is
-not a multiple of 4 (zero scales null the pad).  No model shape has such
-an N, so the copy never runs on them.
+The route by dtype of ``x``:
+
+* :func:`amat_expert_matmul` (and ``expert_matmul``), f32 or bf16: the
+  batched kernel on the CUDA cores, f32 products of dequantized weights;
+* :func:`amat_matmul` with bf16 ``x``: the tensor-core kernel.  Each
+  weight is an integer of at most 8 bits, exact in bf16, so each 32-row
+  group's product is exact in ``mma.sync`` bf16 -> f32 and its scale
+  applies after it.  At small M, K is split across blocks in whole
+  groups (:func:`mma_plan`) and a second kernel sums the splits in
+  order; the call still counts one launch;
+* :func:`amat_matmul` with f32 ``x``: the CUDA-core kernel (no exact
+  tensor-core route for f32: TF32 keeps 10 mantissa bits).
+
+The kernels mask ragged M and N themselves.  The CUDA-core kernels' K-major
+loads take 4 codes at a time, the tensor-core kernel's 16, so
+:func:`launch`, the one launch path of every wrapper here and of
+``expert_matmul``, pads the columns of K-major codes whose N is not a
+multiple of that (zero scales null the pad).  No model shape has such an
+N, so the copy never runs on them.
 """
 
 from __future__ import annotations
@@ -49,6 +63,13 @@ LAUNCHES = LaunchCounter("k_major", "output_major", "single")
 
 MODES = ("high", "low")
 
+# The tensor-core kernel's block: 64 columns and 16 * m_tiles rows.
+MMA_BN = 64
+MMA_M_TILES = (1, 2, 4, 8)
+# Blocks per SM that :func:`mma_plan` aims its K split at: two of the
+# largest blocks (77 KB of shared memory at 128 rows) fit on an SM.
+MMA_BLOCKS_PER_SM = 2
+
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
@@ -59,8 +80,8 @@ def library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.amat_batched_matmul.argtypes = [P, I, P, P, P, P, P,
                                         I, I, I, I, I, I, I, P]
-    lib.amat_single_matmul.argtypes = [P, I, P, P, P, P,
-                                       I, I, I, I, I, I, P]
+    lib.amat_single_matmul.argtypes = [P, I, P, P, P, P, P,
+                                       I, I, I, I, I, I, I, I, P]
     for fn in (lib.amat_batched_matmul, lib.amat_single_matmul):
         fn.restype = ctypes.c_int
     lib.amat_error_string.argtypes = [I]
@@ -76,6 +97,28 @@ def raise_on_error(rc: int, entry: str) -> None:
 
 def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132):
+    """``(m_tiles, splits)`` of the tensor-core kernel for x [M, K] and
+    codes [K, N]: the fewest m16 tiles whose block covers ``min(M, 128)``
+    rows, and the split of K that brings the grid to
+    :data:`MMA_BLOCKS_PER_SM` blocks per SM (one wave), at most one split
+    per group and at most as many as keep the f32 partials (``splits * M *
+    N * 4`` bytes) within twice the codes' ``K * N`` bytes."""
+    rows = min(M, 16 * MMA_M_TILES[-1])
+    m_tiles = next(t for t in MMA_M_TILES if 16 * t >= rows)
+    blocks = -(-N // MMA_BN) * -(-M // (16 * m_tiles))
+    want = -(-MMA_BLOCKS_PER_SM * sms // blocks)
+    cap = K // (2 * M)
+    return m_tiles, max(1, min(want, cap, K // group_size))
+
+
+def split_groups(n_groups: int, splits: int):
+    """The ``[begin, end)`` quantization groups of each split, as the
+    kernel cuts them (split ``s`` from ``s * G // splits``)."""
+    return [(s * n_groups // splits, (s + 1) * n_groups // splits)
+            for s in range(splits)]
 
 
 def check_operands(who: str, x, codes, scales, zps, *, group_size: int,
@@ -128,18 +171,24 @@ def pad_columns(n_to: int, codes, scales, zps):
 def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
            zps, use_lsb, *, group_size: int, shift: int,
            transposed: bool = False, high: bool = False):
-    """Check the operands, pad a ragged K-major N to a multiple of 4,
-    launch the kernel on ``x``'s card and add one to ``counter``'s
-    ``key``.  ``x`` is ``[E, M, K]`` with ``use_lsb [E]`` (C entry
-    ``amat_batched_matmul``) or ``[M, K]`` with ``use_lsb=None`` and the
-    static precision ``high`` (C entry ``amat_single_matmul``)."""
+    """Check the operands, pad a ragged K-major N (to a multiple of 16
+    for the tensor-core kernel, else 4), launch the kernel on ``x``'s
+    card and add one to ``counter``'s ``key``.  ``x`` is ``[E, M, K]``
+    with ``use_lsb [E]`` (C entry ``amat_batched_matmul``) or ``[M, K]``
+    with ``use_lsb=None`` and the static precision ``high`` (C entry
+    ``amat_single_matmul``)."""
     *lead, M, K = x.shape
     N = codes.shape[-2] if transposed else codes.shape[-1]
     use_lsb = check_operands(
         who, x, codes, scales, zps, group_size=group_size,
         codes_shape=(*lead, N, K) if transposed else (*lead, K, N),
         meta_shape=(*lead, K // group_size, N), use_lsb=use_lsb)
-    n_pad = 0 if transposed else -N % 4
+    mma = use_lsb is None and x.dtype == torch.bfloat16
+    if mma:
+        for name, t in (("x", x), ("scales", scales), ("zps", zps)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{who}: {name} is not 16-byte aligned")
+    n_pad = 0 if transposed else -N % (16 if mma else 4)
     if n_pad:
         codes, scales, zps = pad_columns(N + n_pad, codes, scales, zps)
     out = torch.empty((*lead, M, N + n_pad), dtype=torch.float32,
@@ -150,9 +199,20 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
                 scales.data_ptr(), zps.data_ptr())
         with torch.cuda.device(x.device):
             if use_lsb is None:
+                m_tiles, splits = 1, 1
+                if mma:
+                    sms = torch.cuda.get_device_properties(
+                        x.device).multi_processor_count
+                    m_tiles, splits = mma_plan(M, K, N + n_pad, group_size,
+                                               sms)
+                partials = torch.empty(
+                    (splits, M, N + n_pad), dtype=torch.float32,
+                    device=x.device) if splits > 1 else None
                 rc = lib.amat_single_matmul(
-                    *ptrs, out.data_ptr(), M, K, N + n_pad, group_size,
-                    shift, int(high), stream_of(x.device))
+                    *ptrs, out.data_ptr(),
+                    None if partials is None else partials.data_ptr(),
+                    m_tiles, splits, M, K, N + n_pad, group_size, shift,
+                    int(high), stream_of(x.device))
             else:
                 rc = lib.amat_batched_matmul(
                     *ptrs, use_lsb.data_ptr(), out.data_ptr(), lead[0], M, K,
@@ -205,9 +265,11 @@ def amat_matmul(x, codes, scales, zps, *, group_size: int = 32,
                 shift: int = 0, mode: str = "high"):
     """x [M, K] @ dequant(codes [K, N]) -> [M, N] f32.
 
-    ``mode='high'`` dequantizes ``(c - z) * s`` and ignores ``shift``;
-    ``mode='low'`` the MSB-only ``(c >> shift - z >> shift) * s *
-    2^shift``.  scales / zps are ``[K // group_size, N]``.
+    On the card, bf16 ``x`` runs on the tensor cores and f32 ``x`` on the
+    CUDA cores (module docstring).  ``mode='high'`` dequantizes ``(c - z)
+    * s`` and ignores ``shift``; ``mode='low'`` the MSB-only ``(c >> shift
+    - z >> shift) * s * 2^shift``.  scales / zps are ``[K // group_size,
+    N]``.
     """
     if mode not in MODES:
         raise ValueError(f"amat_matmul: mode {mode!r} is not one of {MODES}")

@@ -3,11 +3,18 @@
 :func:`flash_attention` keeps the semantics of the reference wrapper
 (``repro/kernels/flash_attn/ops.py``) without its tiling knobs.
 
-* On CUDA tensors it launches the hand-written Hopper kernel
+* On CUDA tensors it launches a hand-written Hopper kernel
   (``csrc/flash_attention.cu``) or raises: it checks device, dtype,
   shapes, head dim, contiguity and alignment, allocates the output, checks
-  the launch's return code and adds one to :data:`LAUNCHES`.  The kernel
-  is instantiated for f32 or bf16 inputs and head dims 16, 32, 64 and 128.
+  the launch's return code and adds one to :data:`LAUNCHES`.  Both kernels
+  take head dims 16, 32, 64 and 128.  The route by dtype:
+
+  - bf16 q, k, v: the tensor-core kernel.  q.k is exact in ``mma.sync``
+    bf16 -> f32; the f32 probabilities are split as ``p_hi = bf16(p)``,
+    ``p_lo = bf16(p - p_hi)`` and p.v runs as two bf16 products into the
+    f32 accumulator (within 2^-18 |p| of f32 p);
+  - f32 q, k, v: the CUDA-core kernel, all in f32 (TF32 would round the
+    inputs to 10 mantissa bits).
 * On CPU tensors it runs the plain PyTorch version in :mod:`.ref`.
 """
 

@@ -138,6 +138,79 @@ def test_column_padding_keeps_the_function():
     assert bool((got[:, 33:] == 0).all())
 
 
+# --------------------------------------------------------------------------
+# The numerics of the tensor-core route (bf16 x), emulated on the CPU.
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shift", [0, 1, 2, 3, 4])
+def test_every_amat_weight_is_exact_in_bf16(shift):
+    """(c >> s) - (z >> s) for every uint8 code c and zero-point z (s = 0 is
+    the 'high' weight c - z) is an integer of at most 8 bits: bf16 holds it
+    exactly, so the tensor cores multiply the weights the plain version
+    uses."""
+    c = torch.arange(256, dtype=torch.int32)[:, None]
+    z = torch.arange(256, dtype=torch.int32)[None, :]
+    w = ((c >> shift) - (z >> shift)).to(torch.float32)
+    assert bool((w.to(torch.bfloat16).to(torch.float32) == w).all())
+
+
+def _mma_route_emulated(x, qt, *, shift, mode, splits):
+    """The tensor-core kernel's order in torch: bf16 x times the integer
+    weights of each 32-row chunk (exact products, f32 sums), then the
+    group's scale (times 2^shift in 'low'), each K split summed on its own
+    and the splits added in order."""
+    K, N = qt.codes.shape
+    gs = qt.group_size
+    sh = shift if mode == "low" else 0
+    xf = x.to(torch.float32)
+    w = ((qt.codes.to(torch.int32) >> sh)
+         - (qt.zero_points.to(torch.int32) >> sh)
+         .repeat_interleave(gs, 0)).to(torch.float32)
+    scale = qt.scales * 2.0 ** sh
+    out = None
+    for g0, g1 in TOPS.split_groups(K // gs, splits):
+        part = torch.zeros((x.shape[0], N))
+        for k0 in range(g0 * gs, g1 * gs, 32):
+            group_acc = xf[:, k0:k0 + 32] @ w[k0:k0 + 32]
+            part = part + scale[k0 // gs] * group_acc
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("M", [1, 7, 128])
+@pytest.mark.parametrize("mode,shift", [("high", 0), ("low", 4)])
+def test_mma_route_order_matches_plain(M, mode, shift):
+    """At K=2048 the kernel's order (exact bf16 group products, scale
+    after the group, K split as the wrapper plans it) stays within the
+    card's tolerance of the plain version."""
+    x, qt = _inputs(M, 2048, 64, torch.bfloat16, seed=M)
+    _, splits = TOPS.mma_plan(M, 2048, 2816, 32)
+    got = _mma_route_emulated(x, qt, shift=shift, mode=mode, splits=splits)
+    plain = amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points,
+                            shift=shift, mode=mode)
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("K", [32, 96, 2048])
+@pytest.mark.parametrize("M", [1, 7, 128])
+def test_mma_plan_splits_k_in_whole_groups(M, K):
+    """The split covers K in whole groups, each split non-empty, and keeps
+    the f32 partials within twice the codes' bytes; the block's rows
+    cover min(M, 128)."""
+    N, gs = 2816, 32
+    m_tiles, splits = TOPS.mma_plan(M, K, N, gs)
+    assert 16 * m_tiles >= min(M, 128)
+    assert m_tiles == 1 or 8 * m_tiles < min(M, 128)
+    ranges = TOPS.split_groups(K // gs, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K // gs
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+    assert splits == 1 or splits * M * N * 4 <= 2 * K * N
+    if K == 2048 and M in (1, 128):     # enough groups to fill the card
+        blocks = -(-N // TOPS.MMA_BN) * splits
+        assert blocks >= 2 * 132
+
+
 def test_wrapper_rejects_an_unknown_mode_and_device():
     x, qt = _inputs(2, 32, 8, torch.float32, seed=0)
     with pytest.raises(ValueError, match="mode"):
@@ -151,8 +224,13 @@ def test_wrapper_rejects_an_unknown_mode_and_device():
 # On the card: the CUDA kernel against its plain version.
 # --------------------------------------------------------------------------
 # The reference's shapes, then one qwen15-moe-a2.7b expert's ``wi`` at the
-# prefill capacity and at one decode token.
-GPU_SHAPES = SHAPES_MKN + [(128, 2048, 2816), (1, 2048, 2816)]
+# prefill capacity and at one decode token, then M on both sides of the
+# tensor-core kernel's 16-row tiles and past its 128-row block, and one
+# group of K (no split).
+GPU_SHAPES = SHAPES_MKN + [(128, 2048, 2816), (1, 2048, 2816),
+                           (16, 2048, 2816), (17, 2048, 2816),
+                           (64, 2048, 2816), (200, 2048, 2816),
+                           (4, 32, 2816)]
 
 
 @pytest.fixture
@@ -194,3 +272,8 @@ def test_cuda_wrapper_raises_on_bad_input(cuda_device):
         TOPS.amat_matmul(x.t().contiguous().t(), *args)
     with pytest.raises(ValueError, match="codes"):
         TOPS.amat_matmul(x, qt.codes[:32], *args[1:])
+    # The tensor-core route reads x by 16-byte copies.
+    xb = torch.zeros(3 * 64 + 1, dtype=torch.bfloat16,
+                     device=cuda_device)[1:].view(3, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TOPS.amat_matmul(xb, *args)

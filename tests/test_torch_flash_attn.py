@@ -118,6 +118,96 @@ def test_gqa_query_head_reads_kv_head_h_div_rep():
         torch.testing.assert_close(out[:, :, h:h + 1], one, rtol=0, atol=1e-6)
 
 
+# --------------------------------------------------------------------------
+# The numerics of the tensor-core kernel (bf16 inputs), emulated on the CPU.
+# --------------------------------------------------------------------------
+def _mma_kernel_emulated(q, k, v, *, causal, window, split_p=True):
+    """The bf16 kernel's arithmetic in torch: blocks of 64 query rows, the
+    key tiles of 64 it visits, exact q.k in f32, the scale on the f32
+    score, -1e30 where masked, an online softmax in f32, and p.v as
+    bf16(p) . v + bf16(p - bf16(p)) . v (``split_p``) or bf16(p) . v
+    alone."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf = q.to(torch.float32)
+    kf, vf = (t.to(torch.float32).repeat_interleave(rep, 2) for t in (k, v))
+    out = torch.empty((B, Sq, H, D))
+    n_kt = -(-Sk // 64)
+    for q0 in range(0, Sq, 64):
+        q1 = min(q0 + 64, Sq)
+        kt_end = min(n_kt, (q1 - 1) // 64 + 1) if causal else n_kt
+        first = q0 - window + 1 if window else 0
+        kt_begin = first // 64 if first > 0 else 0
+        qi = torch.arange(q0, q1)[:, None]
+        m = torch.full((B, H, q1 - q0), -1e30)
+        l = torch.zeros((B, H, q1 - q0))
+        acc = torch.zeros((B, H, q1 - q0, D))
+        for kt in range(kt_begin, kt_end):
+            k0, k1 = kt * 64, min(kt * 64 + 64, Sk)
+            kj = torch.arange(k0, k1)[None, :]
+            vis = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
+            if causal:
+                vis &= qi >= kj
+            if window:
+                vis &= qi - kj < window
+            sc = torch.einsum("bqhd,bkhd->bhqk", qf[:, q0:q1], kf[:, k0:k1])
+            sc = torch.where(vis, sc * D ** -0.5, torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l, m = l * corr + p.sum(-1), m_new
+            vt = vf[:, k0:k1].transpose(1, 2)
+            p_hi = p.to(torch.bfloat16).to(torch.float32)
+            pv = p_hi @ vt
+            if split_p:
+                pv = pv + (p - p_hi).to(torch.bfloat16).to(torch.float32) @ vt
+            acc = acc * corr[..., None] + pv
+        out[:, q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
+    return out
+
+
+# (B, Sq, Sk, H, Hkv, causal, window) at D=128: 1024 causal keys; a window
+# whose first visited tile is fully masked for the block's last rows; GQA.
+MMA_CASES = [(1, 1024, 1024, 2, 2, True, None),
+             (1, 320, 320, 2, 1, True, 100),
+             (2, 200, 200, 8, 2, True, None)]
+
+
+def _within_tolerance(got, want):
+    err = (got - want).abs()
+    return bool((err <= 1e-4 + 1e-4 * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=str)
+def test_split_p_holds_the_tolerance(case):
+    """p.v as two bf16 products (hi and lo parts of p) stays within the
+    card's tolerance of the plain version."""
+    B, Sq, Sk, H, Hkv, causal, win = case
+    q, k, v = _inputs(B, Sq, Sk, H, Hkv, 128, seed=Sq + H,
+                      dtype=torch.bfloat16)
+    if win:
+        # The block at q0=256 visits key tile 2 (keys 128-191), which lies
+        # wholly outside the window of its last row, 319.
+        assert (256 - win + 1) // 64 == 2 and 319 - 191 >= win
+    got = _mma_kernel_emulated(q, k, v, causal=causal, window=win)
+    ok, err = _within_tolerance(
+        got, flash_attention_ref(q, k, v, causal=causal, sliding_window=win))
+    assert ok, err
+
+
+def test_one_bf16_p_misses_the_tolerance():
+    """p.v with p rounded once to bf16 misses the tolerance: the lo part
+    is needed."""
+    B, Sq, Sk, H, Hkv, causal, win = MMA_CASES[0]
+    q, k, v = _inputs(B, Sq, Sk, H, Hkv, 128, seed=Sq + H,
+                      dtype=torch.bfloat16)
+    got = _mma_kernel_emulated(q, k, v, causal=causal, window=win,
+                               split_p=False)
+    ok, err = _within_tolerance(got, flash_attention_ref(q, k, v))
+    assert not ok and err > 1e-3, err
+
+
 def test_wrapper_rejects_an_unsupported_device():
     q, k, v = _inputs(1, 4, 4, 2, 1, 16, seed=0)
     with pytest.raises(ValueError, match="no path for device"):
@@ -136,7 +226,10 @@ GPU_DIMS = DIMS + [
         (2, 100, 130, 8, 2, True, None),
         (1, 200, 200, 4, 1, True, 48),
         (1, 70, 50, 4, 4, False, None),
-        (1, 130, 190, 6, 3, False, 40))]
+        (1, 130, 190, 6, 3, False, 40))] + [
+    # rep-8 GQA with a window, Sq and Sk not multiples of 16
+    (1, 77, 93, 16, 2, 128, True, 33),
+    (2, 45, 61, 16, 2, 64, True, 20)]
 
 
 @pytest.fixture

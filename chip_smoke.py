@@ -8,21 +8,26 @@ it goes, any failure exiting non-zero:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel source, one ``nvcc`` each, all started together,
-   with the ptxas register / shared-memory / spill report;
+   with the ptxas register / shared-memory / spill report and the kernels
+   that spill;
 3. the batched AMAT kernels (K1 ``wi``, K2 ``wo``) against their plain
    PyTorch versions on the card (tolerance 1e-4 + 1e-4*|plain|: f32
    accumulation in another order): both code layouts with the bf16
-   activations the main path gives them at its decode (4 sequences) and
-   prefill (128 tokens) capacities, with f32 activations at the decode
-   capacity, and a ragged case; the decode shapes are then timed beside
-   the plain version, one ``torch.bmm`` on pre-dequantized f32 weights
-   (the nearest library call; it reads dense f32 weights, not the packed
-   codes) and the card's bound.  Every timed row gives ``ms`` (CUDA events
-   around 20 calls: what a caller of the wrapper sees, host cost
-   included) and, for the kernel and the library call, ``graph_ms`` (the
-   same 20 calls captured in one CUDA graph and replayed: device time).
-   The kernels line reports the bf16 decode variant, the one the decode
-   steps launch;
+   activations the main path gives them (the tensor-core kernel) at its
+   decode (4 sequences) and prefill (128 tokens) capacities, with f32
+   activations (the CUDA-core kernel) at the decode capacity, and ragged
+   cases in both types (N = 72, and N = 70 for bf16, which the wrapper
+   pads); the decode shapes are then timed beside the plain version, one
+   ``torch.bmm`` on pre-dequantized f32 weights (the nearest library
+   call; it reads dense f32 weights, not the packed codes) and the card's
+   bound.  Every timed row gives ``ms`` (CUDA events around 20 calls: what
+   a caller of the wrapper sees, host cost included) and, for the kernel
+   and the library call, ``graph_ms`` (the same 20 calls captured in one
+   CUDA graph and replayed: device time); ``[versus]`` lines set each
+   bf16 decode row's ``graph_ms`` beside the library call's, beside the
+   f32 CUDA-core row's of the same run, and against its bound.  The
+   kernels line reports the bf16 decode variant, the one the decode steps
+   launch;
 3b. the slice's kernels against their plain versions at the same
    tolerance, at the widths of configs in the repo: K3 ``amat_matmul``
    (one qwen15-moe-a2.7b expert matrix), K4 ``expert_matmul`` (K1's
@@ -178,13 +183,21 @@ def phase_build():
     sources = (AMAT_SOURCE, FLASH_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build, sources))
+    spills = []
     for source, (lib, log, dt) in zip(sources, built):
         say(f"[build] {os.path.relpath(source, HERE)} -> "
             f"{os.path.relpath(lib, HERE)} in {dt:.1f} s")
+        entry = None
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "smem")):
                 say("[build]   " + line.strip())
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill" in line and any(
+                    int(w) for w in line.split() if w.isdigit()):
+                spills.append(entry)
+    say(f"[build] kernels that spill: {spills or 'none'}")
 
 
 def _kernel_inputs(E, M, K, N, *, seed, transposed, x_dtype):
@@ -327,9 +340,18 @@ def phase_kernels(cfg):
          False),
         ("ragged_wo_t_f32", "output_major", True, f32, (3, 5, 96, 72), False,
          False),
+        ("ragged_wi_bf16", "k_major", False, bf16, (3, 5, 96, 72), False,
+         False),
+        ("ragged_wo_t_bf16", "output_major", True, bf16, (3, 5, 96, 72),
+         False, False),
+        ("ragged_n_wi_bf16", "k_major", False, bf16, (3, 5, 96, 70), False,
+         False),
+        ("ragged_n_wo_t_bf16", "output_major", True, bf16, (3, 5, 96, 70),
+         False, False),
     ]
     results = {"k_major": {"max_abs_err": 0.0},
                "output_major": {"max_abs_err": 0.0}}
+    timings = {}
     for seed, (name, layout, transposed, x_dtype, (E, M, K, N), timed,
                reported) in enumerate(variants):
         args = _kernel_inputs(E, M, K, N, seed=seed, transposed=transposed,
@@ -363,10 +385,20 @@ def phase_kernels(cfg):
                        f"of f32 weights, not the {codes.numel() / 1e6:.0f} MB "
                        "of codes")
             del w_dense, x32
+            timings[name] = t
             if reported:
                 row.update(t)
         del args
         torch.cuda.empty_cache()
+    for bf, f in (("wi_bf16_decode", "wi_f32_decode"),
+                  ("wo_t_bf16_decode", "wo_t_f32_decode")):
+        t, t32 = timings[bf], timings[f]
+        _versus_library(bf, t)
+        say(f"[versus] {bf}: graph_ms tensor cores {t['graph_ms']:.4f} / "
+            f"CUDA cores ({f}) {t32['graph_ms']:.4f} = "
+            f"{t['graph_ms'] / t32['graph_ms']:.3f}; "
+            f"{t['bound_ms'] / t['graph_ms']:.1%} of the {t['bound_by']} "
+            f"bound {t['bound_ms']:.4f} ms")
     return results
 
 

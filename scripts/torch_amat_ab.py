@@ -1,0 +1,117 @@
+"""Time variants of the AMAT kernel source against each other on the card.
+
+    python3 scripts/torch_amat_ab.py VARIANT.cu [VARIANT.cu ...] [--rounds 2]
+
+A variant is a copy of ``src/repro_torch/kernels/amat_matmul/csrc/
+amat_batched_matmul.cu`` with the same C entries, edited (keep it under
+``build/``, which git ignores).  The checkout's source runs first, as
+``base``.  Every source is built (one ``nvcc`` each, all started
+together), held against the plain version (1e-4 + 1e-4*|plain|) and timed
+by ``graph_ms`` (``chip_smoke.py``'s timer: 20 calls in one CUDA graph) on
+the bf16 rows the tensor-core kernels serve at qwen15-moe-a2.7b's widths:
+K1 ``wi`` and K2 ``wo`` at the decode capacity (E=60, M=8), and K3 at M=128
+and M=1 (rotating over 10 quantized copies, as ``chip_smoke.py`` does).
+The sources take turns, in order and then in reverse, ``--rounds`` times,
+so that a drift of the card's clock falls on all of them alike.  Needs one
+card; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+import chip_smoke as smoke  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core.amat import MatConfig, amat_quantize  # noqa: E402
+from repro_torch.kernels._build import build_library  # noqa: E402
+from repro_torch.kernels.amat_matmul import ops  # noqa: E402
+from repro_torch.kernels.amat_matmul.ref import (  # noqa: E402
+    amat_batched_matmul_ref, amat_batched_matmul_t_ref, amat_matmul_ref)
+from repro_torch.models.moe import capacity  # noqa: E402
+
+
+def cases(cfg):
+    """``(name, timed kernel call, check)`` of each row; ``check()``
+    returns the kernel's and the plain version's outputs on one input."""
+    m = cfg.moe
+    E, C = m.n_experts, capacity(4, m.top_k, m.n_experts, m.capacity_factor)
+    out = []
+    for seed, (name, transposed, (K, N)) in enumerate((
+            ("wi_bf16_decode", False, (cfg.d_model, 2 * m.d_ff)),
+            ("wo_t_bf16_decode", True, (m.d_ff, cfg.d_model)))):
+        args = smoke._kernel_inputs(E, C, K, N, seed=seed,
+                                    transposed=transposed,
+                                    x_dtype=torch.bfloat16)
+        ref = amat_batched_matmul_t_ref if transposed \
+            else amat_batched_matmul_ref
+        kern = (lambda a=args, t=transposed:
+                ops.amat_expert_matmul(*a, transposed=t))
+        out.append((name, kern, lambda k=kern, a=args, r=ref: (k(), r(*a))))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(100)
+    K, N = cfg.d_model, 2 * m.d_ff
+    qts = [amat_quantize(torch.randn((K, N), generator=g, device="cuda")
+                         * K ** -0.5, MatConfig(8, 4)) for _ in range(10)]
+    for name, M, mode, shift in (("k3_prefill_high", 128, "high", 0),
+                                 ("k3_decode_low4", 1, "low", 4)):
+        x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+
+        def kern(qt, x=x, mode=mode, shift=shift):
+            return ops.amat_matmul_qt(x, qt, shift=shift, mode=mode)
+
+        def check(kern=kern, x=x, mode=mode, shift=shift, qt=qts[0]):
+            return kern(qt), amat_matmul_ref(
+                x, qt.codes, qt.scales, qt.zero_points, shift=shift,
+                mode=mode)
+        out.append((name, smoke._rotating(kern, qts), check))
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="+", type=pathlib.Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    print(smoke.smi_name_power(), flush=True)
+    sources = [ops.SOURCE, *args.variants]
+    names = ["base", *(v.stem for v in args.variants)]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(lambda s: build_library(s, force=True)[0],
+                              sources))
+    libs = [ops.bind(ctypes.CDLL(str(path))) for path in built]
+    rows = cases(get_config("qwen15-moe-a2.7b"))
+    times = {(n, r): [] for n in names for r, _, _ in rows}
+    order = list(range(len(libs)))
+    for turn in range(2 * args.rounds):
+        for i in (order if turn % 2 == 0 else order[::-1]):
+            ops.library = lambda lib=libs[i]: lib
+            for row, kern, check in rows:
+                if turn == 0:
+                    got, want = check()
+                    err = (got - want).abs()
+                    ok = bool((err <= 1e-4 + 1e-4 * want.abs()).all())
+                    print(f"[check] {names[i]} {row}: max|kernel-plain| "
+                          f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}",
+                          flush=True)
+                times[(names[i], row)].append(smoke.graph_ms(kern, row))
+    for row, _, _ in rows:
+        print(f"[ab] {row} graph_ms: " + "; ".join(
+            f"{n} median {np.median(times[(n, row)]):.4f} "
+            f"({', '.join(f'{t:.4f}' for t in times[(n, row)])})"
+            for n in names), flush=True)
+
+
+if __name__ == "__main__":
+    main()

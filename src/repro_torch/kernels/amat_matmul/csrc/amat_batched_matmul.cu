@@ -4,74 +4,78 @@
 //  * `_amat_batched_kernel` in src/repro/kernels/amat_matmul/kernel.py
 //    (entry points `amat_batched_matmul_pallas` and
 //    `amat_batched_matmul_t_pallas`), with the output-major (`wo`) code
-//    layout as the TRANSPOSED template flag: C entry `amat_batched_matmul`,
-//    body `amat_tiles`;
+//    layout as the TRANSPOSED template flag: C entry `amat_batched_matmul`.
+//    bf16 x runs on the tensor cores (`amat_batched_mma_kernel`); f32 x
+//    runs `amat_batched_kernel` on the CUDA cores (body `amat_tiles`);
 //  * `_amat_matmul_kernel` in the same file (`amat_matmul_pallas`, one
 //    matrix, static mode 'high' | 'low'): C entry `amat_single_matmul`.
-//    bf16 x runs on the tensor cores (`amat_single_mma_kernel`, below);
-//    f32 x runs `amat_tiles` at E = 1 with the precision passed by value;
+//    bf16 x runs on the tensor cores (`amat_single_mma_kernel`); f32 x
+//    runs `amat_tiles` for one matrix with the precision passed by value;
 //  * `_expert_matmul_kernel` in src/repro/kernels/expert_matmul/kernel.py
 //    (`expert_matmul_pallas`, the batched function with the flag in a (1, 1)
 //    block): C entry `amat_batched_matmul` on K-major codes.
+// Both tensor-core kernels run one body, `amat_mma_tiles`.
 //
 //   out[e] = x[e] @ W_e                          (f32 accumulation)
 //   W_e    = (c - z) * s                         if use_lsb[e]   (MSB+LSB)
 //   W_e    = ((c >> shift) - (z >> shift)) * s * 2^shift   else  (MSB only)
 //
-// x [E, M, K] (f32 or bf16), codes [E, K, N] uint8 with N % 4 == 0 (the
-// wrapper pads a ragged N; or codes_t [E, N, K] when TRANSPOSED), scales
-// [E, K/G, N] f32, zps [E, K/G, N] uint8, use_lsb [E] uint8, out [E, M, N]
-// f32.  The integer right shift equals the
-// reference's floor(c * 2^-shift), so the dequantized weights are
-// bit-identical to the plain version's; only the order of the f32 sums
-// differs.
+// x [E, M, K] (f32 or bf16), codes [E, K, N] uint8 (or codes_t [E, N, K]
+// when TRANSPOSED), scales [E, K/G, N] f32, zps [E, K/G, N] uint8, use_lsb
+// [E] uint8, out [E, M, N] f32; the wrapper pads a ragged N (to a multiple
+// of 16 for the tensor cores, of 4 for K-major codes on the CUDA cores).
+// The integer right shift equals the reference's floor(c * 2^-shift), so
+// the dequantized weights are bit-identical to the plain version's; only
+// the order of the f32 sums differs.
 //
-// What bounds it on an H100: bytes.  At the decode shapes of
+// What bounds them on an H100: bytes.  At the decode shapes of
 // Qwen1.5-MoE-A2.7B (E=60, M=8, K=2048, N=2816 for `wi`) the codes alone are
-// 346 MB against 5.5 GFLOP, about 16 FLOP per byte, far below the ~20
-// FLOP/byte at which f32 CUDA-core arithmetic (67 TFLOP/s) would overtake
-// HBM3 (3.35 TB/s).  `amat_tiles` therefore reads every code byte once, as
-// uint8, and never writes a dequantized weight to device memory: a block
-// dequantizes its [32, 256] weight tile straight into shared memory and
-// every thread reads its column from there.  Each K tile is 32 rows, so it
-// lies inside one quantization group (group_size % 32 == 0) and needs one
-// scale and one zero-point per column.  Its grid is (ceil(N/256),
-// ceil(M/8), E); each block reads its own use_lsb[e] (the TPU kernel's
-// scalar prefetch), loops over K in 32-row tiles, stages the x tile and the
-// dequantized weight tile in shared memory, and keeps 8 f32 accumulators
-// per thread (one output column, 8 rows), on the CUDA cores.
+// 346 MB against 5.5 GFLOP, about 16 FLOP per byte, far below the ~300
+// FLOP/byte at which bf16 tensor work (989 TFLOP/s) would overtake HBM3
+// (3.35 TB/s), and below the ~20 of f32 on the CUDA cores (67 TFLOP/s).
+// Every kernel here therefore reads every code byte once, as uint8, and
+// never writes a dequantized weight to device memory.
 //
-// The single matrix with bf16 x (`amat_single_mma_kernel`) is bound by
-// bytes too: one expert's `wi` (K=2048, N=2816) is 5.8 MB of codes and
-// 0.9 MB of metadata, 2.0 us at 3.35 TB/s, against 1.5 us of bf16 tensor
-// work at M=128 and 0.006 us at M=1.  `amat_tiles` there filled 11 of 132
-// SMs at M=1 and dequantized every code once per 8 rows of M at M=128.  The
-// design:
+// The tensor-core design (bf16 x):
 //  * each weight is an integer of at most 8 bits, (c - z) or (c >> s) -
 //    (z >> s), exact in bf16, and x is bf16, so each 32-row group's
 //    product runs exactly on the tensor cores (`mma.sync m16n8k16` bf16 ->
 //    f32, x fragments by `ldmatrix`) into a group accumulator; the group's
-//    scale (times 2^shift in 'low') applies after it in f32;
+//    scale (times 2^shift in MSB-only) applies after it in f32;
 //  * a block owns 64 columns and up to 128 rows of M (8 warps: two along
 //    M from 32 rows up, the rest along the columns), so a code is read
 //    from device memory once per block and dequantized by the warps that
 //    own its column (one or two per block), straight from the code tile in
 //    shared memory into their B fragments in registers: no bf16 tile and
-//    no second barrier per chunk;
+//    no second barrier per chunk.  Output-major codes hold the two k rows
+//    of a fragment register side by side: one 16-bit load;
 //  * x, codes, scales and zero-points arrive by 16-byte `cp.async` in a
 //    ring of chunks of 32 rows; a barrier admits 2 or 4 chunks at once
 //    while the next two batches are in flight;
-//  * K is split across blocks in whole groups (blockIdx.z) so that the
-//    grid fills the card with two blocks per SM; each split writes f32
-//    partials [splits, M, N] and `sum_splits_kernel` adds them in split
-//    order: deterministic, no atomics.  The sum is launched as a
+//  * batched experts (`amat_batched_mma_kernel`): the expert is blockIdx.z
+//    and each block reads its own use_lsb[e] (the TPU kernel's scalar
+//    prefetch) and runs the whole of K; at the decode shapes the grid is
+//    44 x 60 blocks (`wi`), 32 x 60 (`wo`), many per SM;
+//  * one matrix (`amat_single_mma_kernel`): its 44 column blocks would
+//    fill a third of the 132 SMs, so K is split across blocks in whole
+//    groups (blockIdx.z) to reach two blocks per SM; each split writes
+//    f32 partials [splits, M, N] and `sum_splits_kernel` adds them in
+//    split order: deterministic, no atomics.  The sum is launched as a
 //    programmatic dependent of the main kernel, which hides its launch.
 // Ragged M rows and columns past N arrive as zeros (cp.async zero-fill)
-// and are not stored; this route takes N % 16 == 0 (the wrapper pads).
+// and are not stored; these kernels take N % 16 == 0 (the wrapper pads).
+//
+// The CUDA-core body `amat_tiles` (f32 x, the parity mode): grid
+// (ceil(N/256), ceil(M/8), E); each block reads its own use_lsb[e], loops
+// over K in 32-row tiles (one scale and zero-point per column: group_size
+// % 32 == 0), dequantizes its [32, 256] weight tile into shared memory,
+// and keeps 8 f32 accumulators per thread (one column, 8 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
@@ -86,16 +90,11 @@ constexpr int THREADS = BN;
 
 static_assert(BM * BK == THREADS, "x tile is one element per thread");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // One block's [BM, BN] output tile of x [M, K] @ W [K, N] for one matrix:
 // `sh` and `mult` are its precision (0 and 1 for MSB+LSB; shift and
 // 2^shift for MSB only).
-template <typename XT, bool TRANSPOSED>
-__device__ __forceinline__ void amat_tiles(const XT* __restrict__ xe,
+template <bool TRANSPOSED>
+__device__ __forceinline__ void amat_tiles(const float* __restrict__ xe,
                                            const uint8_t* __restrict__ ce,
                                            const float* __restrict__ se,
                                            const uint8_t* __restrict__ ze,
@@ -121,8 +120,7 @@ __device__ __forceinline__ void amat_tiles(const XT* __restrict__ xe,
       const int r = tid / BK;
       const int kk = tid % BK;
       const int m = m0 + r;
-      xs[r][kk] = (m < M) ? to_f32(xe[static_cast<size_t>(m) * K + k0 + kk])
-                          : 0.f;
+      xs[r][kk] = (m < M) ? xe[static_cast<size_t>(m) * K + k0 + kk] : 0.f;
     }
 
     // Dequantized weight tile [BK, BN], zero past the N edge.
@@ -214,9 +212,10 @@ __device__ __forceinline__ void amat_tiles(const XT* __restrict__ xe,
   }
 }
 
-template <typename XT, bool TRANSPOSED>
+template <bool TRANSPOSED>
 __global__ void __launch_bounds__(THREADS)
-amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+amat_batched_kernel(const float* __restrict__ x,
+                    const uint8_t* __restrict__ codes,
                     const float* __restrict__ scales,
                     const uint8_t* __restrict__ zps,
                     const uint8_t* __restrict__ use_lsb,
@@ -227,55 +226,46 @@ amat_batched_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
   // scales by 2^shift; the high-bit path uses them as they are.
   const bool hi = use_lsb[e] != 0;
   const size_t G = K / group_size;
-  amat_tiles<XT, TRANSPOSED>(
+  amat_tiles<TRANSPOSED>(
       x + static_cast<size_t>(e) * M * K, codes + static_cast<size_t>(e) * K * N,
       scales + e * G * N, zps + e * G * N, out + static_cast<size_t>(e) * M * N,
       M, K, N, group_size, hi ? 0 : shift,
       hi ? 1.0f : static_cast<float>(1 << shift));
 }
 
-template <typename XT>
 __global__ void __launch_bounds__(THREADS)
-amat_single_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
+amat_single_kernel(const float* __restrict__ x,
+                   const uint8_t* __restrict__ codes,
                    const float* __restrict__ scales,
                    const uint8_t* __restrict__ zps, float* __restrict__ out,
                    int M, int K, int N, int group_size, int sh, float mult) {
-  amat_tiles<XT, false>(x, codes, scales, zps, out, M, K, N, group_size, sh,
-                        mult);
-}
-
-template <typename XT>
-void launch_batched(bool transposed, dim3 grid, cudaStream_t stream,
-                    const void* x, const uint8_t* codes, const float* scales,
-                    const uint8_t* zps, const uint8_t* use_lsb, float* out,
-                    int M, int K, int N, int group_size, int shift) {
-  const XT* xt = static_cast<const XT*>(x);
-  if (transposed) {
-    amat_batched_kernel<XT, true><<<grid, THREADS, 0, stream>>>(
-        xt, codes, scales, zps, use_lsb, out, M, K, N, group_size, shift);
-  } else {
-    amat_batched_kernel<XT, false><<<grid, THREADS, 0, stream>>>(
-        xt, codes, scales, zps, use_lsb, out, M, K, N, group_size, shift);
-  }
+  amat_tiles<false>(x, codes, scales, zps, out, M, K, N, group_size, sh,
+                    mult);
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route of the single matrix, bf16 x (see the note at the top).
+// Tensor-core route, bf16 x (see the note at the top).
 
 constexpr int TC_BN = 64;          // output columns per block
 constexpr int TC_THREADS = 256;    // 8 warps
 constexpr int TC_LDX = BK + 8;     // x tile row: 40 bf16 (80 bytes)
-constexpr int TC_LDC = TC_BN + 16; // code tile row: 80 bytes
+constexpr int TC_LDC = TC_BN + 16; // K-major code tile row: 80 bytes
+constexpr int TC_LDT = BK + 16;    // output-major code tile row: 48 bytes
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_BATCH = 8;       // partials loaded before they are added
+constexpr int MAX_DEVICES = 64;
 
-// Padded rows: the 8 rows an `ldmatrix` of x reads fall in 8 distinct
-// 16-byte bank groups, and the 4 code rows 2q (q = lane % 4) a B fragment
-// gathers fall in 4 distinct banks.
-template <int MT>
+// One slot of the ring: a chunk of 32 rows of K.  Padded rows: the 8 rows
+// an `ldmatrix` of x reads fall in 8 distinct 16-byte bank groups.  K-major
+// codes are [32 k][64 n] and the 4 code rows 2q (q = lane % 4) a B
+// fragment gathers fall in 4 distinct banks; output-major codes are [64 n]
+// [32 k] in rows of 48 bytes (16-byte aligned `cp.async` destinations), so
+// the 8 columns g a fragment gathers start at words 12 g mod 32 and, with
+// the 2 words of their k pairs, fall in 16 distinct banks.
+template <int MT, bool TRANSPOSED>
 struct __align__(16) TcStage {
   __nv_bfloat16 x[16 * MT][TC_LDX];  // x rows m0 .. m0 + 16*MT, 32 of K
-  uint8_t codes[BK][TC_LDC];
+  uint8_t codes[TRANSPOSED ? TC_BN : BK][TRANSPOSED ? TC_LDT : TC_LDC];
   float scales[TC_BN];
   uint8_t zps[TC_BN];
 };
@@ -292,31 +282,36 @@ struct TcWarps {
   // Chunks of 32 rows a block computes between two barriers (independent
   // chains for the warps' schedulers), and the ring of chunks: two
   // iterations' chunks in flight while one iteration computes (49 KB of
-  // shared memory at one m16 tile, 77 KB at eight).
+  // shared memory at one m16 tile, 77 KB at eight; 55 and 80 KB with
+  // output-major codes).
   static constexpr int CPI = MT <= 2 ? 4 : 2;
   static constexpr int STAGES = 3 * CPI;
 };
 
-// One block: rows m0 .. m0 + 16*MT of x [M, K] against columns n0 .. n0+64
-// of the codes [K, N], over the quantization groups of split blockIdx.z of
-// gridDim.z.  Each warp builds the B fragments of its columns straight
-// from the code tile in registers (each weight an exact bf16 integer), so
-// one barrier per CPI chunks suffices.  With one split the block writes
-// `out` [M, N]; otherwise its partial sums go to partials[blockIdx.z].
-template <int MT>
-__global__ void __launch_bounds__(TC_THREADS)
-amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                       const uint8_t* __restrict__ codes,
-                       const float* __restrict__ scales,
-                       const uint8_t* __restrict__ zps,
-                       float* __restrict__ out, float* __restrict__ partials,
-                       int M, int K, int N, int group_size, int sh,
-                       float mult) {
+template <int MT, bool TRANSPOSED>
+constexpr size_t tc_smem_bytes() {
+  return TcWarps<MT>::STAGES * sizeof(TcStage<MT, TRANSPOSED>);
+}
+
+// The body of both tensor-core kernels: rows m0 .. m0 + 16*MT of x [M, K]
+// against columns n0 .. n0+64 of one matrix's codes ([K, N], or [N, K]
+// when TRANSPOSED; metadata [K/G, N]), over quantization groups [g_begin,
+// g_end), the sums written to dst [M, N].  `sh` and `mult` are the
+// precision (0 and 1 for MSB+LSB; shift and 2^shift for MSB only).  Each
+// warp builds the B fragments of its columns straight from the code tile
+// in registers (each weight an exact bf16 integer), so one barrier per CPI
+// chunks suffices.
+template <int MT, bool TRANSPOSED>
+__device__ __forceinline__ void amat_mma_tiles(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ x,
+    const uint8_t* __restrict__ codes, const float* __restrict__ scales,
+    const uint8_t* __restrict__ zps, float* __restrict__ dst, int M, int K,
+    int N, int group_size, int g_begin, int g_end, int sh, float mult) {
   using W = TcWarps<MT>;
+  using Stage = TcStage<MT, TRANSPOSED>;
   constexpr int STAGES = W::STAGES;
   constexpr int CPI = W::CPI;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  TcStage<MT>* st = reinterpret_cast<TcStage<MT>*>(tc_smem);
+  Stage* st = reinterpret_cast<Stage*>(smem);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -327,17 +322,13 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int q = lane & 3;
   const int n0 = blockIdx.x * TC_BN;
   const int m0 = blockIdx.y * 16 * MT;
-  const int splits = gridDim.z;
-  const int G = K / group_size;
   const int per_group = group_size / BK;
-  const int g_begin = blockIdx.z * G / splits;
-  const int g_end = (blockIdx.z + 1) * G / splits;
   const int c_begin = g_begin * per_group;
   const int n_chunks = (g_end - g_begin) * per_group;
 
   // Chunk c (32 rows of K, inside one group) into ring slot `slot`.
   auto load = [&](int c, int slot) {
-    TcStage<MT>& s = st[slot];
+    Stage& s = st[slot];
     const int k0 = (c_begin + c) * BK;
     const size_t meta = static_cast<size_t>(k0 / group_size) * N;
     for (int i = tid; i < 16 * MT * 4; i += TC_THREADS) {
@@ -349,12 +340,25 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
                  ok);
     }
     if (tid < 128) {
-      const int r = tid >> 2;
-      const int p = tid & 3;
-      const int n = n0 + p * 16;
-      const bool ok = n < N;
-      cp_async16(&s.codes[r][p * 16],
-                 ok ? codes + static_cast<size_t>(k0 + r) * N + n : codes, ok);
+      if constexpr (TRANSPOSED) {
+        // Column n0 + r: its chunk is 32 contiguous bytes of codes_t.
+        const int r = tid >> 1;
+        const int p = tid & 1;
+        const int n = n0 + r;
+        const bool ok = n < N;
+        cp_async16(&s.codes[r][p * 16],
+                   ok ? codes + static_cast<size_t>(n) * K + k0 + p * 16
+                      : codes,
+                   ok);
+      } else {
+        const int r = tid >> 2;
+        const int p = tid & 3;
+        const int n = n0 + p * 16;
+        const bool ok = n < N;
+        cp_async16(&s.codes[r][p * 16],
+                   ok ? codes + static_cast<size_t>(k0 + r) * N + n : codes,
+                   ok);
+      }
     } else if (tid < 144) {
       const int i = tid - 128;
       const int n = n0 + i * 4;
@@ -382,7 +386,7 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();
   }
 
-  launch_dependent_grid();  // the split sum may launch and wait now
+  launch_dependent_grid();  // a split sum may launch and wait now
   for (int c0 = 0; c0 < n_chunks; c0 += CPI) {
     // Chunks c0 .. c0 + CPI - 1 have landed once at most STAGES - 2 CPI
     // later groups are pending; after the barrier every warp is done with
@@ -399,10 +403,11 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int ci = 0; ci < CPI; ++ci) {
       if (c0 + ci >= n_chunks) break;
-      const TcStage<MT>& s = st[(c0 + ci) % STAGES];
+      const Stage& s = st[(c0 + ci) % STAGES];
 
       // B fragments of this warp's n8 tiles: column wn*COLS + 8j + g, rows
       // kk + 2q, 2q+1 (b0) and kk + 8 + 2q, 2q+1 (b1), as bf16 integers.
+      // Output-major codes hold each row pair in one 16-bit word.
       uint32_t b[2][W::NT][2];
 #pragma unroll
       for (int j = 0; j < W::NT; ++j) {
@@ -413,9 +418,18 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int k = 16 * kk + 8 * h + 2 * q;
-            b[kk][j][h] = pack_bf16(
-                static_cast<float>((s.codes[k][n] >> sh) - z),
-                static_cast<float>((s.codes[k + 1][n] >> sh) - z));
+            int c_lo, c_hi;
+            if constexpr (TRANSPOSED) {
+              const uint32_t pair =
+                  *reinterpret_cast<const uint16_t*>(&s.codes[n][k]);
+              c_lo = pair & 0xff;
+              c_hi = pair >> 8;
+            } else {
+              c_lo = s.codes[k][n];
+              c_hi = s.codes[k + 1][n];
+            }
+            b[kk][j][h] = pack_bf16(static_cast<float>((c_lo >> sh) - z),
+                                    static_cast<float>((c_hi >> sh) - z));
           }
       }
 
@@ -456,9 +470,6 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
   cp_async_wait<0>();
 
-  float* dst = splits == 1
-                   ? out
-                   : partials + static_cast<size_t>(blockIdx.z) * M * N;
 #pragma unroll
   for (int i = 0; i < W::MW; ++i)
 #pragma unroll
@@ -474,6 +485,52 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                    col) =
             make_float2(acc[i][j][2], acc[i][j][3]);
     }
+}
+
+// One matrix, static precision: the quantization groups of split
+// blockIdx.z of gridDim.z.  With one split the block writes `out` [M, N];
+// otherwise its partial sums go to partials[blockIdx.z].
+template <int MT>
+__global__ void __launch_bounds__(TC_THREADS)
+amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const uint8_t* __restrict__ codes,
+                       const float* __restrict__ scales,
+                       const uint8_t* __restrict__ zps,
+                       float* __restrict__ out, float* __restrict__ partials,
+                       int M, int K, int N, int group_size, int sh,
+                       float mult) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int splits = gridDim.z;
+  const int G = K / group_size;
+  float* dst = splits == 1
+                   ? out
+                   : partials + static_cast<size_t>(blockIdx.z) * M * N;
+  amat_mma_tiles<MT, false>(tc_smem, x, codes, scales, zps, dst, M, K, N,
+                            group_size, blockIdx.z * G / splits,
+                            (blockIdx.z + 1) * G / splits, sh, mult);
+}
+
+// Batched experts: expert blockIdx.z over the whole of K, at its own
+// precision use_lsb[e], as `amat_batched_kernel`.
+template <int MT, bool TRANSPOSED>
+__global__ void __launch_bounds__(TC_THREADS)
+amat_batched_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                        const uint8_t* __restrict__ codes,
+                        const float* __restrict__ scales,
+                        const uint8_t* __restrict__ zps,
+                        const uint8_t* __restrict__ use_lsb,
+                        float* __restrict__ out, int M, int K, int N,
+                        int group_size, int shift) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int e = blockIdx.z;
+  const bool hi = use_lsb[e] != 0;
+  const int G = K / group_size;
+  const size_t meta = static_cast<size_t>(e) * G * N;
+  amat_mma_tiles<MT, TRANSPOSED>(
+      tc_smem, x + static_cast<size_t>(e) * M * K,
+      codes + static_cast<size_t>(e) * K * N, scales + meta, zps + meta,
+      out + static_cast<size_t>(e) * M * N, M, K, N, group_size, 0, G,
+      hi ? 0 : shift, hi ? 1.0f : static_cast<float>(1 << shift));
 }
 
 // out[i] = sum over s of partials[s][i], in split order; count % 4 == 0.
@@ -508,29 +565,46 @@ sum_splits_kernel(const float* __restrict__ partials, float* __restrict__ out,
   *reinterpret_cast<float4*>(out + i) = acc;
 }
 
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (`done`: the caller's record for this kernel), so that a launch inside a
+// CUDA graph capture makes no other API call than cudaGetDevice.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
+                            bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+// f(std::integral_constant<int, MT>{}) for m_tiles = MT in 1, 2, 4, 8.
+template <typename F>
+int with_m_tiles(int m_tiles, F&& f) {
+  switch (m_tiles) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int MT>
 int launch_single_mma(const __nv_bfloat16* x, const uint8_t* codes,
                       const float* scales, const uint8_t* zps, float* out,
                       float* partials, int splits, int M, int K, int N,
                       int group_size, int sh, float mult,
                       cudaStream_t stream) {
+  constexpr size_t bytes = tc_smem_bytes<MT, false>();
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem_once(amat_single_mma_kernel<MT>, bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 16 * MT - 1) / (16 * MT),
                   splits);
-  constexpr size_t bytes = TcWarps<MT>::STAGES * sizeof(TcStage<MT>);
-  // Set once per device, so that a launch inside a CUDA graph capture
-  // makes no other API call than cudaGetDevice.
-  constexpr int MAX_DEVICES = 64;
-  static bool attr_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(amat_single_mma_kernel<MT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < MAX_DEVICES) attr_set[dev] = true;
-  }
   amat_single_mma_kernel<MT><<<grid, TC_THREADS, bytes, stream>>>(
       x, codes, scales, zps, out, partials, M, K, N, group_size, sh, mult);
   if (splits > 1) {
@@ -555,6 +629,22 @@ int launch_single_mma(const __nv_bfloat16* x, const uint8_t* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int MT, bool TRANSPOSED>
+int launch_batched_mma(const __nv_bfloat16* x, const uint8_t* codes,
+                       const float* scales, const uint8_t* zps,
+                       const uint8_t* use_lsb, float* out, int E, int M,
+                       int K, int N, int group_size, int shift,
+                       cudaStream_t stream) {
+  constexpr size_t bytes = tc_smem_bytes<MT, TRANSPOSED>();
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem_once(amat_batched_mma_kernel<MT, TRANSPOSED>,
+                                    bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 16 * MT - 1) / (16 * MT), E);
+  amat_batched_mma_kernel<MT, TRANSPOSED><<<grid, TC_THREADS, bytes, stream>>>(
+      x, codes, scales, zps, use_lsb, out, M, K, N, group_size, shift);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -564,32 +654,43 @@ extern "C" {
 // code of its launch (0 on success); the caller checks it.
 
 // Batched experts, per-expert precision use_lsb [E]; transposed = 1 reads
-// output-major codes [E, N, K].
+// output-major codes [E, N, K].  f32 x runs `amat_batched_kernel` (m_tiles
+// unused); bf16 x runs the tensor-core kernel on blocks of 16 * m_tiles
+// rows (1, 2, 4 or 8) and 64 columns, and takes N % 16 == 0 and 16-byte
+// aligned x, codes, scales and zps.
 int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
                         const void* scales, const void* zps,
-                        const void* use_lsb, void* out, int E, int M, int K,
-                        int N, int group_size, int shift, int transposed,
-                        void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+                        const void* use_lsb, void* out, int m_tiles, int E,
+                        int M, int K, int N, int group_size, int shift,
+                        int transposed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   const uint8_t* z = static_cast<const uint8_t*>(zps);
   const uint8_t* u = static_cast<const uint8_t*>(use_lsb);
   float* o = static_cast<float*>(out);
-  switch (x_dtype) {
-    case 0:
-      launch_batched<float>(transposed != 0, grid, s, x, c, sc, z, u, o, M, K,
-                            N, group_size, shift);
-      break;
-    case 1:
-      launch_batched<__nv_bfloat16>(transposed != 0, grid, s, x, c, sc, z, u,
-                                    o, M, K, N, group_size, shift);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 0) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+    const float* xf = static_cast<const float*>(x);
+    if (transposed)
+      amat_batched_kernel<true><<<grid, THREADS, 0, s>>>(
+          xf, c, sc, z, u, o, M, K, N, group_size, shift);
+    else
+      amat_batched_kernel<false><<<grid, THREADS, 0, s>>>(
+          xf, c, sc, z, u, o, M, K, N, group_size, shift);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (x_dtype != 1 || N % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  return with_m_tiles(m_tiles, [&](auto mt) {
+    constexpr int MT = decltype(mt)::value;
+    return transposed
+               ? launch_batched_mma<MT, true>(xb, c, sc, z, u, o, E, M, K, N,
+                                              group_size, shift, s)
+               : launch_batched_mma<MT, false>(xb, c, sc, z, u, o, E, M, K,
+                                               N, group_size, shift, s);
+  });
 }
 
 // One matrix: x [M, K] @ dequant(codes [K, N]) with a static precision,
@@ -614,7 +715,7 @@ int amat_single_matmul(const void* x, int x_dtype, const void* codes,
   const float mult = high ? 1.0f : static_cast<float>(1 << shift);
   if (x_dtype == 0) {
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
-    amat_single_kernel<float><<<grid, THREADS, 0, s>>>(
+    amat_single_kernel<<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), c, sc, z, o, M, K, N, group_size, sh,
         mult);
     return static_cast<int>(cudaGetLastError());
@@ -623,22 +724,10 @@ int amat_single_matmul(const void* x, int x_dtype, const void* codes,
       splits > K / group_size || (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  switch (m_tiles) {
-    case 1:
-      return launch_single_mma<1>(xb, c, sc, z, o, part, splits, M, K, N,
-                                  group_size, sh, mult, s);
-    case 2:
-      return launch_single_mma<2>(xb, c, sc, z, o, part, splits, M, K, N,
-                                  group_size, sh, mult, s);
-    case 4:
-      return launch_single_mma<4>(xb, c, sc, z, o, part, splits, M, K, N,
-                                  group_size, sh, mult, s);
-    case 8:
-      return launch_single_mma<8>(xb, c, sc, z, o, part, splits, M, K, N,
-                                  group_size, sh, mult, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_m_tiles(m_tiles, [&](auto mt) {
+    return launch_single_mma<decltype(mt)::value>(
+        xb, c, sc, z, o, part, splits, M, K, N, group_size, sh, mult, s);
+  });
 }
 
 const char* amat_error_string(int code) {

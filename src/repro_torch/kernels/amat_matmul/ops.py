@@ -19,23 +19,24 @@ tensors it runs the plain PyTorch version in :mod:`.ref`.
 
 The route by dtype of ``x``:
 
-* :func:`amat_expert_matmul` (and ``expert_matmul``), f32 or bf16: the
-  batched kernel on the CUDA cores, f32 products of dequantized weights;
-* :func:`amat_matmul` with bf16 ``x``: the tensor-core kernel.  Each
-  weight is an integer of at most 8 bits, exact in bf16, so each 32-row
-  group's product is exact in ``mma.sync`` bf16 -> f32 and its scale
-  applies after it.  At small M, K is split across blocks in whole
-  groups (:func:`mma_plan`) and a second kernel sums the splits in
-  order; the call still counts one launch;
-* :func:`amat_matmul` with f32 ``x``: the CUDA-core kernel (no exact
-  tensor-core route for f32: TF32 keeps 10 mantissa bits).
+* bf16 ``x``: the tensor-core kernels.  Each weight is an integer of at
+  most 8 bits, exact in bf16, so each 32-row group's product is exact in
+  ``mma.sync`` bf16 -> f32 and its scale applies after it.
+  :func:`amat_expert_matmul` (and ``expert_matmul``) runs one block per
+  expert, 64 columns and :func:`mma_m_tiles` rows over the whole of K,
+  on either code layout.  :func:`amat_matmul` splits K across blocks in
+  whole groups at small M (:func:`mma_plan`) and a second kernel sums
+  the splits in order; the call still counts one launch;
+* f32 ``x``: the CUDA-core kernels, f32 products of dequantized weights
+  (no exact tensor-core route for f32: TF32 keeps 10 mantissa bits).
+  This is the parity mode.
 
-The kernels mask ragged M and N themselves.  The CUDA-core kernels' K-major
-loads take 4 codes at a time, the tensor-core kernel's 16, so
-:func:`launch`, the one launch path of every wrapper here and of
-``expert_matmul``, pads the columns of K-major codes whose N is not a
-multiple of that (zero scales null the pad).  No model shape has such an
-N, so the copy never runs on them.
+The kernels mask ragged M and N themselves.  The tensor-core kernels'
+metadata loads take 16 columns at a time, the CUDA-core kernels' K-major
+code loads 4, so :func:`launch`, the one launch path of every wrapper
+here and of ``expert_matmul``, pads a ragged N to that (zero scales null
+the pad).  No model shape has such an N, so the copy never runs on
+them.
 """
 
 from __future__ import annotations
@@ -76,10 +77,15 @@ def library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C entries typed."""
     from repro_torch.kernels._build import load_library
 
+    return bind(load_library(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entries of ``lib``, built from :data:`SOURCE` or from a
+    variant of it with the same entries."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib = load_library(SOURCE)
     lib.amat_batched_matmul.argtypes = [P, I, P, P, P, P, P,
-                                        I, I, I, I, I, I, I, P]
+                                        I, I, I, I, I, I, I, I, P]
     lib.amat_single_matmul.argtypes = [P, I, P, P, P, P, P,
                                        I, I, I, I, I, I, I, I, P]
     for fn in (lib.amat_batched_matmul, lib.amat_single_matmul):
@@ -99,15 +105,21 @@ def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132):
-    """``(m_tiles, splits)`` of the tensor-core kernel for x [M, K] and
-    codes [K, N]: the fewest m16 tiles whose block covers ``min(M, 128)``
-    rows, and the split of K that brings the grid to
-    :data:`MMA_BLOCKS_PER_SM` blocks per SM (one wave), at most one split
-    per group and at most as many as keep the f32 partials (``splits * M *
-    N * 4`` bytes) within twice the codes' ``K * N`` bytes."""
+def mma_m_tiles(M: int) -> int:
+    """The m16 tiles of a tensor-core block for ``M`` rows of x: the
+    fewest of :data:`MMA_M_TILES` whose block covers ``min(M, 128)``."""
     rows = min(M, 16 * MMA_M_TILES[-1])
-    m_tiles = next(t for t in MMA_M_TILES if 16 * t >= rows)
+    return next(t for t in MMA_M_TILES if 16 * t >= rows)
+
+
+def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132):
+    """``(m_tiles, splits)`` of the single-matrix tensor-core kernel for x
+    [M, K] and codes [K, N]: :func:`mma_m_tiles`, and the split of K that
+    brings the grid to :data:`MMA_BLOCKS_PER_SM` blocks per SM (one wave),
+    at most one split per group and at most as many as keep the f32
+    partials (``splits * M * N * 4`` bytes) within twice the codes' ``K *
+    N`` bytes."""
+    m_tiles = mma_m_tiles(M)
     blocks = -(-N // MMA_BN) * -(-M // (16 * m_tiles))
     want = -(-MMA_BLOCKS_PER_SM * sms // blocks)
     cap = K // (2 * M)
@@ -160,37 +172,41 @@ def check_operands(who: str, x, codes, scales, zps, *, group_size: int,
     return use_lsb
 
 
-def pad_columns(n_to: int, codes, scales, zps):
-    """Zero-pad the last (N) dimension of codes and metadata to ``n_to``
-    columns.  A padded column has scale 0, so its weights are 0 and its
-    output columns, which the caller drops, are 0."""
-    n = codes.shape[-1]
-    return tuple(F.pad(t, (0, n_to - n)) for t in (codes, scales, zps))
+def pad_columns(n_to: int, codes, scales, zps, *, transposed: bool = False):
+    """Zero-pad the N dimension of codes (the last, or the rows of
+    output-major ``[..., N, K]`` codes when ``transposed``) and the last
+    of the metadata to ``n_to`` columns.  A padded column has scale 0, so
+    its weights are 0 and its output columns, which the caller drops, are
+    0."""
+    pad = n_to - scales.shape[-1]
+    codes = F.pad(codes, (0, 0, 0, pad) if transposed else (0, pad))
+    return (codes, *(F.pad(t, (0, pad)) for t in (scales, zps)))
 
 
 def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
            zps, use_lsb, *, group_size: int, shift: int,
            transposed: bool = False, high: bool = False):
-    """Check the operands, pad a ragged K-major N (to a multiple of 16
-    for the tensor-core kernel, else 4), launch the kernel on ``x``'s
-    card and add one to ``counter``'s ``key``.  ``x`` is ``[E, M, K]``
-    with ``use_lsb [E]`` (C entry ``amat_batched_matmul``) or ``[M, K]``
-    with ``use_lsb=None`` and the static precision ``high`` (C entry
-    ``amat_single_matmul``)."""
+    """Check the operands, pad a ragged N (to a multiple of 16 for the
+    tensor-core kernels; to 4 for K-major codes on the CUDA cores), launch
+    the kernel on ``x``'s card and add one to ``counter``'s ``key``.
+    ``x`` is ``[E, M, K]`` with ``use_lsb [E]`` (C entry
+    ``amat_batched_matmul``) or ``[M, K]`` with ``use_lsb=None`` and the
+    static precision ``high`` (C entry ``amat_single_matmul``)."""
     *lead, M, K = x.shape
     N = codes.shape[-2] if transposed else codes.shape[-1]
     use_lsb = check_operands(
         who, x, codes, scales, zps, group_size=group_size,
         codes_shape=(*lead, N, K) if transposed else (*lead, K, N),
         meta_shape=(*lead, K // group_size, N), use_lsb=use_lsb)
-    mma = use_lsb is None and x.dtype == torch.bfloat16
+    mma = x.dtype == torch.bfloat16
     if mma:
         for name, t in (("x", x), ("scales", scales), ("zps", zps)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{who}: {name} is not 16-byte aligned")
-    n_pad = 0 if transposed else -N % (16 if mma else 4)
+    n_pad = -N % 16 if mma else (0 if transposed else -N % 4)
     if n_pad:
-        codes, scales, zps = pad_columns(N + n_pad, codes, scales, zps)
+        codes, scales, zps = pad_columns(N + n_pad, codes, scales, zps,
+                                         transposed=transposed)
     out = torch.empty((*lead, M, N + n_pad), dtype=torch.float32,
                       device=x.device)
     if out.numel():
@@ -215,9 +231,9 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
                     int(high), stream_of(x.device))
             else:
                 rc = lib.amat_batched_matmul(
-                    *ptrs, use_lsb.data_ptr(), out.data_ptr(), lead[0], M, K,
-                    N + n_pad, group_size, shift, int(transposed),
-                    stream_of(x.device))
+                    *ptrs, use_lsb.data_ptr(), out.data_ptr(),
+                    mma_m_tiles(M), lead[0], M, K, N + n_pad, group_size,
+                    shift, int(transposed), stream_of(x.device))
         raise_on_error(rc, who)
         counter.by_key[key] += 1
     return out[..., :N].contiguous() if n_pad else out

@@ -97,11 +97,90 @@ def test_wrapper_rejects_an_unsupported_device():
 
 
 # --------------------------------------------------------------------------
+# The numerics of the tensor-core route (bf16 x), emulated on the CPU.
+# --------------------------------------------------------------------------
+def _mma_route_emulated(x, codes, scales, zps, use_lsb, *, transposed,
+                        shift=4, group_size=32):
+    """The tensor-core kernel's order in torch, expert by expert: bf16 x
+    times the exact integer weights ``(c >> sh) - (z >> sh)`` of each
+    32-row chunk (exact products, f32 sums), then the group's scale times
+    2^sh (sh = 0 where ``use_lsb``, else ``shift``), over the whole K in
+    one pass (no split)."""
+    E, M, K = x.shape
+    out = []
+    for e in range(E):
+        c = (codes[e].T if transposed else codes[e]).to(torch.int32)
+        sh = 0 if bool(use_lsb[e]) else shift
+        z = (zps[e].to(torch.int32) >> sh).repeat_interleave(group_size, 0)
+        w = ((c >> sh) - z).to(torch.float32)
+        scale = scales[e] * 2.0 ** sh
+        xf = x[e].to(torch.float32)
+        acc = torch.zeros((M, c.shape[1]))
+        for k0 in range(0, K, 32):
+            acc = acc + scale[k0 // group_size] * (xf[:, k0:k0 + 32]
+                                                   @ w[k0:k0 + 32])
+        out.append(acc)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("M", [1, 8, 11])
+@pytest.mark.parametrize("transposed", [False, True], ids=["wi", "wo_t"])
+def test_mma_route_order_matches_plain(transposed, M):
+    """At qwen15-moe-a2.7b's depths (``wi`` K=2048, ``wo`` K=1408) the
+    kernel's order holds the card's tolerance against the plain version,
+    with a mixed per-expert precision; M is one token, the decode
+    capacity (8) and the prefill capacity (11)."""
+    K = 1408 if transposed else 2048
+    args = _inputs(4, M, K, 48, seed=M, transposed=transposed)
+    args[0] = args[0].to(torch.bfloat16)
+    assert 0 < int(args[4].sum()) < 4           # both precisions occur
+    got = _mma_route_emulated(*args, transposed=transposed)
+    ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
+    plain = ref(*args, group_size=32, shift=4)
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["wi", "wo_t"])
+def test_column_padding_keeps_the_function(transposed):
+    """The card wrapper's pad of a ragged N to the tensor-core kernel's 16
+    columns, on both layouts: padded columns give zeros and leave the
+    others as they were."""
+    E, M, K, N = CASES["ragged_n"]
+    x, codes, scales, zps, use_lsb = _inputs(E, M, K, N, seed=5,
+                                             transposed=transposed)
+    ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
+    want = ref(x, codes, scales, zps, use_lsb)
+    padded = TOPS.pad_columns(80, codes, scales, zps, transposed=transposed)
+    assert padded[0].shape == ((E, 80, K) if transposed else (E, K, 80))
+    assert padded[1].shape == padded[2].shape == (E, K // 32, 80)
+    got = ref(x, *padded, use_lsb)
+    torch.testing.assert_close(got[..., :N], want, rtol=0, atol=0)
+    assert bool((got[..., N:] == 0).all())
+
+
+@pytest.mark.parametrize("M", [1, 8, 11, 16, 17, 33, 64, 65, 128, 200])
+def test_mma_m_tiles_is_the_fewest_covering(M):
+    """A block of 16 * m_tiles rows covers min(M, 128), and no smaller
+    choice would."""
+    m_tiles = TOPS.mma_m_tiles(M)
+    rows = min(M, 128)
+    assert m_tiles in TOPS.MMA_M_TILES and 16 * m_tiles >= rows
+    assert all(16 * t < rows for t in TOPS.MMA_M_TILES if t < m_tiles)
+
+
+# --------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version.
 # --------------------------------------------------------------------------
+# On the card also: qwen15-moe-a2.7b's shapes at the decode and prefill
+# capacities, M past the tensor-core kernel's 128-row block (two row
+# tiles), and every expert at one precision.
 GPU_CASES = dict(CASES, full_wi=(60, 8, 2048, 2816), full_wo=(60, 8, 1408, 2048),
                  prefill_wi=(60, 18, 2048, 2816),
-                 prefill_wo=(60, 18, 1408, 2048))
+                 prefill_wo=(60, 18, 1408, 2048),
+                 two_row_tiles=(4, 200, 2048, 256),
+                 all_lsb=(6, 8, 1408, 256), no_lsb=(6, 8, 1408, 256))
+UNIFORM_LSB = {"all_lsb": True, "no_lsb": False}
 
 
 @pytest.fixture
@@ -121,6 +200,8 @@ def test_cuda_kernel_matches_plain(cuda_device, case, transposed, x_dtype):
     args = _inputs(E, M, K, N, seed=11, transposed=transposed,
                    device=cuda_device)
     args[0] = args[0].to(x_dtype)
+    if case in UNIFORM_LSB:
+        args[4].fill_(UNIFORM_LSB[case])
     ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
     plain = ref(*args, group_size=32, shift=4)
     before = TOPS.LAUNCHES.count
@@ -148,3 +229,14 @@ def test_cuda_wrapper_raises_on_bad_input(cuda_device):
         TOPS.amat_expert_matmul(args[0].half(), *args[1:])
     with pytest.raises(ValueError, match="use_lsb"):
         TOPS.amat_expert_matmul(*args[:4], args[4][:1])
+    # The tensor-core route reads x by 16-byte copies: a bf16 view 2 bytes
+    # off alignment is refused on both layouts, and nothing is launched.
+    xb = torch.zeros(2 * 3 * 64 + 1, dtype=torch.bfloat16,
+                     device=cuda_device)[1:].view(2, 3, 64)
+    codes_t = args[1].transpose(1, 2).contiguous()
+    before = TOPS.LAUNCHES.count
+    for codes, transposed in ((args[1], False), (codes_t, True)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            TOPS.amat_expert_matmul(xb, codes, *args[2:],
+                                    transposed=transposed)
+    assert TOPS.LAUNCHES.count == before

@@ -33,18 +33,24 @@ it goes, any failure exiting non-zero:
    (one qwen15-moe-a2.7b expert matrix), K4 ``expert_matmul`` (K1's
    shapes) and K5 ``flash_attention`` (qwen15-moe-a2.7b's causal
    attention, llama4-scout-17b-a16e's windowed GQA attention), each with
-   a ragged or small case; timed rows beside the plain version, one
-   library call (``torch.matmul`` / ``torch.bmm`` on dense f32 weights,
+   a ragged or small case, K3 and K5 with bf16 and f32 inputs (both on
+   the tensor cores: f32 K3 as three exact bf16 planes, f32 K5 in
+   3xTF32); timed rows beside the plain version, one library call
+   (``torch.matmul`` / ``torch.bmm`` on dense f32 weights,
    ``scaled_dot_product_attention``) and the card's bound, and for the
-   bf16 K3 and K5 rows (the tensor-core kernels) a ``[versus]`` line
-   comparing ``graph_ms`` with the library call's;
-   Then a sweep of K3's K split: ``graph_ms`` of the bf16 tensor-core
-   kernel at M = 1, 16, 64 and 128 for each split count, the plan's
-   choice marked (the evidence for ``mma_plan``);
+   K3 and K5 rows a ``[versus]`` line comparing ``graph_ms`` with the
+   library call's;
+   Then a sweep of K3's K split: ``graph_ms`` of the tensor-core kernel
+   with bf16 x at M = 1, 16, 64 and 128 and with f32 x at M = 1 and 128,
+   for each split count, the plan's choice marked (the evidence for
+   ``mma_plan``);
 3c. the slice's path: the public entry points of K3-K5 driven once each
    at those full widths, with the launch counts set to 0 just before and
    read just after; every kernel must have launched and every output be
    finite;
+3d. the f32 path: the public entry points of K3 and K5 driven once each
+   with f32 inputs at the same widths (the three-plane and 3xTF32
+   kernels), counted the same way;
 4. a small reference check: the qwen15-moe-repro model (2 layers, f32)
    served on the card through the kernel and on the CPU through the
    plain dense-dequant path must agree (tokens exact, logits 1e-4);
@@ -61,8 +67,9 @@ per step by kernel, the engine's host ranges, the device's busy share).
 Without arguments the script runs phases 1 to 5.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels' JSON record (K1-K5; ``launches`` counts phase 5's run
-for K1 and K2 and phase 3c's for K3-K5; ``graph_ms`` and
+holds the kernels' JSON record (K1-K5, and the f32 routes of K3 and K5
+as rows of their own; ``launches`` counts phase 5's run for K1 and K2,
+phase 3c's for K3-K5 and phase 3d's for the f32 rows; ``graph_ms`` and
 ``library_graph_ms`` beside ``ms`` and ``library_ms``).
 """
 
@@ -81,11 +88,11 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Card peaks (NVIDIA H100 SXM data sheet, dense) for the bound of each
-# kernel: HBM3, and operations by the type of their operands: bf16 on the
-# tensor cores (a bf16 x bf16 product is exact in an f32 accumulator),
-# f32 on the CUDA cores.
+# kernel: HBM3, and operations by the type of their operands: bf16 and
+# tf32 on the tensor cores (a bf16 x bf16 or tf32 x tf32 product is exact
+# in an f32 accumulator), f32 on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 494.7e12, "f32": 67e12}
 
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 
@@ -232,8 +239,10 @@ def _amat_flops(x_dtype, n: float) -> dict:
     """The operations of an AMAT dequant-matmul by operand type.  Its
     weights are integers of at most 8 bits, exact in bf16, times one
     scale per 32-row group, which can be applied after the group's
-    product: with bf16 activations the whole product is bf16 work."""
-    return {"bf16" if x_dtype == torch.bfloat16 else "f32": n}
+    product: with bf16 activations the whole product is bf16 work, and
+    f32 activations split exactly into three bf16 planes, so their
+    product is three times that bf16 work."""
+    return {"bf16": n if x_dtype == torch.bfloat16 else 3 * n}
 
 
 def _visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -409,15 +418,17 @@ def phase_slice_kernels(cfg):
 
     * K3 ``amat_matmul``: one qwen15-moe-a2.7b expert's ``wi`` (K=2048,
       N=2816) at the prefill capacity (M=128) in each precision mode, with
-      bf16 (tensor cores) and f32 (CUDA cores) activations, and at one
+      bf16 and f32 (three bf16 planes) activations, and at one
       decode token, and the reference's ragged M=7, K=96, N=33 in both;
     * K4 ``expert_matmul``: K1's ``wi`` shapes (E=60 at the decode and
       prefill capacities) and the reference's ragged E=8, C=33, K=96;
     * K5 ``flash_attention``: qwen15-moe-a2.7b's causal attention at 4
-      sequences of 4096, llama4-scout-17b-a16e's windowed GQA attention
+      sequences of 4096 (bf16 and f32 inputs), llama4-scout-17b-a16e's
+      windowed GQA attention
       at 12288 tokens, and two of the reference's small cases.
 
-    Returns, per launch-counter key, the reported row's timings and the
+    Returns, per reported kernel (the launch-counter key, with ``_f32``
+    for the f32 routes of K3 and K5), the reported row's timings and the
     largest error over all that kernel's rows."""
     from repro_torch.core.amat import MatConfig, amat_quantize
     from repro_torch.kernels.amat_matmul import ops as amat_ops
@@ -432,7 +443,8 @@ def phase_slice_kernels(cfg):
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device="cuda")
     g.manual_seed(100)
-    results = {k: {"max_abs_err": 0.0} for k in ("single", "expert", "flash")}
+    results = {k: {"max_abs_err": 0.0} for k in (
+        "single", "single_f32", "expert", "flash", "flash_f32")}
 
     def record(key, max_err, timing, reported):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
@@ -442,6 +454,7 @@ def phase_slice_kernels(cfg):
 
     # K3: one matrix.  Ten quantized copies (58 MB of codes) rotate in the
     # timed loops, so that the bytes come from HBM and not the 50 MB L2.
+    # Its f32 rows report as "single_f32".
     mat = MatConfig(8, 4)
 
     def quantized(k, n):
@@ -455,7 +468,7 @@ def phase_slice_kernels(cfg):
         # name, M, K, N, x dtype, mode, shift, timed, reported
         ("amat_single_prefill_high", 128, K, N, bf16, "high", 0, True, True),
         ("amat_single_prefill_high_f32", 128, K, N, f32, "high", 0, True,
-         False),
+         True),
         ("amat_single_prefill_low4", 128, K, N, bf16, "low", 4, True, False),
         ("amat_single_prefill_low2", 128, K, N, bf16, "low", 2, False, False),
         ("amat_single_decode_low4", 1, K, N, bf16, "low", 4, True, False),
@@ -491,10 +504,9 @@ def phase_slice_kernels(cfg):
                        _amat_flops(xd, 2.0 * M * k * n),
                        "each loop rotates over 10 copies (58 MB of codes, "
                        "231 MB of dense f32 for the library call)")
-            if xd == bf16:
-                _versus_library(name, t)
+            _versus_library(name, t)
             del dense
-        record("single", err, t, reported)
+        record("single" if xd == bf16 else "single_f32", err, t, reported)
     del copies
     torch.cuda.empty_cache()
 
@@ -548,7 +560,7 @@ def phase_slice_kernels(cfg):
         ("flash_qwen_causal", (4, 4096, 4096, hq, hkv, d), True, None, bf16,
          True, True),
         ("flash_qwen_causal_f32", (4, 4096, 4096, hq, hkv, d), True, None,
-         f32, True, False),
+         f32, True, True),
         ("flash_scout_window", (1, 12288, 12288, 40, 8, 128), True, 8192,
          bf16, True, False),
         ("flash_small_noncausal", (1, 16, 16, 4, 2, 32), False, None, f32,
@@ -604,24 +616,25 @@ def phase_slice_kernels(cfg):
             # 2*D for q.k and 2*D for p.v per visible (query, key) pair.
             # With bf16 inputs the cheapest route that holds the tolerance
             # is three bf16 products: q.k (exact) and p.v as p_hi.v +
-            # p_lo.v (the f32 p split in two bf16 parts); f32 inputs stay
-            # f32 work.
+            # p_lo.v (the f32 p split in two bf16 parts); with f32 inputs
+            # six TF32 products: q.k and p.v each as hi.hi + hi.lo + lo.hi.
             half = 2.0 * dd * b * h * _visible_pairs(sq, sk, causal, win)
-            flops = {"bf16": 3 * half} if dt == bf16 else {"f32": 2 * half}
+            flops = {"bf16": 3 * half} if dt == bf16 else {"tf32": 6 * half}
             t = _timed(name, kern, plain, library, what, nbytes, flops, note)
-            if dt == bf16:
-                _versus_library(name, t)
+            _versus_library(name, t)
             del qf, kf, vf, mask
-        record("flash", err, t, reported)
+        record("flash" if dt == bf16 else "flash_f32", err, t, reported)
         del q, k, v
         torch.cuda.empty_cache()
     return results
 
 
 def phase_sweep_splits(cfg):
-    """``graph_ms`` of K3's tensor-core kernel (bf16 x, 'low' at shift 4,
-    one qwen15-moe-a2.7b ``wi``, rotating over 10 copies) for each K split
-    in turn, the plan's choice marked: the evidence for the split rule."""
+    """``graph_ms`` of K3's tensor-core kernel ('low' at shift 4, one
+    qwen15-moe-a2.7b ``wi``, rotating over 10 copies) for each K split in
+    turn, the plan's choice marked: the evidence for the split rule.  bf16
+    x at four sizes of M, f32 x (three planes) at the prefill and decode
+    ends."""
     from repro_torch.core.amat import MatConfig, amat_quantize
     from repro_torch.kernels.amat_matmul import ops as amat_ops
 
@@ -633,20 +646,51 @@ def phase_sweep_splits(cfg):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = amat_ops.mma_plan
     try:
-        for M in (1, 16, 64, 128):
-            x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
-            m_tiles, chosen = plan(M, K, N, 32, sms)
+        for M, xd in ((1, torch.bfloat16), (16, torch.bfloat16),
+                      (64, torch.bfloat16), (128, torch.bfloat16),
+                      (1, torch.float32), (128, torch.float32)):
+            x = torch.randn((M, K), generator=g, device="cuda").to(xd)
+            planes = 1 if xd == torch.bfloat16 else amat_ops.X_PLANES
+            m_tiles, chosen = plan(M, K, N, 32, sms, planes)
             row = []
-            for splits in (1, 2, 4, 6, 8, 12, 16):
+            for splits in (1, 2, 3, 4, 6, 8, 12, 16):
                 amat_ops.mma_plan = (lambda *a, s=splits, t=m_tiles: (t, s))
                 t = graph_ms(_rotating(lambda qt: amat_ops.amat_matmul_qt(
                     x, qt, shift=4, mode="low"), qts), f"sweep M={M}")
                 row.append(f"{splits}{'*' if splits == chosen else ''}: "
                            f"{t:.4f}")
-            say(f"[sweep] K3 bf16 M={M} K={K} N={N} m_tiles={m_tiles}, "
+            say(f"[sweep] K3 {str(xd)[6:]} M={M} K={K} N={N} "
+                f"m_tiles={m_tiles}, "
                 f"graph_ms by splits (* = the plan's): " + ", ".join(row))
     finally:
         amat_ops.mma_plan = plan
+
+
+def _drive_entry_points(tag, run, want):
+    """Set every kernel's launch count to 0, call ``run()``, which returns
+    ``{what: (output, expected shape)}``, and read the counts just after.
+    Fails if an output is not finite or of another shape, or if the counts
+    are not ``want``; returns the counts."""
+    from repro_torch.kernels.amat_matmul import ops as amat_ops
+    from repro_torch.kernels.expert_matmul import ops as expert_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    counters = (amat_ops.LAUNCHES, expert_ops.LAUNCHES, flash_ops.LAUNCHES)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    outs = run()
+    torch.cuda.synchronize()
+    launches = {k: n for c in counters for k, n in c.by_key.items()}
+    for what, (out, shape) in outs.items():
+        finite = bool(torch.isfinite(out).all())
+        say(f"[{tag}] {what}: {tuple(out.shape)} f32, finite {finite}")
+        if tuple(out.shape) != shape or not finite:
+            fail(f"{tag}: {what} gave a bad output")
+    say(f"[{tag}] kernel launches: {launches} (want {want})")
+    if launches != want:
+        fail(f"{tag}: the entry points did not each launch their kernel")
+    return launches
 
 
 def phase_slice_path(cfg):
@@ -680,12 +724,7 @@ def phase_slice_path(cfg):
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qwen = [randn(4, 4096, h, d).to(bf16) for h in (hq, hkv, hkv)]
     scout = [randn(1, 12288, h, 128).to(bf16) for h in (40, 8, 8)]
-    torch.cuda.synchronize()
-
-    counters = (amat_ops.LAUNCHES, expert_ops.LAUNCHES, flash_ops.LAUNCHES)
-    for c in counters:
-        c.reset()
-    outs = {
+    return _drive_entry_points("path", lambda: {
         "amat_matmul_qt high, M=128": (amat_ops.amat_matmul_qt(
             x_pre, qt_one, mode="high"), (128, N)),
         "amat_matmul_qt low shift 4, M=1": (amat_ops.amat_matmul_qt(
@@ -696,20 +735,41 @@ def phase_slice_path(cfg):
             *qwen, causal=True), (4, 4096, hq, d)),
         "flash_attention window 8192 (scout)": (flash_ops.flash_attention(
             *scout, causal=True, sliding_window=8192), (1, 12288, 40, 128)),
-    }
-    torch.cuda.synchronize()
-    launches = {k: n for c in counters for k, n in c.by_key.items()}
-    for what, (out, shape) in outs.items():
-        finite = bool(torch.isfinite(out).all())
-        say(f"[path] {what}: {tuple(out.shape)} f32, finite {finite}")
-        if tuple(out.shape) != shape or not finite:
-            fail(f"slice path: {what} gave a bad output")
-    want = {"k_major": 0, "output_major": 0, "single": 2, "expert": 1,
-            "flash": 2}
-    say(f"[path] kernel launches: {launches} (want {want})")
-    if launches != want:
-        fail("the slice's entry points did not each launch their kernel")
-    return launches
+    }, {"k_major": 0, "output_major": 0, "single": 2, "expert": 1,
+        "flash": 2})
+
+
+def phase_f32_path(cfg):
+    """The f32 path: ``amat_matmul_qt`` with f32 x (one qwen15-moe-a2.7b
+    ``wi`` at M=128, 'high') and ``flash_attention`` on f32 q, k, v
+    (qwen15-moe-a2.7b's causal attention, 4 x 4096 tokens), driven once
+    each with every launch count set to 0 just before and read just
+    after.  Returns the counts, keyed as the JSON rows of the f32
+    routes."""
+    from repro_torch.core.amat import MatConfig, amat_quantize
+    from repro_torch.kernels.amat_matmul import ops as amat_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(400)
+    K, N = cfg.d_model, 2 * cfg.moe.d_ff
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    qt = amat_quantize(randn(K, N) * K ** -0.5, MatConfig(8, 4))
+    x = randn(128, K)
+    qkv = [randn(4, 4096, h, d) for h in (hq, hkv, hkv)]
+    launches = _drive_entry_points("path f32", lambda: {
+        "amat_matmul_qt high f32, M=128": (amat_ops.amat_matmul_qt(
+            x, qt, mode="high"), (128, N)),
+        "flash_attention causal f32 (qwen)": (flash_ops.flash_attention(
+            *qkv, causal=True), (4, 4096, hq, d)),
+    }, {"k_major": 0, "output_major": 0, "single": 1, "expert": 0,
+        "flash": 1})
+    return {"single_f32": launches["single"],
+            "flash_f32": launches["flash"]}
 
 
 def phase_small_reference():
@@ -946,6 +1006,7 @@ def main() -> None:
     timings.update(phase_slice_kernels(cfg))
     phase_sweep_splits(cfg)
     launches = phase_slice_path(cfg)
+    launches.update(phase_f32_path(cfg))
     phase_small_reference()
     serve_launches, engine, new_requests, wall_step = phase_serving(cfg)
     launches.update(serve_launches)     # k_major and output_major
@@ -961,9 +1022,14 @@ def main() -> None:
              "src/repro/kernels/amat_matmul/kernel.py:234"),
             ("amat_matmul (one matrix, static precision)", "single",
              amat_src, "src/repro/kernels/amat_matmul/kernel.py:101"),
+            ("amat_matmul, f32 x (three exact bf16 planes)", "single_f32",
+             amat_src, "src/repro/kernels/amat_matmul/kernel.py:101"),
             ("expert_matmul (per-expert sliced, K-major codes)", "expert",
              amat_src, "src/repro/kernels/expert_matmul/kernel.py:81"),
             ("flash_attention (causal GQA, sliding window)", "flash",
+             "src/repro_torch/kernels/flash_attn/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attn/kernel.py:115"),
+            ("flash_attention, f32 inputs (3xTF32)", "flash_f32",
              "src/repro_torch/kernels/flash_attn/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attn/kernel.py:115")):
         t = timings[key]

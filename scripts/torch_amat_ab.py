@@ -8,9 +8,10 @@ amat_batched_matmul.cu`` with the same C entries, edited (keep it under
 ``base``.  Every source is built (one ``nvcc`` each, all started
 together), held against the plain version (1e-4 + 1e-4*|plain|) and timed
 by ``graph_ms`` (``chip_smoke.py``'s timer: 20 calls in one CUDA graph) on
-the bf16 rows the tensor-core kernels serve at qwen15-moe-a2.7b's widths:
-K1 ``wi`` and K2 ``wo`` at the decode capacity (E=60, M=8), and K3 at M=128
-and M=1 (rotating over 10 quantized copies, as ``chip_smoke.py`` does).
+the rows the tensor-core kernels serve at qwen15-moe-a2.7b's widths: K1
+``wi`` and K2 ``wo`` at the decode capacity (E=60, M=8) with bf16 x, and
+K3 at M=128 and M=1 with bf16 x and at M=128 with f32 x (the three-plane
+route; rotating over 10 quantized copies, as ``chip_smoke.py`` does).
 The sources take turns, in order and then in reverse, ``--rounds`` times,
 so that a drift of the card's clock falls on all of them alike.  Needs one
 card; prints the card's name and power limit first.
@@ -62,9 +63,11 @@ def cases(cfg):
     K, N = cfg.d_model, 2 * m.d_ff
     qts = [amat_quantize(torch.randn((K, N), generator=g, device="cuda")
                          * K ** -0.5, MatConfig(8, 4)) for _ in range(10)]
-    for name, M, mode, shift in (("k3_prefill_high", 128, "high", 0),
-                                 ("k3_decode_low4", 1, "low", 4)):
-        x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+    for name, M, mode, shift, xd in (
+            ("k3_prefill_high", 128, "high", 0, torch.bfloat16),
+            ("k3_decode_low4", 1, "low", 4, torch.bfloat16),
+            ("k3_prefill_high_f32", 128, "high", 0, torch.float32)):
+        x = torch.randn((M, K), generator=g, device="cuda").to(xd)
 
         def kern(qt, x=x, mode=mode, shift=shift):
             return ops.amat_matmul_qt(x, qt, shift=shift, mode=mode)

@@ -9,12 +9,12 @@
 //    runs `amat_batched_kernel` on the CUDA cores (body `amat_tiles`);
 //  * `_amat_matmul_kernel` in the same file (`amat_matmul_pallas`, one
 //    matrix, static mode 'high' | 'low'): C entry `amat_single_matmul`.
-//    bf16 x runs on the tensor cores (`amat_single_mma_kernel`); f32 x
-//    runs `amat_tiles` for one matrix with the precision passed by value;
+//    Both types of x run on the tensor cores (`amat_single_mma_kernel`):
+//    bf16 x as it is, f32 x as three exact bf16 planes (below);
 //  * `_expert_matmul_kernel` in src/repro/kernels/expert_matmul/kernel.py
 //    (`expert_matmul_pallas`, the batched function with the flag in a (1, 1)
 //    block): C entry `amat_batched_matmul` on K-major codes.
-// Both tensor-core kernels run one body, `amat_mma_tiles`.
+// Every tensor-core kernel runs one body, `amat_mma_tiles`.
 //
 //   out[e] = x[e] @ W_e                          (f32 accumulation)
 //   W_e    = (c - z) * s                         if use_lsb[e]   (MSB+LSB)
@@ -34,9 +34,11 @@
 // FLOP/byte at which bf16 tensor work (989 TFLOP/s) would overtake HBM3
 // (3.35 TB/s), and below the ~20 of f32 on the CUDA cores (67 TFLOP/s).
 // Every kernel here therefore reads every code byte once, as uint8, and
-// never writes a dequantized weight to device memory.
+// never writes a dequantized weight to device memory.  One matrix at
+// prefill sizes with f32 x (M=128, K=2048, N=2816) is the exception: its
+// three bf16 products (4.4 GFLOP) outlast its 9.2 MB of traffic.
 //
-// The tensor-core design (bf16 x):
+// The tensor-core design:
 //  * each weight is an integer of at most 8 bits, (c - z) or (c >> s) -
 //    (z >> s), exact in bf16, and x is bf16, so each 32-row group's
 //    product runs exactly on the tensor cores (`mma.sync m16n8k16` bf16 ->
@@ -56,6 +58,18 @@
 //    and each block reads its own use_lsb[e] (the TPU kernel's scalar
 //    prefetch) and runs the whole of K; at the decode shapes the grid is
 //    44 x 60 blocks (`wi`), 32 x 60 (`wo`), many per SM;
+//  * f32 x in one matrix (`amat_single_mma_kernel<MT, 3>`): a split pass
+//    (`split_planes_kernel`) writes x as three bf16 planes, hi = bf16(x),
+//    mid = bf16(x - hi), lo = bf16(x - hi - mid).  Each subtraction is
+//    exact in f32 and after two of them at most 8 significant bits are
+//    left, so hi + mid + lo == x exactly (subnormals aside), and each
+//    plane's product with an integer weight is exact in the f32
+//    accumulator: three bf16 products per tile into the same group
+//    accumulator, against the same B fragments, differ from the plain
+//    version only in the order of the f32 sums.  Three planes triple the
+//    x tiles in shared memory, so this route takes at most 4 m16 tiles
+//    per block and 2 chunks per barrier: two blocks fit on an SM.  The
+//    kernel is launched as a programmatic dependent of the split pass;
 //  * one matrix (`amat_single_mma_kernel`): its 44 column blocks would
 //    fill a third of the 132 SMs, so K is split across blocks in whole
 //    groups (blockIdx.z) to reach two blocks per SM; each split writes
@@ -65,11 +79,12 @@
 // Ragged M rows and columns past N arrive as zeros (cp.async zero-fill)
 // and are not stored; these kernels take N % 16 == 0 (the wrapper pads).
 //
-// The CUDA-core body `amat_tiles` (f32 x, the parity mode): grid
-// (ceil(N/256), ceil(M/8), E); each block reads its own use_lsb[e], loops
-// over K in 32-row tiles (one scale and zero-point per column: group_size
-// % 32 == 0), dequantizes its [32, 256] weight tile into shared memory,
-// and keeps 8 f32 accumulators per thread (one column, 8 rows).
+// The CUDA-core body `amat_tiles` (f32 x into the batched experts, the
+// parity mode of K1/K2/K4): grid (ceil(N/256), ceil(M/8), E); each block
+// reads its own use_lsb[e], loops over K in 32-row tiles (one scale and
+// zero-point per column: group_size % 32 == 0), dequantizes its [32, 256]
+// weight tile into shared memory, and keeps 8 f32 accumulators per thread
+// (one column, 8 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -233,18 +248,8 @@ amat_batched_kernel(const float* __restrict__ x,
       hi ? 1.0f : static_cast<float>(1 << shift));
 }
 
-__global__ void __launch_bounds__(THREADS)
-amat_single_kernel(const float* __restrict__ x,
-                   const uint8_t* __restrict__ codes,
-                   const float* __restrict__ scales,
-                   const uint8_t* __restrict__ zps, float* __restrict__ out,
-                   int M, int K, int N, int group_size, int sh, float mult) {
-  amat_tiles<false>(x, codes, scales, zps, out, M, K, N, group_size, sh,
-                    mult);
-}
-
 // ---------------------------------------------------------------------------
-// Tensor-core route, bf16 x (see the note at the top).
+// Tensor-core route (see the note at the top).
 
 constexpr int TC_BN = 64;          // output columns per block
 constexpr int TC_THREADS = 256;    // 8 warps
@@ -253,7 +258,7 @@ constexpr int TC_LDC = TC_BN + 16; // K-major code tile row: 80 bytes
 constexpr int TC_LDT = BK + 16;    // output-major code tile row: 48 bytes
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_BATCH = 8;       // partials loaded before they are added
-constexpr int MAX_DEVICES = 64;
+constexpr int SPLIT_THREADS = 256;
 
 // One slot of the ring: a chunk of 32 rows of K.  Padded rows: the 8 rows
 // an `ldmatrix` of x reads fall in 8 distinct 16-byte bank groups.  K-major
@@ -261,10 +266,11 @@ constexpr int MAX_DEVICES = 64;
 // fragment gathers fall in 4 distinct banks; output-major codes are [64 n]
 // [32 k] in rows of 48 bytes (16-byte aligned `cp.async` destinations), so
 // the 8 columns g a fragment gathers start at words 12 g mod 32 and, with
-// the 2 words of their k pairs, fall in 16 distinct banks.
-template <int MT, bool TRANSPOSED>
+// the 2 words of their k pairs, fall in 16 distinct banks.  NP planes of
+// x: 1 for bf16 x, 3 for the exact bf16 planes of f32 x.
+template <int MT, bool TRANSPOSED, int NP>
 struct __align__(16) TcStage {
-  __nv_bfloat16 x[16 * MT][TC_LDX];  // x rows m0 .. m0 + 16*MT, 32 of K
+  __nv_bfloat16 x[NP][16 * MT][TC_LDX];  // x rows m0 .. m0 + 16*MT, 32 of K
   uint8_t codes[TRANSPOSED ? TC_BN : BK][TRANSPOSED ? TC_LDT : TC_LDC];
   float scales[TC_BN];
   uint8_t zps[TC_BN];
@@ -272,7 +278,7 @@ struct __align__(16) TcStage {
 
 // The warps of a block: two along M when the block has two or more m16
 // tiles, the rest along its 64 columns.
-template <int MT>
+template <int MT, int NP>
 struct TcWarps {
   static constexpr int WM = MT >= 2 ? 2 : 1;   // warps along M
   static constexpr int WN = 8 / WM;            // warps along N
@@ -283,14 +289,16 @@ struct TcWarps {
   // chains for the warps' schedulers), and the ring of chunks: two
   // iterations' chunks in flight while one iteration computes (49 KB of
   // shared memory at one m16 tile, 77 KB at eight; 55 and 80 KB with
-  // output-major codes).
-  static constexpr int CPI = MT <= 2 ? 4 : 2;
+  // output-major codes).  Three planes do three times the tensor work per
+  // chunk, so 2 chunks suffice (39, 62 and 107 KB at 1, 2 and 4 m16
+  // tiles: two blocks per SM).
+  static constexpr int CPI = (MT <= 2 && NP == 1) ? 4 : 2;
   static constexpr int STAGES = 3 * CPI;
 };
 
-template <int MT, bool TRANSPOSED>
+template <int MT, bool TRANSPOSED, int NP>
 constexpr size_t tc_smem_bytes() {
-  return TcWarps<MT>::STAGES * sizeof(TcStage<MT, TRANSPOSED>);
+  return TcWarps<MT, NP>::STAGES * sizeof(TcStage<MT, TRANSPOSED, NP>);
 }
 
 // The body of both tensor-core kernels: rows m0 .. m0 + 16*MT of x [M, K]
@@ -300,15 +308,16 @@ constexpr size_t tc_smem_bytes() {
 // precision (0 and 1 for MSB+LSB; shift and 2^shift for MSB only).  Each
 // warp builds the B fragments of its columns straight from the code tile
 // in registers (each weight an exact bf16 integer), so one barrier per CPI
-// chunks suffices.
-template <int MT, bool TRANSPOSED>
+// chunks suffices.  x holds NP planes of [M, K], plane p at x + p*M*K;
+// each plane's product goes into the same group accumulator.
+template <int MT, bool TRANSPOSED, int NP>
 __device__ __forceinline__ void amat_mma_tiles(
     unsigned char* smem, const __nv_bfloat16* __restrict__ x,
     const uint8_t* __restrict__ codes, const float* __restrict__ scales,
     const uint8_t* __restrict__ zps, float* __restrict__ dst, int M, int K,
     int N, int group_size, int g_begin, int g_end, int sh, float mult) {
-  using W = TcWarps<MT>;
-  using Stage = TcStage<MT, TRANSPOSED>;
+  using W = TcWarps<MT, NP>;
+  using Stage = TcStage<MT, TRANSPOSED, NP>;
   constexpr int STAGES = W::STAGES;
   constexpr int CPI = W::CPI;
   Stage* st = reinterpret_cast<Stage*>(smem);
@@ -331,13 +340,17 @@ __device__ __forceinline__ void amat_mma_tiles(
     Stage& s = st[slot];
     const int k0 = (c_begin + c) * BK;
     const size_t meta = static_cast<size_t>(k0 / group_size) * N;
-    for (int i = tid; i < 16 * MT * 4; i += TC_THREADS) {
-      const int r = i >> 2;
-      const int p = i & 3;
-      const bool ok = m0 + r < M;
-      cp_async16(&s.x[r][p * 8],
-                 ok ? x + static_cast<size_t>(m0 + r) * K + k0 + p * 8 : x,
-                 ok);
+#pragma unroll
+    for (int pl = 0; pl < NP; ++pl) {
+      const __nv_bfloat16* xp = x + static_cast<size_t>(pl) * M * K;
+      for (int i = tid; i < 16 * MT * 4; i += TC_THREADS) {
+        const int r = i >> 2;
+        const int p = i & 3;
+        const bool ok = m0 + r < M;
+        cp_async16(&s.x[pl][r][p * 8],
+                   ok ? xp + static_cast<size_t>(m0 + r) * K + k0 + p * 8 : x,
+                   ok);
+      }
     }
     if (tid < 128) {
       if constexpr (TRANSPOSED) {
@@ -444,14 +457,16 @@ __device__ __forceinline__ void amat_mma_tiles(
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int i = 0; i < W::MW; ++i) {
-          uint32_t a[4];
-          ldmatrix_x4(a, &s.x[(wm * W::MW + i) * 16 + (lane & 15)]
-                             [16 * kk + (lane >> 4) * 8]);
+        for (int i = 0; i < W::MW; ++i)
 #pragma unroll
-          for (int j = 0; j < W::NT; ++j)
-            mma_bf16(gacc[i][j], a, b[kk][j][0], b[kk][j][1]);
-        }
+          for (int pl = 0; pl < NP; ++pl) {
+            uint32_t a[4];
+            ldmatrix_x4(a, &s.x[pl][(wm * W::MW + i) * 16 + (lane & 15)]
+                               [16 * kk + (lane >> 4) * 8]);
+#pragma unroll
+            for (int j = 0; j < W::NT; ++j)
+              mma_bf16(gacc[i][j], a, b[kk][j][0], b[kk][j][1]);
+          }
 #pragma unroll
       for (int j = 0; j < W::NT; ++j) {
         const float2 sc = *reinterpret_cast<const float2*>(
@@ -489,8 +504,9 @@ __device__ __forceinline__ void amat_mma_tiles(
 
 // One matrix, static precision: the quantization groups of split
 // blockIdx.z of gridDim.z.  With one split the block writes `out` [M, N];
-// otherwise its partial sums go to partials[blockIdx.z].
-template <int MT>
+// otherwise its partial sums go to partials[blockIdx.z].  x is NP planes
+// of [M, K] bf16: bf16 x itself, or the three planes of f32 x.
+template <int MT, int NP>
 __global__ void __launch_bounds__(TC_THREADS)
 amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
                        const uint8_t* __restrict__ codes,
@@ -500,14 +516,17 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
                        int M, int K, int N, int group_size, int sh,
                        float mult) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
+  // The planes of f32 x come from the split pass, of which this grid is a
+  // programmatic dependent: it launches early and waits here.
+  if constexpr (NP > 1) wait_for_primary_grid();
   const int splits = gridDim.z;
   const int G = K / group_size;
   float* dst = splits == 1
                    ? out
                    : partials + static_cast<size_t>(blockIdx.z) * M * N;
-  amat_mma_tiles<MT, false>(tc_smem, x, codes, scales, zps, dst, M, K, N,
-                            group_size, blockIdx.z * G / splits,
-                            (blockIdx.z + 1) * G / splits, sh, mult);
+  amat_mma_tiles<MT, false, NP>(tc_smem, x, codes, scales, zps, dst, M, K,
+                                N, group_size, blockIdx.z * G / splits,
+                                (blockIdx.z + 1) * G / splits, sh, mult);
 }
 
 // Batched experts: expert blockIdx.z over the whole of K, at its own
@@ -526,11 +545,40 @@ amat_batched_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const bool hi = use_lsb[e] != 0;
   const int G = K / group_size;
   const size_t meta = static_cast<size_t>(e) * G * N;
-  amat_mma_tiles<MT, TRANSPOSED>(
+  amat_mma_tiles<MT, TRANSPOSED, 1>(
       tc_smem, x + static_cast<size_t>(e) * M * K,
       codes + static_cast<size_t>(e) * K * N, scales + meta, zps + meta,
       out + static_cast<size_t>(e) * M * N, M, K, N, group_size, 0, G,
       hi ? 0 : shift, hi ? 1.0f : static_cast<float>(1 << shift));
+}
+
+// f32 x [count] -> planes [3][count] bf16: hi = bf16(x), mid = bf16(x -
+// hi), lo = bf16(x - hi - mid), each rounded to nearest even; every
+// subtraction is exact in f32, so hi + mid + lo == x.  count % 4 == 0 and
+// x is 16-byte aligned.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_planes_kernel(const float* __restrict__ x,
+                    __nv_bfloat16* __restrict__ planes, size_t count) {
+  launch_dependent_grid();  // the three-plane kernel may launch and wait
+  const size_t i =
+      (static_cast<size_t>(blockIdx.x) * SPLIT_THREADS + threadIdx.x) * 4;
+  if (i >= count) return;
+  const float4 v = *reinterpret_cast<const float4*>(x + i);
+  float r[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 b01 = __floats2bfloat162_rn(r[0], r[1]);
+    const __nv_bfloat162 b23 = __floats2bfloat162_rn(r[2], r[3]);
+    const float2 f01 = __bfloat1622float2(b01);
+    const float2 f23 = __bfloat1622float2(b23);
+    r[0] -= f01.x;
+    r[1] -= f01.y;
+    r[2] -= f23.x;
+    r[3] -= f23.y;
+    *reinterpret_cast<uint2*>(planes + p * count + i) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&b01),
+                   *reinterpret_cast<const uint32_t*>(&b23));
+  }
 }
 
 // out[i] = sum over s of partials[s][i], in split order; count % 4 == 0.
@@ -565,22 +613,6 @@ sum_splits_kernel(const float* __restrict__ partials, float* __restrict__ out,
   *reinterpret_cast<float4*>(out + i) = acc;
 }
 
-// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per device
-// (`done`: the caller's record for this kernel), so that a launch inside a
-// CUDA graph capture makes no other API call than cudaGetDevice.
-template <typename Kernel>
-cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
-                            bool (&done)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
-}
-
 // f(std::integral_constant<int, MT>{}) for m_tiles = MT in 1, 2, 4, 8.
 template <typename F>
 int with_m_tiles(int m_tiles, F&& f) {
@@ -593,37 +625,57 @@ int with_m_tiles(int m_tiles, F&& f) {
   }
 }
 
-template <int MT>
+// Launch `kernel` on `stream` as a programmatic dependent of the grid
+// before it: it may start before that grid ends, and waits for it
+// (`wait_for_primary_grid`) before reading its output.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                             int threads, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+template <int MT, int NP>
 int launch_single_mma(const __nv_bfloat16* x, const uint8_t* codes,
                       const float* scales, const uint8_t* zps, float* out,
                       float* partials, int splits, int M, int K, int N,
                       int group_size, int sh, float mult,
                       cudaStream_t stream) {
-  constexpr size_t bytes = tc_smem_bytes<MT, false>();
+  constexpr size_t bytes = tc_smem_bytes<MT, false, NP>();
   static bool done[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem_once(amat_single_mma_kernel<MT>, bytes, done);
+  cudaError_t err =
+      allow_smem_once(amat_single_mma_kernel<MT, NP>, bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 16 * MT - 1) / (16 * MT),
                   splits);
-  amat_single_mma_kernel<MT><<<grid, TC_THREADS, bytes, stream>>>(
-      x, codes, scales, zps, out, partials, M, K, N, group_size, sh, mult);
+  if constexpr (NP > 1) {
+    err = launch_dependent(amat_single_mma_kernel<MT, NP>, grid, TC_THREADS,
+                           bytes, stream, x, codes, scales, zps, out,
+                           partials, M, K, N, group_size, sh, mult);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    amat_single_mma_kernel<MT, NP><<<grid, TC_THREADS, bytes, stream>>>(
+        x, codes, scales, zps, out, partials, M, K, N, group_size, sh, mult);
+  }
   if (splits > 1) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t count = static_cast<size_t>(M) * N;
     const size_t blocks = (count / 4 + SUM_THREADS - 1) / SUM_THREADS;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-    cfg.blockDim = dim3(SUM_THREADS);
-    cfg.stream = stream;
-    cudaLaunchAttribute pdl;
-    pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    pdl.val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = &pdl;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, sum_splits_kernel,
-                             static_cast<const float*>(partials), out, splits,
-                             count);
+    err = launch_dependent(sum_splits_kernel,
+                           dim3(static_cast<unsigned>(blocks)), SUM_THREADS,
+                           0, stream, static_cast<const float*>(partials),
+                           out, splits, count);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -635,7 +687,7 @@ int launch_batched_mma(const __nv_bfloat16* x, const uint8_t* codes,
                        const uint8_t* use_lsb, float* out, int E, int M,
                        int K, int N, int group_size, int shift,
                        cudaStream_t stream) {
-  constexpr size_t bytes = tc_smem_bytes<MT, TRANSPOSED>();
+  constexpr size_t bytes = tc_smem_bytes<MT, TRANSPOSED, 1>();
   static bool done[MAX_DEVICES] = {};
   cudaError_t err = allow_smem_once(amat_batched_mma_kernel<MT, TRANSPOSED>,
                                     bytes, done);
@@ -694,17 +746,19 @@ int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
 }
 
 // One matrix: x [M, K] @ dequant(codes [K, N]) with a static precision,
-// high = 1 for MSB+LSB ('high'), 0 for MSB only at `shift` ('low').
-// f32 x runs `amat_single_kernel` (m_tiles, splits and partials unused).
-// bf16 x runs the tensor-core kernel on blocks of 16 * m_tiles rows (1, 2,
-// 4 or 8) and 64 columns, with K split `splits` ways in whole groups; with
-// splits > 1, partials is f32 scratch of splits * M * N.  The bf16 route
-// takes N % 16 == 0 and 16-byte aligned x, codes, scales and zps.
+// high = 1 for MSB+LSB ('high'), 0 for MSB only at `shift` ('low'), on
+// the tensor cores, on blocks of 16 * m_tiles rows and 64 columns with K
+// split `splits` ways in whole groups; with splits > 1, partials is f32
+// scratch of splits * M * N.  bf16 x runs as it is (m_tiles 1, 2, 4 or
+// 8; planes unused).  f32 x first goes through the split pass into
+// planes, bf16 scratch of 3 * M * K, then runs as three planes (m_tiles
+// 1, 2 or 4).  Takes N % 16 == 0 and 16-byte aligned x, codes, scales and
+// zps.
 int amat_single_matmul(const void* x, int x_dtype, const void* codes,
                        const void* scales, const void* zps, void* out,
-                       void* partials, int m_tiles, int splits, int M, int K,
-                       int N, int group_size, int shift, int high,
-                       void* stream) {
+                       void* partials, void* planes, int m_tiles, int splits,
+                       int M, int K, int N, int group_size, int shift,
+                       int high, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
@@ -713,19 +767,33 @@ int amat_single_matmul(const void* x, int x_dtype, const void* codes,
   float* part = static_cast<float*>(partials);
   const int sh = high ? 0 : shift;
   const float mult = high ? 1.0f : static_cast<float>(1 << shift);
-  if (x_dtype == 0) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
-    amat_single_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), c, sc, z, o, M, K, N, group_size, sh,
-        mult);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (x_dtype != 1 || N % 16 != 0 || splits < 1 ||
-      splits > K / group_size || (splits > 1 && part == nullptr))
+  if (N % 16 != 0 || splits < 1 || splits > K / group_size ||
+      (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 0) {
+    if (planes == nullptr || m_tiles > 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    __nv_bfloat16* pl = static_cast<__nv_bfloat16*>(planes);
+    const size_t count = static_cast<size_t>(M) * K;
+    const size_t blocks = (count / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+    split_planes_kernel<<<static_cast<unsigned>(blocks), SPLIT_THREADS, 0,
+                          s>>>(static_cast<const float*>(x), pl, count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_m_tiles(m_tiles, [&](auto mt) {
+      constexpr int MT = decltype(mt)::value;
+      if constexpr (MT > 4) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        return launch_single_mma<MT, 3>(pl, c, sc, z, o, part, splits, M, K,
+                                        N, group_size, sh, mult, s);
+      }
+    });
+  }
+  if (x_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   return with_m_tiles(m_tiles, [&](auto mt) {
-    return launch_single_mma<decltype(mt)::value>(
+    return launch_single_mma<decltype(mt)::value, 1>(
         xb, c, sc, z, o, part, splits, M, K, N, group_size, sh, mult, s);
   });
 }

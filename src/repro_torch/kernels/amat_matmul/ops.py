@@ -17,7 +17,7 @@ shape, contiguity and alignment, allocates the output, checks the
 launch's return code and adds one to its key of :data:`LAUNCHES`.  On CPU
 tensors it runs the plain PyTorch version in :mod:`.ref`.
 
-The route by dtype of ``x``:
+The routes:
 
 * bf16 ``x``: the tensor-core kernels.  Each weight is an integer of at
   most 8 bits, exact in bf16, so each 32-row group's product is exact in
@@ -27,12 +27,18 @@ The route by dtype of ``x``:
   on either code layout.  :func:`amat_matmul` splits K across blocks in
   whole groups at small M (:func:`mma_plan`) and a second kernel sums
   the splits in order; the call still counts one launch;
-* f32 ``x``: the CUDA-core kernels, f32 products of dequantized weights
-  (no exact tensor-core route for f32: TF32 keeps 10 mantissa bits).
-  This is the parity mode.
+* f32 ``x`` in :func:`amat_matmul`: the same tensor-core kernel on three
+  bf16 planes of x, ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo =
+  bf16(x - hi - mid)``, which sum to x exactly (:func:`split_planes` is
+  their plain version), written by a split pass into scratch the wrapper
+  allocates; each plane's product with the integer weights is exact in
+  f32, so only the order of the f32 sums differs from the plain version;
+* f32 ``x`` in :func:`amat_expert_matmul` (and ``expert_matmul``): the
+  CUDA-core kernel, f32 products of dequantized weights, the parity mode
+  of the engine's f32 models.
 
 The kernels mask ragged M and N themselves.  The tensor-core kernels'
-metadata loads take 16 columns at a time, the CUDA-core kernels' K-major
+metadata loads take 16 columns at a time, the CUDA-core kernel's K-major
 code loads 4, so :func:`launch`, the one launch path of every wrapper
 here and of ``expert_matmul``, pads a ragged N to that (zero scales null
 the pad).  No model shape has such an N, so the copy never runs on
@@ -64,12 +70,18 @@ LAUNCHES = LaunchCounter("k_major", "output_major", "single")
 
 MODES = ("high", "low")
 
-# The tensor-core kernel's block: 64 columns and 16 * m_tiles rows.
+# The tensor-core kernel's block: 64 columns and 16 * m_tiles rows; with
+# the three planes of f32 x, whose x tiles take three times the shared
+# memory, at most 4 m16 tiles.
 MMA_BN = 64
 MMA_M_TILES = (1, 2, 4, 8)
+PLANES_M_TILES = (1, 2, 4)
 # Blocks per SM that :func:`mma_plan` aims its K split at: two of the
-# largest blocks (77 KB of shared memory at 128 rows) fit on an SM.
+# largest blocks (77 KB of shared memory at 128 rows of one plane, 107 KB
+# at 64 rows of three) fit on an SM.
 MMA_BLOCKS_PER_SM = 2
+# The planes of f32 x in :func:`amat_matmul`.
+X_PLANES = 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,7 +98,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.amat_batched_matmul.argtypes = [P, I, P, P, P, P, P,
                                         I, I, I, I, I, I, I, I, P]
-    lib.amat_single_matmul.argtypes = [P, I, P, P, P, P, P,
+    lib.amat_single_matmul.argtypes = [P, I, P, P, P, P, P, P,
                                        I, I, I, I, I, I, I, I, P]
     for fn in (lib.amat_batched_matmul, lib.amat_single_matmul):
         fn.restype = ctypes.c_int
@@ -105,25 +117,44 @@ def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def mma_m_tiles(M: int) -> int:
-    """The m16 tiles of a tensor-core block for ``M`` rows of x: the
-    fewest of :data:`MMA_M_TILES` whose block covers ``min(M, 128)``."""
-    rows = min(M, 16 * MMA_M_TILES[-1])
-    return next(t for t in MMA_M_TILES if 16 * t >= rows)
+def mma_m_tiles(M: int, planes: int = 1) -> int:
+    """The m16 tiles of a tensor-core block for ``M`` rows of x in
+    ``planes`` planes: the fewest of :data:`MMA_M_TILES` (one plane) or
+    :data:`PLANES_M_TILES` (three) whose block covers ``min(M, 16 *
+    largest)``: 128 rows of one plane, 64 of three."""
+    tiles = MMA_M_TILES if planes == 1 else PLANES_M_TILES
+    rows = min(M, 16 * tiles[-1])
+    return next(t for t in tiles if 16 * t >= rows)
 
 
-def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132):
+def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132,
+             planes: int = 1):
     """``(m_tiles, splits)`` of the single-matrix tensor-core kernel for x
-    [M, K] and codes [K, N]: :func:`mma_m_tiles`, and the split of K that
-    brings the grid to :data:`MMA_BLOCKS_PER_SM` blocks per SM (one wave),
-    at most one split per group and at most as many as keep the f32
-    partials (``splits * M * N * 4`` bytes) within twice the codes' ``K *
-    N`` bytes."""
-    m_tiles = mma_m_tiles(M)
+    [M, K] in ``planes`` planes and codes [K, N]: :func:`mma_m_tiles`, and
+    the split of K that brings the grid to :data:`MMA_BLOCKS_PER_SM`
+    blocks per SM (one wave), at most one split per group and at most as
+    many as keep the f32 partials (``splits * M * N * 4`` bytes) within
+    twice the codes' ``K * N`` bytes."""
+    m_tiles = mma_m_tiles(M, planes)
     blocks = -(-N // MMA_BN) * -(-M // (16 * m_tiles))
     want = -(-MMA_BLOCKS_PER_SM * sms // blocks)
     cap = K // (2 * M)
     return m_tiles, max(1, min(want, cap, K // group_size))
+
+
+def split_planes(x):
+    """f32 ``x`` as ``[3, *x.shape]`` bf16 planes ``hi = bf16(x)``, ``mid
+    = bf16(x - hi)``, ``lo = bf16(x - hi - mid)`` (round to nearest even):
+    the plain version of the kernels' split pass.  Each subtraction is
+    exact in f32 and at most 8 significant bits are left for ``lo``, so
+    the planes sum to ``x`` exactly (subnormals aside)."""
+    rest = x.to(torch.float32)
+    planes = []
+    for _ in range(X_PLANES):
+        plane = rest.to(torch.bfloat16)
+        rest = rest - plane.to(torch.float32)
+        planes.append(plane)
+    return torch.stack(planes)
 
 
 def split_groups(n_groups: int, splits: int):
@@ -191,14 +222,17 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
     the kernel on ``x``'s card and add one to ``counter``'s ``key``.
     ``x`` is ``[E, M, K]`` with ``use_lsb [E]`` (C entry
     ``amat_batched_matmul``) or ``[M, K]`` with ``use_lsb=None`` and the
-    static precision ``high`` (C entry ``amat_single_matmul``)."""
+    static precision ``high`` (C entry ``amat_single_matmul``, on the
+    tensor cores for both types of x; f32 x gets its bf16 planes'
+    scratch here)."""
     *lead, M, K = x.shape
     N = codes.shape[-2] if transposed else codes.shape[-1]
     use_lsb = check_operands(
         who, x, codes, scales, zps, group_size=group_size,
         codes_shape=(*lead, N, K) if transposed else (*lead, K, N),
         meta_shape=(*lead, K // group_size, N), use_lsb=use_lsb)
-    mma = x.dtype == torch.bfloat16
+    single = use_lsb is None
+    mma = x.dtype == torch.bfloat16 or single
     if mma:
         for name, t in (("x", x), ("scales", scales), ("zps", zps)):
             if t.data_ptr() % 16:
@@ -214,19 +248,22 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
         ptrs = (x.data_ptr(), X_DTYPES[x.dtype], codes.data_ptr(),
                 scales.data_ptr(), zps.data_ptr())
         with torch.cuda.device(x.device):
-            if use_lsb is None:
-                m_tiles, splits = 1, 1
-                if mma:
-                    sms = torch.cuda.get_device_properties(
-                        x.device).multi_processor_count
-                    m_tiles, splits = mma_plan(M, K, N + n_pad, group_size,
-                                               sms)
+            if single:
+                planes = X_PLANES if x.dtype == torch.float32 else 1
+                sms = torch.cuda.get_device_properties(
+                    x.device).multi_processor_count
+                m_tiles, splits = mma_plan(M, K, N + n_pad, group_size, sms,
+                                           planes)
                 partials = torch.empty(
                     (splits, M, N + n_pad), dtype=torch.float32,
                     device=x.device) if splits > 1 else None
+                x_planes = torch.empty(
+                    (planes, M, K), dtype=torch.bfloat16,
+                    device=x.device) if planes > 1 else None
                 rc = lib.amat_single_matmul(
                     *ptrs, out.data_ptr(),
                     None if partials is None else partials.data_ptr(),
+                    None if x_planes is None else x_planes.data_ptr(),
                     m_tiles, splits, M, K, N + n_pad, group_size, shift,
                     int(high), stream_of(x.device))
             else:
@@ -281,11 +318,11 @@ def amat_matmul(x, codes, scales, zps, *, group_size: int = 32,
                 shift: int = 0, mode: str = "high"):
     """x [M, K] @ dequant(codes [K, N]) -> [M, N] f32.
 
-    On the card, bf16 ``x`` runs on the tensor cores and f32 ``x`` on the
-    CUDA cores (module docstring).  ``mode='high'`` dequantizes ``(c - z)
-    * s`` and ignores ``shift``; ``mode='low'`` the MSB-only ``(c >> shift
-    - z >> shift) * s * 2^shift``.  scales / zps are ``[K // group_size,
-    N]``.
+    On the card both types of ``x`` run on the tensor cores, f32 ``x`` as
+    three exact bf16 planes (module docstring).  ``mode='high'``
+    dequantizes ``(c - z) * s`` and ignores ``shift``; ``mode='low'`` the
+    MSB-only ``(c >> shift - z >> shift) * s * 2^shift``.  scales / zps
+    are ``[K // group_size, N]``.
     """
     if mode not in MODES:
         raise ValueError(f"amat_matmul: mode {mode!r} is not one of {MODES}")

@@ -13,8 +13,12 @@
     bf16 -> f32; the f32 probabilities are split as ``p_hi = bf16(p)``,
     ``p_lo = bf16(p - p_hi)`` and p.v runs as two bf16 products into the
     f32 accumulator (within 2^-18 |p| of f32 p);
-  - f32 q, k, v: the CUDA-core kernel, all in f32 (TF32 would round the
-    inputs to 10 mantissa bits).
+  - f32 q, k, v: the tensor-core kernel in 3xTF32.  Each operand x of q.k
+    and p.v is split as ``hi = tf32(x)`` (round to nearest, ties away)
+    and ``lo = x - hi`` (read by the tensor cores truncated to tf32), and
+    each product runs as ``hi.hi + hi.lo + lo.hi`` in ``mma.sync`` tf32
+    -> f32, within about 2^-21 of each f32 product (one TF32 product
+    would miss the tolerance).
 * On CPU tensors it runs the plain PyTorch version in :mod:`.ref`.
 """
 
@@ -43,8 +47,13 @@ def library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C entry typed."""
     from repro_torch.kernels._build import load_library
 
+    return bind(load_library(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entries of ``lib``, built from :data:`SOURCE` or from a
+    variant of it with the same entries."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib = load_library(SOURCE)
     lib.flash_attention.argtypes = [P, P, P, I, P, I, I, I, I, I, I, I, I,
                                     ctypes.c_float, P]
     lib.flash_attention.restype = ctypes.c_int

@@ -139,7 +139,8 @@ def test_column_padding_keeps_the_function():
 
 
 # --------------------------------------------------------------------------
-# The numerics of the tensor-core route (bf16 x), emulated on the CPU.
+# The numerics of the tensor-core route (bf16 x, and f32 x as three bf16
+# planes), emulated on the CPU.
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("shift", [0, 1, 2, 3, 4])
 def test_every_amat_weight_is_exact_in_bf16(shift):
@@ -154,14 +155,16 @@ def test_every_amat_weight_is_exact_in_bf16(shift):
 
 
 def _mma_route_emulated(x, qt, *, shift, mode, splits):
-    """The tensor-core kernel's order in torch: bf16 x times the integer
-    weights of each 32-row chunk (exact products, f32 sums), then the
-    group's scale (times 2^shift in 'low'), each K split summed on its own
-    and the splits added in order."""
+    """The tensor-core kernel's order in torch: bf16 x (or each bf16 plane
+    of f32 x, :func:`split_planes`) times the integer weights of each
+    32-row chunk (exact products, f32 sums, the planes into one group
+    sum), then the group's scale (times 2^shift in 'low'), each K split
+    summed on its own and the splits added in order."""
     K, N = qt.codes.shape
     gs = qt.group_size
     sh = shift if mode == "low" else 0
-    xf = x.to(torch.float32)
+    planes = (x[None] if x.dtype == torch.bfloat16
+              else TOPS.split_planes(x)).to(torch.float32)
     w = ((qt.codes.to(torch.int32) >> sh)
          - (qt.zero_points.to(torch.int32) >> sh)
          .repeat_interleave(gs, 0)).to(torch.float32)
@@ -170,7 +173,8 @@ def _mma_route_emulated(x, qt, *, shift, mode, splits):
     for g0, g1 in TOPS.split_groups(K // gs, splits):
         part = torch.zeros((x.shape[0], N))
         for k0 in range(g0 * gs, g1 * gs, 32):
-            group_acc = xf[:, k0:k0 + 32] @ w[k0:k0 + 32]
+            group_acc = sum(p[:, k0:k0 + 32] @ w[k0:k0 + 32]
+                            for p in planes)
             part = part + scale[k0 // gs] * group_acc
         out = part if out is None else out + part
     return out
@@ -189,6 +193,65 @@ def test_mma_route_order_matches_plain(M, mode, shift):
                             shift=shift, mode=mode)
     err = (got - plain).abs()
     assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+def _planes_test_values():
+    """f32 values drawn from the standard normal, then with every exponent
+    from 2^-110 (below it the lo plane falls among bf16's subnormals) to
+    2^126, both signs, and the edges of that range."""
+    rng = np.random.default_rng(21)
+    normal = rng.standard_normal(4096)
+    wide = (rng.choice([-1.0, 1.0], 4096) * rng.uniform(1.0, 2.0, 4096)
+            * np.exp2(rng.integers(-110, 127, 4096)))
+    edges = np.array([0.0, -0.0, 2.0 ** -110, -(2.0 ** -110), 2.0 ** 126,
+                      np.nextafter(np.float32(2.0 ** 127), np.float32(0)),
+                      1.0 + 2.0 ** -23, 1.0 - 2.0 ** -24, 1.0 / 3.0])
+    return torch.from_numpy(
+        np.concatenate([normal, wide, edges]).astype(np.float32))
+
+
+def test_three_bf16_planes_sum_to_x_exactly():
+    """hi + mid + lo is f32 x bit for bit: each subtraction is exact and
+    at most 8 significant bits are left for lo, so f32 x runs exactly on
+    the bf16 tensor cores."""
+    x = _planes_test_values()
+    planes = TOPS.split_planes(x)
+    assert planes.shape == (3, *x.shape) and planes.dtype == torch.bfloat16
+    hi, mid, lo = planes.to(torch.float32)
+    assert bool((hi + mid + lo == x).all())
+    assert bool(((hi + mid) + lo == x).all()) and bool(((lo + mid) + hi == x)
+                                                       .all())
+    # Two planes are not enough: the third carries bits of most values.
+    assert int((hi + mid != x).sum()) > x.numel() // 2
+
+
+@pytest.mark.parametrize("mode,shift", [("high", 0), ("low", 4)])
+def test_plane_route_order_matches_plain(mode, shift):
+    """f32 x at M=128, K=2048 as the kernel computes it: three bf16 plane
+    products per 32-row chunk into one group sum (each plane.float() @ w
+    in f32), the scale after the group, K split as the wrapper plans it
+    for three planes; within the card's tolerance of the plain version."""
+    x, qt = _inputs(128, 2048, 64, torch.float32, seed=128)
+    _, splits = TOPS.mma_plan(128, 2048, 2816, 32, planes=3)
+    got = _mma_route_emulated(x, qt, shift=shift, mode=mode, splits=splits)
+    plain = amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points,
+                            shift=shift, mode=mode)
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("M", [1, 7, 16, 17, 64, 65, 128, 200])
+def test_plane_plan_fits_two_blocks_per_sm(M):
+    """Three planes take blocks of at most 64 rows (4 m16 tiles, 107 KB
+    of shared memory, two per SM): the fewest tiles that cover min(M,
+    64), and a K split that still fills the card at K=2048."""
+    m_tiles, splits = TOPS.mma_plan(M, 2048, 2816, 32, planes=3)
+    assert m_tiles in TOPS.PLANES_M_TILES and 16 * m_tiles >= min(M, 64)
+    assert m_tiles == 1 or 8 * m_tiles < min(M, 64)
+    assert 1 <= splits <= 2048 // 32
+    assert splits == 1 or splits * M * 2816 * 4 <= 2 * 2048 * 2816
+    blocks = -(-2816 // TOPS.MMA_BN) * -(-M // (16 * m_tiles)) * splits
+    assert blocks >= 2 * 132 or splits == 2048 // (2 * M)
 
 
 @pytest.mark.parametrize("K", [32, 96, 2048])
@@ -258,6 +321,30 @@ def test_cuda_kernel_matches_plain(cuda_device, mkn, mode, shift, xd):
     # f32 accumulation in another order than the plain version's matmul.
     err = (got - plain).abs()
     assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exponent", [-100, -40, 40, 100])
+@pytest.mark.parametrize("mkn", [(128, 2048, 2816), (7, 96, 33)], ids=str)
+def test_cuda_f32_route_holds_wide_exponents(cuda_device, mkn, exponent):
+    """f32 x with row r scaled by 2^(exponent + e_r), e_r drawn from -8 to
+    8: the three bf16 planes carry every bit of x whatever its exponent,
+    so each row stays within the tolerance the unscaled row has, 1e-4 *
+    2^(exponent + e_r) + 1e-4 * |plain| (a power of two scales the plain
+    version exactly)."""
+    M, K, N = mkn
+    x, qt = _inputs(M, K, N, torch.float32, seed=13, device=cuda_device)
+    rows = torch.from_numpy(np.random.default_rng(13).integers(-8, 9, (M, 1))
+                            .astype(np.float32)).to(cuda_device)
+    row_scale = torch.exp2(rows + exponent)
+    x = (x * row_scale).contiguous()
+    plain = amat_matmul_ref(x, qt.codes, qt.scales, qt.zero_points)
+    got = TOPS.amat_matmul_qt(x, qt)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-4 * row_scale + 1e-4 * plain.abs()
+    err = (got - plain).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
 
 
 @pytest.mark.gpu

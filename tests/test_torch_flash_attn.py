@@ -119,52 +119,109 @@ def test_gqa_query_head_reads_kv_head_h_div_rep():
 
 
 # --------------------------------------------------------------------------
-# The numerics of the tensor-core kernel (bf16 inputs), emulated on the CPU.
+# The numerics of the tensor-core kernels (bf16 inputs; f32 inputs in
+# 3xTF32), emulated on the CPU.
 # --------------------------------------------------------------------------
-def _mma_kernel_emulated(q, k, v, *, causal, window, split_p=True):
-    """The bf16 kernel's arithmetic in torch: blocks of 64 query rows, the
-    key tiles of 64 it visits, exact q.k in f32, the scale on the f32
-    score, -1e30 where masked, an online softmax in f32, and p.v as
-    bf16(p) . v + bf16(p - bf16(p)) . v (``split_p``) or bf16(p) . v
-    alone."""
+def _exact_qk(qt, kt):
+    return torch.einsum("bqhd,bkhd->bhqk", qt, kt)
+
+
+def _tiled_kernel_emulated(q, k, v, *, causal, window, bk, qk, pv):
+    """The kernels' tiling and softmax in torch: blocks of 64 query rows,
+    the key tiles of ``bk`` they visit, ``qk(q_tile, k_tile)`` the f32
+    scores [B, H, rows, keys] before the scale, the scale on the f32
+    score, -1e30 where masked, an online softmax in f32, and ``pv(p,
+    v_tile)`` the tile's p.v [B, H, rows, D]."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     qf = q.to(torch.float32)
     kf, vf = (t.to(torch.float32).repeat_interleave(rep, 2) for t in (k, v))
     out = torch.empty((B, Sq, H, D))
-    n_kt = -(-Sk // 64)
+    n_kt = -(-Sk // bk)
     for q0 in range(0, Sq, 64):
         q1 = min(q0 + 64, Sq)
-        kt_end = min(n_kt, (q1 - 1) // 64 + 1) if causal else n_kt
+        kt_end = min(n_kt, (q1 - 1) // bk + 1) if causal else n_kt
         first = q0 - window + 1 if window else 0
-        kt_begin = first // 64 if first > 0 else 0
+        kt_begin = first // bk if first > 0 else 0
         qi = torch.arange(q0, q1)[:, None]
         m = torch.full((B, H, q1 - q0), -1e30)
         l = torch.zeros((B, H, q1 - q0))
         acc = torch.zeros((B, H, q1 - q0, D))
         for kt in range(kt_begin, kt_end):
-            k0, k1 = kt * 64, min(kt * 64 + 64, Sk)
+            k0, k1 = kt * bk, min(kt * bk + bk, Sk)
             kj = torch.arange(k0, k1)[None, :]
             vis = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
             if causal:
                 vis &= qi >= kj
             if window:
                 vis &= qi - kj < window
-            sc = torch.einsum("bqhd,bkhd->bhqk", qf[:, q0:q1], kf[:, k0:k1])
+            sc = qk(qf[:, q0:q1], kf[:, k0:k1])
             sc = torch.where(vis, sc * D ** -0.5, torch.tensor(-1e30))
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
             l, m = l * corr + p.sum(-1), m_new
-            vt = vf[:, k0:k1].transpose(1, 2)
-            p_hi = p.to(torch.bfloat16).to(torch.float32)
-            pv = p_hi @ vt
-            if split_p:
-                pv = pv + (p - p_hi).to(torch.bfloat16).to(torch.float32) @ vt
-            acc = acc * corr[..., None] + pv
+            acc = acc * corr[..., None] + pv(p, vf[:, k0:k1].transpose(1, 2))
         out[:, q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
     return out
+
+
+def _mma_kernel_emulated(q, k, v, *, causal, window, split_p=True):
+    """The bf16 kernel's arithmetic: key tiles of 64, exact q.k in f32,
+    and p.v as bf16(p) . v + bf16(p - bf16(p)) . v (``split_p``) or
+    bf16(p) . v alone."""
+    def pv(p, vt):
+        p_hi = p.to(torch.bfloat16).to(torch.float32)
+        out = p_hi @ vt
+        if split_p:
+            out = out + (p - p_hi).to(torch.bfloat16).to(torch.float32) @ vt
+        return out
+    return _tiled_kernel_emulated(q, k, v, causal=causal, window=window,
+                                  bk=64, qk=_exact_qk, pv=pv)
+
+
+def _tf32(x):
+    """f32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` does it (and the
+    kernel's ``tf32_rna``): to nearest on the low 13 mantissa bits, ties
+    away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """f32 ``x`` as a tf32 ``mma`` operand reads it: the low 13 mantissa
+    bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x):
+    """The kernel's ``split_tf32`` as the tensor cores see it: hi =
+    tf32(x), and lo = x - hi (exact in f32) truncated to tf32."""
+    hi = _tf32(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _tf32_kernel_emulated(q, k, v, *, causal, window, products=3):
+    """The f32 kernel's arithmetic: key tiles of 32, each operand split as
+    :func:`_tf32_split` does, and q.k and p.v each as hi.hi + (hi.lo +
+    lo.hi) (``products=3``) or hi.hi alone (``products=1``).  A product of
+    two tf32 values is exact in f32."""
+    def qk(qt, kt):
+        (qh, ql), (kh, kl) = _tf32_split(qt), _tf32_split(kt)
+        out = _exact_qk(qh, kh)
+        if products == 3:
+            out = out + (_exact_qk(qh, kl) + _exact_qk(ql, kh))
+        return out
+
+    def pv(p, vt):
+        (ph, pl), (vh, vl) = _tf32_split(p), _tf32_split(vt)
+        out = ph @ vh
+        if products == 3:
+            out = out + ph @ vl + pl @ vh
+        return out
+    return _tiled_kernel_emulated(q, k, v, causal=causal, window=window,
+                                  bk=32, qk=qk, pv=pv)
 
 
 # (B, Sq, Sk, H, Hkv, causal, window) at D=128: 1024 causal keys; a window
@@ -206,6 +263,57 @@ def test_one_bf16_p_misses_the_tolerance():
                                split_p=False)
     ok, err = _within_tolerance(got, flash_attention_ref(q, k, v))
     assert not ok and err > 1e-3, err
+
+
+def test_tf32_rounds_to_nearest_with_ties_away():
+    """The emulation's tf32 rounding: 10 mantissa bits kept, a tie (the
+    13 dropped bits exactly half) rounds away from zero in magnitude, and
+    x - tf32(x) is exact, so hi + lo, lo truncated to tf32, misses x by
+    less than 2^-21 |x|."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2),
+                      one + ulp / 2 - 2.0 ** -23, one + 3 * ulp / 2,
+                      3.0 ** 0.5], dtype=torch.float32)
+    got = _tf32(x)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         1774 / 1024])
+    assert torch.equal(got, want)
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(10000)
+                         .astype(np.float32))
+    hi, lo = _tf32_split(r)
+    assert bool(((r - hi) + hi == r).all())
+    assert bool(((r - hi).abs() <= 2.0 ** -11 * r.abs()).all())
+    assert bool(((r - hi - lo).abs() < 2.0 ** -21 * r.abs()).all())
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=str)
+def test_three_tf32_products_hold_the_tolerance(case):
+    """f32 q, k, v at D=128 as the f32 kernel computes them (3xTF32 for q.k
+    and p.v, key tiles of 32) stay within the card's tolerance of the
+    plain version."""
+    B, Sq, Sk, H, Hkv, causal, win = case
+    q, k, v = _inputs(B, Sq, Sk, H, Hkv, 128, seed=Sq + H)
+    if win:
+        # The block at q0=256 visits key tile 4 (keys 128-159), which lies
+        # wholly outside the window of its last row, 319.
+        assert (256 - win + 1) // 32 == 4 and 319 - 159 >= win
+    got = _tf32_kernel_emulated(q, k, v, causal=causal, window=win)
+    ok, err = _within_tolerance(
+        got, flash_attention_ref(q, k, v, causal=causal, sliding_window=win))
+    assert ok, err
+
+
+def test_one_tf32_product_misses_the_tolerance():
+    """q.k and p.v as one TF32 product each (hi.hi) miss the tolerance:
+    the cross products are needed."""
+    B, Sq, Sk, H, Hkv, causal, win = MMA_CASES[0]
+    q, k, v = _inputs(B, Sq, Sk, H, Hkv, 128, seed=Sq + H)
+    got = _tf32_kernel_emulated(q, k, v, causal=causal, window=win,
+                                products=1)
+    ok, err = _within_tolerance(got, flash_attention_ref(q, k, v))
+    assert not ok and err > 3e-4, err
 
 
 def test_wrapper_rejects_an_unsupported_device():

@@ -13,28 +13,29 @@ it goes, any failure exiting non-zero:
 3. the batched AMAT kernels (K1 ``wi``, K2 ``wo``) against their plain
    PyTorch versions on the card (tolerance 1e-4 + 1e-4*|plain|: f32
    accumulation in another order): both code layouts with the bf16
-   activations the main path gives them (the tensor-core kernel) at its
-   decode (4 sequences) and prefill (128 tokens) capacities, with f32
-   activations (the CUDA-core kernel) at the decode capacity, and ragged
-   cases in both types (N = 72, and N = 70 for bf16, which the wrapper
-   pads); the decode shapes are then timed beside the plain version, one
+   activations the main path gives them at its decode (4 sequences) and
+   prefill (128 tokens) capacities, with f32 activations (the engine's
+   parity mode: three exact bf16 planes of x) at the same two
+   capacities, and ragged cases in both types (N = 72, and N = 70 for
+   bf16, which the wrapper pads); every route runs on the tensor cores.
+   The decode shapes are then timed beside the plain version, one
    ``torch.bmm`` on pre-dequantized f32 weights (the nearest library
    call; it reads dense f32 weights, not the packed codes) and the card's
    bound.  Every timed row gives ``ms`` (CUDA events around 20 calls: what
    a caller of the wrapper sees, host cost included) and, for the kernel
    and the library call, ``graph_ms`` (the same 20 calls captured in one
    CUDA graph and replayed: device time); ``[versus]`` lines set each
-   bf16 decode row's ``graph_ms`` beside the library call's, beside the
-   f32 CUDA-core row's of the same run, and against its bound.  The
+   decode row's ``graph_ms`` beside the library call's, and each bf16 row
+   beside the f32 row of the same run and against its bound.  The
    kernels line reports the bf16 decode variant, the one the decode steps
-   launch;
+   launch, and the f32 decode variant as rows of their own;
 3b. the slice's kernels against their plain versions at the same
    tolerance, at the widths of configs in the repo: K3 ``amat_matmul``
    (one qwen15-moe-a2.7b expert matrix), K4 ``expert_matmul`` (K1's
    shapes) and K5 ``flash_attention`` (qwen15-moe-a2.7b's causal
    attention, llama4-scout-17b-a16e's windowed GQA attention), each with
-   a ragged or small case, K3 and K5 with bf16 and f32 inputs (both on
-   the tensor cores: f32 K3 as three exact bf16 planes, f32 K5 in
+   a ragged or small case, K3-K5 with bf16 and f32 inputs (all on the
+   tensor cores: f32 K3 and K4 as three exact bf16 planes, f32 K5 in
    3xTF32); timed rows beside the plain version, one library call
    (``torch.matmul`` / ``torch.bmm`` on dense f32 weights,
    ``scaled_dot_product_attention``) and the card's bound, and for the
@@ -52,8 +53,11 @@ it goes, any failure exiting non-zero:
    with f32 inputs at the same widths (the three-plane and 3xTF32
    kernels), counted the same way;
 4. a small reference check: the qwen15-moe-repro model (2 layers, f32)
-   served on the card through the kernel and on the CPU through the
-   plain dense-dequant path must agree (tokens exact, logits 1e-4);
+   served on the card through the kernel (K1/K2 on three bf16 planes of
+   x) and on the CPU through the plain dense-dequant path must agree
+   (tokens exact, logits 1e-4, cache stats equal), with the launch counts
+   set to 0 just before and read just after: K1 and K2 must have
+   launched;
 5. serving at full width: Qwen1.5-MoE-A2.7B (24 layers, d_model 2048,
    60 experts, bf16, random weights from seed 0), cache-prior + DBSC
    routing with quantized execution, 4 requests of 128 prompt tokens and
@@ -67,9 +71,10 @@ per step by kernel, the engine's host ranges, the device's busy share).
 Without arguments the script runs phases 1 to 5.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels' JSON record (K1-K5, and the f32 routes of K3 and K5
-as rows of their own; ``launches`` counts phase 5's run for K1 and K2,
-phase 3c's for K3-K5 and phase 3d's for the f32 rows; ``graph_ms`` and
+holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
+and K5 as rows of their own; ``launches`` counts phase 5's run for K1 and
+K2, phase 3c's for K3-K5, phase 3d's for the f32 rows of K3 and K5 and
+phase 4's for the f32 rows of K1 and K2; ``graph_ms`` and
 ``library_graph_ms`` beside ``ms`` and ``library_ms``).
 """
 
@@ -315,9 +320,11 @@ def phase_kernels(cfg):
     """Each variant of the kernel against its plain version at the shapes
     the main path gives it, then timed.  The main path runs bf16
     activations (the model's dtype) at the decode capacity (4 sequences)
-    and the prefill capacity (128 tokens); the f32 rows are the
-    reference's own kernel check.  Returns, per code layout, the timings of
-    the bf16 decode variant and the largest error over all its rows."""
+    and the prefill capacity (128 tokens); the f32 rows are the engine's
+    f32 parity mode (three bf16 planes of x) at the same shapes.  Returns,
+    per code layout and activation type (``k_major``, ``output_major``,
+    with ``_f32`` for f32 x), the timings of the decode variant and the
+    largest error over all its rows."""
     from repro_torch.kernels.amat_matmul import ops
     from repro_torch.kernels.amat_matmul.ref import (
         _dequant_mixed_ref, amat_batched_matmul_ref, amat_batched_matmul_t_ref)
@@ -334,9 +341,9 @@ def phase_kernels(cfg):
     variants = [
         # name, layout, transposed, x dtype, (E, M, K, N), timed, reported
         ("wi_f32_decode", "k_major", False, f32, (wi[0], m_dec, *wi[1:]),
-         True, False),
+         True, True),
         ("wo_t_f32_decode", "output_major", True, f32,
-         (wo[0], m_dec, *wo[1:]), True, False),
+         (wo[0], m_dec, *wo[1:]), True, True),
         ("wi_bf16_decode", "k_major", False, bf16, (wi[0], m_dec, *wi[1:]),
          True, True),
         ("wo_t_bf16_decode", "output_major", True, bf16,
@@ -344,6 +351,10 @@ def phase_kernels(cfg):
         ("wi_bf16_prefill", "k_major", False, bf16, (wi[0], m_pre, *wi[1:]),
          False, False),
         ("wo_t_bf16_prefill", "output_major", True, bf16,
+         (wo[0], m_pre, *wo[1:]), False, False),
+        ("wi_f32_prefill", "k_major", False, f32, (wi[0], m_pre, *wi[1:]),
+         False, False),
+        ("wo_t_f32_prefill", "output_major", True, f32,
          (wo[0], m_pre, *wo[1:]), False, False),
         ("ragged_wi_f32", "k_major", False, f32, (3, 5, 96, 72), False,
          False),
@@ -358,8 +369,8 @@ def phase_kernels(cfg):
         ("ragged_n_wo_t_bf16", "output_major", True, bf16, (3, 5, 96, 70),
          False, False),
     ]
-    results = {"k_major": {"max_abs_err": 0.0},
-               "output_major": {"max_abs_err": 0.0}}
+    results = {k: {"max_abs_err": 0.0} for k in (
+        "k_major", "output_major", "k_major_f32", "output_major_f32")}
     timings = {}
     for seed, (name, layout, transposed, x_dtype, (E, M, K, N), timed,
                reported) in enumerate(variants):
@@ -376,7 +387,7 @@ def phase_kernels(cfg):
 
         max_err = _check_row(f"{name} E={E} M={M} K={K} N={N}", kern(),
                              plain(), (E, M, N))
-        row = results[layout]
+        row = results[layout + ("_f32" if x_dtype == f32 else "")]
         row["max_abs_err"] = max(row["max_abs_err"], max_err)
         if timed:
             x, codes, scales, zps, use_lsb = args
@@ -403,11 +414,14 @@ def phase_kernels(cfg):
                   ("wo_t_bf16_decode", "wo_t_f32_decode")):
         t, t32 = timings[bf], timings[f]
         _versus_library(bf, t)
-        say(f"[versus] {bf}: graph_ms tensor cores {t['graph_ms']:.4f} / "
-            f"CUDA cores ({f}) {t32['graph_ms']:.4f} = "
-            f"{t['graph_ms'] / t32['graph_ms']:.3f}; "
-            f"{t['bound_ms'] / t['graph_ms']:.1%} of the {t['bound_by']} "
-            f"bound {t['bound_ms']:.4f} ms")
+        _versus_library(f, t32)
+        say(f"[versus] {bf}: graph_ms bf16 x {t['graph_ms']:.4f} / f32 x as "
+            f"three bf16 planes ({f}) {t32['graph_ms']:.4f} = "
+            f"{t['graph_ms'] / t32['graph_ms']:.3f}, both on the tensor "
+            f"cores; {t['bound_ms'] / t['graph_ms']:.1%} and "
+            f"{t32['bound_ms'] / t32['graph_ms']:.1%} of their "
+            f"{t['bound_by']} / {t32['bound_by']} bounds {t['bound_ms']:.4f} "
+            f"/ {t32['bound_ms']:.4f} ms")
     return results
 
 
@@ -421,7 +435,8 @@ def phase_slice_kernels(cfg):
       bf16 and f32 (three bf16 planes) activations, and at one
       decode token, and the reference's ragged M=7, K=96, N=33 in both;
     * K4 ``expert_matmul``: K1's ``wi`` shapes (E=60 at the decode and
-      prefill capacities) and the reference's ragged E=8, C=33, K=96;
+      prefill capacities; the decode row timed with bf16 and f32 x) and
+      the reference's ragged E=8, C=33, K=96;
     * K5 ``flash_attention``: qwen15-moe-a2.7b's causal attention at 4
       sequences of 4096 (bf16 and f32 inputs), llama4-scout-17b-a16e's
       windowed GQA attention
@@ -517,7 +532,7 @@ def phase_slice_kernels(cfg):
     expert_rows = [
         # name, (E, C, K, N), x dtype, timed, reported
         ("expert_decode", (E, c_dec, K, N), bf16, True, True),
-        ("expert_decode_f32", (E, c_dec, K, N), f32, False, False),
+        ("expert_decode_f32", (E, c_dec, K, N), f32, True, False),
         ("expert_prefill", (E, c_pre, K, N), bf16, False, False),
         ("expert_ragged", (8, 33, 96, 128), f32, False, False),
     ]
@@ -774,20 +789,32 @@ def phase_f32_path(cfg):
 
 def phase_small_reference():
     """The kernel path on the card against the plain dense path on the
-    CPU, end to end through the engine, on a small input."""
+    CPU, end to end through the engine, on a small input in f32: the
+    batched expert kernels' f32 route (three bf16 planes of x).  Every
+    launch count is set to 0 just before and read just after; K1 and K2
+    must have launched.  Returns their counts, keyed as the JSON rows of
+    the f32 routes."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.amat import MatConfig
     from repro_torch.core.engine import EngineConfig, SliceMoEEngine
+    from repro_torch.kernels.amat_matmul import ops as amat_ops
+    from repro_torch.kernels.expert_matmul import ops as expert_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.models.model import init_params
     from repro_torch.models.moe import RoutingPolicy
+
+    counters = (amat_ops.LAUNCHES, expert_ops.LAUNCHES, flash_ops.LAUNCHES)
 
     cfg = dataclasses.replace(get_config("qwen15-moe-repro"), n_layers=2,
                               dtype="float32")
     params = init_params(cfg, seed=0, device="cpu")
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 24))
     out = {}
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
     for dev, qe in (("cpu", False), ("cuda", True)):
         eng = SliceMoEEngine(cfg, params, EngineConfig(
             mat=MatConfig(8, 4), cache_bytes=50e6,
@@ -797,14 +824,22 @@ def phase_small_reference():
         logits = eng.prefill(prompt)
         toks, metrics = eng.decode(torch.argmax(logits, -1), 6)
         out[dev] = (logits.cpu(), toks.cpu(), metrics["cache_stats"])
+    torch.cuda.synchronize()
+    launches = {k: n for c in counters for k, n in c.by_key.items()}
     lerr = float((out["cpu"][0] - out["cuda"][0]).abs().max())
     same_tokens = bool(torch.equal(out["cpu"][1], out["cuda"][1]))
     same_stats = out["cpu"][2] == out["cuda"][2]
     say(f"[reference] qwen15-moe-repro (2 layers, f32): kernel on the card vs "
         f"plain dense path on the CPU: prefill logits max diff {lerr:.2e}, "
         f"tokens equal {same_tokens}, cache stats equal {same_stats}")
+    say(f"[reference] kernel launches: {launches} (want k_major and "
+        f"output_major > 0: the f32 route of K1 and K2)")
     if not (lerr <= 1e-4 and same_tokens and same_stats):
         fail("small-input reference check")
+    if not (launches["k_major"] > 0 and launches["output_major"] > 0):
+        fail("reference check: the f32 path did not launch K1 and K2")
+    return {"k_major_f32": launches["k_major"],
+            "output_major_f32": launches["output_major"]}
 
 
 def phase_serving(cfg, device: str = "cuda"):
@@ -1007,7 +1042,7 @@ def main() -> None:
     phase_sweep_splits(cfg)
     launches = phase_slice_path(cfg)
     launches.update(phase_f32_path(cfg))
-    phase_small_reference()
+    launches.update(phase_small_reference())
     serve_launches, engine, new_requests, wall_step = phase_serving(cfg)
     launches.update(serve_launches)     # k_major and output_major
     if "--profile" in sys.argv[1:]:
@@ -1019,6 +1054,12 @@ def main() -> None:
              "src/repro/kernels/amat_matmul/kernel.py:225"),
             ("amat_batched_matmul_t (wo, output-major codes)",
              "output_major", amat_src,
+             "src/repro/kernels/amat_matmul/kernel.py:234"),
+            ("amat_batched_matmul, f32 x (three exact bf16 planes)",
+             "k_major_f32", amat_src,
+             "src/repro/kernels/amat_matmul/kernel.py:225"),
+            ("amat_batched_matmul_t, f32 x (three exact bf16 planes)",
+             "output_major_f32", amat_src,
              "src/repro/kernels/amat_matmul/kernel.py:234"),
             ("amat_matmul (one matrix, static precision)", "single",
              amat_src, "src/repro/kernels/amat_matmul/kernel.py:101"),

@@ -8,13 +8,14 @@ amat_batched_matmul.cu`` with the same C entries, edited (keep it under
 ``base``.  Every source is built (one ``nvcc`` each, all started
 together), held against the plain version (1e-4 + 1e-4*|plain|) and timed
 by ``graph_ms`` (``chip_smoke.py``'s timer: 20 calls in one CUDA graph) on
-the rows the tensor-core kernels serve at qwen15-moe-a2.7b's widths: K1
-``wi`` and K2 ``wo`` at the decode capacity (E=60, M=8) with bf16 x, and
-K3 at M=128 and M=1 with bf16 x and at M=128 with f32 x (the three-plane
-route; rotating over 10 quantized copies, as ``chip_smoke.py`` does).
-The sources take turns, in order and then in reverse, ``--rounds`` times,
-so that a drift of the card's clock falls on all of them alike.  Needs one
-card; prints the card's name and power limit first.
+the rows the kernels serve at qwen15-moe-a2.7b's widths: K1 ``wi`` and
+K2 ``wo`` at the decode capacity (E=60, M=8) with bf16 x and with f32 x
+(the three-plane route), and K3 at M=128 and M=1 with bf16 x and at M=128
+with f32 x (rotating over 10 quantized copies, as ``chip_smoke.py``
+does).  The sources take turns, in order and then in reverse,
+``--rounds`` times, so that a drift of the card's clock falls on all of
+them alike.  Needs one card; prints the card's name and power limit
+first, then each source's ptxas registers and spills by kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import pathlib
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -47,12 +49,14 @@ def cases(cfg):
     m = cfg.moe
     E, C = m.n_experts, capacity(4, m.top_k, m.n_experts, m.capacity_factor)
     out = []
-    for seed, (name, transposed, (K, N)) in enumerate((
-            ("wi_bf16_decode", False, (cfg.d_model, 2 * m.d_ff)),
-            ("wo_t_bf16_decode", True, (m.d_ff, cfg.d_model)))):
+    wi, wo = (cfg.d_model, 2 * m.d_ff), (m.d_ff, cfg.d_model)
+    for seed, (name, transposed, (K, N), xd) in enumerate((
+            ("wi_bf16_decode", False, wi, torch.bfloat16),
+            ("wo_t_bf16_decode", True, wo, torch.bfloat16),
+            ("wi_f32_decode", False, wi, torch.float32),
+            ("wo_t_f32_decode", True, wo, torch.float32))):
         args = smoke._kernel_inputs(E, C, K, N, seed=seed,
-                                    transposed=transposed,
-                                    x_dtype=torch.bfloat16)
+                                    transposed=transposed, x_dtype=xd)
         ref = amat_batched_matmul_t_ref if transposed \
             else amat_batched_matmul_ref
         kern = (lambda a=args, t=transposed:
@@ -80,6 +84,39 @@ def cases(cfg):
     return out
 
 
+def demangled_kernel(line: str) -> str:
+    """``name<template args>`` of the kernel whose mangled name ``line``
+    holds: the length-prefixed identifier that ends in ``_kernel``, and
+    the integer and bool arguments after it."""
+    for m in re.finditer(r"\d+", line):
+        digits = m.group()
+        for i in range(len(digits)):
+            name = line[m.end():m.end() + int(digits[i:])]
+            if name.endswith("_kernel") and name.isidentifier():
+                rest = line[m.end() + len(name):]
+                t = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+                args = re.findall(r"L[a-z](\d+)E", t.group(1)) if t else []
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return line.strip()
+
+
+def ptxas_summary(log: str):
+    """``kernel<template args>: registers, spills`` for each entry that
+    the ptxas report of ``log`` lists."""
+    out, entry, spill = [], None, []
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry, spill = demangled_kernel(line), ["0", "0"]
+        elif entry and "spill stores" in line:
+            spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+        elif entry and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{entry}: {regs} registers, spill "
+                       f"{'/'.join(spill)} bytes")
+            entry = None
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+", type=pathlib.Path)
@@ -91,9 +128,12 @@ def main() -> None:
     sources = [ops.SOURCE, *args.variants]
     names = ["base", *(v.stem for v in args.variants)]
     with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(lambda s: build_library(s, force=True)[0],
+        built = list(pool.map(lambda s: build_library(s, force=True),
                               sources))
-    libs = [ops.bind(ctypes.CDLL(str(path))) for path in built]
+    for name, (_, log) in zip(names, built):
+        for line in ptxas_summary(log):
+            print(f"[ptxas] {name} {line}", flush=True)
+    libs = [ops.bind(ctypes.CDLL(str(path))) for path, _ in built]
     rows = cases(get_config("qwen15-moe-a2.7b"))
     times = {(n, r): [] for n in names for r, _, _ in rows}
     order = list(range(len(libs)))

@@ -5,16 +5,17 @@
 //    (entry points `amat_batched_matmul_pallas` and
 //    `amat_batched_matmul_t_pallas`), with the output-major (`wo`) code
 //    layout as the TRANSPOSED template flag: C entry `amat_batched_matmul`.
-//    bf16 x runs on the tensor cores (`amat_batched_mma_kernel`); f32 x
-//    runs `amat_batched_kernel` on the CUDA cores (body `amat_tiles`);
+//    Both types of x run on the tensor cores
+//    (`amat_batched_mma_kernel<MT, TRANSPOSED, NP>`): bf16 x as it is
+//    (NP = 1), f32 x as three exact bf16 planes (NP = 3, below);
 //  * `_amat_matmul_kernel` in the same file (`amat_matmul_pallas`, one
 //    matrix, static mode 'high' | 'low'): C entry `amat_single_matmul`.
 //    Both types of x run on the tensor cores (`amat_single_mma_kernel`):
-//    bf16 x as it is, f32 x as three exact bf16 planes (below);
+//    bf16 x as it is, f32 x as three exact bf16 planes;
 //  * `_expert_matmul_kernel` in src/repro/kernels/expert_matmul/kernel.py
 //    (`expert_matmul_pallas`, the batched function with the flag in a (1, 1)
 //    block): C entry `amat_batched_matmul` on K-major codes.
-// Every tensor-core kernel runs one body, `amat_mma_tiles`.
+// Every kernel that multiplies runs one body, `amat_mma_tiles`.
 //
 //   out[e] = x[e] @ W_e                          (f32 accumulation)
 //   W_e    = (c - z) * s                         if use_lsb[e]   (MSB+LSB)
@@ -22,23 +23,22 @@
 //
 // x [E, M, K] (f32 or bf16), codes [E, K, N] uint8 (or codes_t [E, N, K]
 // when TRANSPOSED), scales [E, K/G, N] f32, zps [E, K/G, N] uint8, use_lsb
-// [E] uint8, out [E, M, N] f32; the wrapper pads a ragged N (to a multiple
-// of 16 for the tensor cores, of 4 for K-major codes on the CUDA cores).
-// The integer right shift equals the reference's floor(c * 2^-shift), so
-// the dequantized weights are bit-identical to the plain version's; only
-// the order of the f32 sums differs.
+// [E] uint8, out [E, M, N] f32; the wrapper pads a ragged N to a multiple
+// of 16.  The integer right shift equals the reference's floor(c *
+// 2^-shift), so the dequantized weights are bit-identical to the plain
+// version's; only the order of the f32 sums differs.
 //
 // What bounds them on an H100: bytes.  At the decode shapes of
 // Qwen1.5-MoE-A2.7B (E=60, M=8, K=2048, N=2816 for `wi`) the codes alone are
-// 346 MB against 5.5 GFLOP, about 16 FLOP per byte, far below the ~300
-// FLOP/byte at which bf16 tensor work (989 TFLOP/s) would overtake HBM3
-// (3.35 TB/s), and below the ~20 of f32 on the CUDA cores (67 TFLOP/s).
+// 346 MB against 5.5 GFLOP (16.6 GFLOP of bf16 work for the three planes
+// of f32 x), at most 48 FLOP per byte, far below the ~300 FLOP/byte at
+// which bf16 tensor work (989 TFLOP/s) would overtake HBM3 (3.35 TB/s).
 // Every kernel here therefore reads every code byte once, as uint8, and
 // never writes a dequantized weight to device memory.  One matrix at
 // prefill sizes with f32 x (M=128, K=2048, N=2816) is the exception: its
 // three bf16 products (4.4 GFLOP) outlast its 9.2 MB of traffic.
 //
-// The tensor-core design:
+// The design:
 //  * each weight is an integer of at most 8 bits, (c - z) or (c >> s) -
 //    (z >> s), exact in bf16, and x is bf16, so each 32-row group's
 //    product runs exactly on the tensor cores (`mma.sync m16n8k16` bf16 ->
@@ -58,18 +58,23 @@
 //    and each block reads its own use_lsb[e] (the TPU kernel's scalar
 //    prefetch) and runs the whole of K; at the decode shapes the grid is
 //    44 x 60 blocks (`wi`), 32 x 60 (`wo`), many per SM;
-//  * f32 x in one matrix (`amat_single_mma_kernel<MT, 3>`): a split pass
-//    (`split_planes_kernel`) writes x as three bf16 planes, hi = bf16(x),
-//    mid = bf16(x - hi), lo = bf16(x - hi - mid).  Each subtraction is
-//    exact in f32 and after two of them at most 8 significant bits are
-//    left, so hi + mid + lo == x exactly (subnormals aside), and each
-//    plane's product with an integer weight is exact in the f32
-//    accumulator: three bf16 products per tile into the same group
-//    accumulator, against the same B fragments, differ from the plain
-//    version only in the order of the f32 sums.  Three planes triple the
-//    x tiles in shared memory, so this route takes at most 4 m16 tiles
-//    per block and 2 chunks per barrier: two blocks fit on an SM.  The
-//    kernel is launched as a programmatic dependent of the split pass;
+//  * f32 x (NP = 3 of either kernel): a split pass (`split_planes_kernel`)
+//    writes x as three bf16 planes, hi = bf16(x), mid = bf16(x - hi), lo =
+//    bf16(x - hi - mid).  Each subtraction is exact in f32 and after two
+//    of them at most 8 significant bits are left, so hi + mid + lo == x
+//    exactly (subnormals aside), and each plane's product with an integer
+//    weight is exact in the f32 accumulator: the planes' bf16 products
+//    into the same group accumulator, against the same B fragments, differ
+//    from the plain version only in the order of the f32 sums.  The pass
+//    runs flat over all of x, so the planes lie [3][x's shape] and the
+//    body reads plane p one plane stride (the size of x) after plane 0:
+//    one pass for both kernels, and the batched kernel offsets x by expert
+//    alone.  Three planes triple the x tiles in shared memory, so this
+//    route takes at most 4 m16 tiles per block; a block of one m16 tile
+//    takes 8 rows, hi and mid packed into one m16 tile and lo into a
+//    second (`TcWarps::PACKED`), two products per k16 step for the decode
+//    batch.  The multiplying kernel is launched as a programmatic
+//    dependent of the split pass;
 //  * one matrix (`amat_single_mma_kernel`): its 44 column blocks would
 //    fill a third of the 132 SMs, so K is split across blocks in whole
 //    groups (blockIdx.z) to reach two blocks per SM; each split writes
@@ -78,13 +83,6 @@
 //    programmatic dependent of the main kernel, which hides its launch.
 // Ragged M rows and columns past N arrive as zeros (cp.async zero-fill)
 // and are not stored; these kernels take N % 16 == 0 (the wrapper pads).
-//
-// The CUDA-core body `amat_tiles` (f32 x into the batched experts, the
-// parity mode of K1/K2/K4): grid (ceil(N/256), ceil(M/8), E); each block
-// reads its own use_lsb[e], loops over K in 32-row tiles (one scale and
-// zero-point per column: group_size % 32 == 0), dequantizes its [32, 256]
-// weight tile into shared memory, and keeps 8 f32 accumulators per thread
-// (one column, 8 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,159 +96,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BM = 8;        // x rows per block: the decode capacity floor
-constexpr int BN = 256;      // output columns per block, one per thread
-constexpr int BK = 32;       // K rows per tile: one quantization group
-constexpr int THREADS = BN;
-
-static_assert(BM * BK == THREADS, "x tile is one element per thread");
-
-// One block's [BM, BN] output tile of x [M, K] @ W [K, N] for one matrix:
-// `sh` and `mult` are its precision (0 and 1 for MSB+LSB; shift and
-// 2^shift for MSB only).
-template <bool TRANSPOSED>
-__device__ __forceinline__ void amat_tiles(const float* __restrict__ xe,
-                                           const uint8_t* __restrict__ ce,
-                                           const float* __restrict__ se,
-                                           const uint8_t* __restrict__ ze,
-                                           float* __restrict__ oe, int M,
-                                           int K, int N, int group_size,
-                                           int sh, float mult) {
-  __shared__ __align__(16) float xs[BM][BK];
-  __shared__ __align__(16) float ws[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-
-  float acc[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const size_t meta = static_cast<size_t>(k0 / group_size) * N;
-
-    // x tile [BM, BK], one element per thread, zero past the M edge.
-    {
-      const int r = tid / BK;
-      const int kk = tid % BK;
-      const int m = m0 + r;
-      xs[r][kk] = (m < M) ? xe[static_cast<size_t>(m) * K + k0 + kk] : 0.f;
-    }
-
-    // Dequantized weight tile [BK, BN], zero past the N edge.
-    if (TRANSPOSED) {
-      // codes_t[n, k]: the tile's 32 codes of column n are contiguous
-      // (two 16-byte loads); the transpose happens on the way into `ws`.
-      const int n = n0 + tid;
-      if (n < N) {
-        const float s = se[meta + n] * mult;
-        const int z = ze[meta + n] >> sh;
-        const uint4* src =
-            reinterpret_cast<const uint4*>(ce + static_cast<size_t>(n) * K + k0);
-        const uint4 v0 = src[0];
-        const uint4 v1 = src[1];
-        const uint32_t words[8] = {v0.x, v0.y, v0.z, v0.w,
-                                   v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const int c = (words[kk >> 2] >> (8 * (kk & 3))) & 0xff;
-          ws[kk][tid] = static_cast<float>((c >> sh) - z) * s;
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) ws[kk][tid] = 0.f;
-      }
-    } else {
-      // codes[k, n], rows of N bytes (N % 4 == 0, padded by the
-      // wrapper): 64 threads cover one 256-column row with 4-byte loads,
-      // 4 rows per pass, 8 passes.
-      const int c4 = tid & 63;
-      const int rr = tid >> 6;
-      const int n = n0 + 4 * c4;
-      if (n < N) {
-        float s[4];
-        int z[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[j] = se[meta + n + j] * mult;
-          z[j] = ze[meta + n + j] >> sh;
-        }
-#pragma unroll
-        for (int p = 0; p < BK / 4; ++p) {
-          const int kk = rr + 4 * p;
-          const uchar4 v = *reinterpret_cast<const uchar4*>(
-              ce + static_cast<size_t>(k0 + kk) * N + n);
-          float4 w;
-          w.x = static_cast<float>((v.x >> sh) - z[0]) * s[0];
-          w.y = static_cast<float>((v.y >> sh) - z[1]) * s[1];
-          w.z = static_cast<float>((v.z >> sh) - z[2]) * s[2];
-          w.w = static_cast<float>((v.w >> sh) - z[3]) * s[3];
-          *reinterpret_cast<float4*>(&ws[kk][4 * c4]) = w;
-        }
-      } else {
-#pragma unroll
-        for (int p = 0; p < BK / 4; ++p) {
-          *reinterpret_cast<float4*>(&ws[rr + 4 * p][4 * c4]) =
-              make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-    }
-    __syncthreads();
-
-    // acc[r] += x[m0 + r, k0:k0+32] . W[k0:k0+32, n0 + tid]
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      const float w0 = ws[kk][tid];
-      const float w1 = ws[kk + 1][tid];
-      const float w2 = ws[kk + 2][tid];
-      const float w3 = ws[kk + 3][tid];
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[r][kk]);
-        acc[r] = fmaf(xv.x, w0, acc[r]);
-        acc[r] = fmaf(xv.y, w1, acc[r]);
-        acc[r] = fmaf(xv.z, w2, acc[r]);
-        acc[r] = fmaf(xv.w, w3, acc[r]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int n = n0 + tid;
-  if (n < N) {
-#pragma unroll
-    for (int r = 0; r < BM; ++r) {
-      const int m = m0 + r;
-      if (m < M) oe[static_cast<size_t>(m) * N + n] = acc[r];
-    }
-  }
-}
-
-template <bool TRANSPOSED>
-__global__ void __launch_bounds__(THREADS)
-amat_batched_kernel(const float* __restrict__ x,
-                    const uint8_t* __restrict__ codes,
-                    const float* __restrict__ scales,
-                    const uint8_t* __restrict__ zps,
-                    const uint8_t* __restrict__ use_lsb,
-                    float* __restrict__ out, int M, int K, int N,
-                    int group_size, int shift) {
-  const int e = blockIdx.z;
-  // Per-expert precision: the low-bit path shifts code and zero-point and
-  // scales by 2^shift; the high-bit path uses them as they are.
-  const bool hi = use_lsb[e] != 0;
-  const size_t G = K / group_size;
-  amat_tiles<TRANSPOSED>(
-      x + static_cast<size_t>(e) * M * K, codes + static_cast<size_t>(e) * K * N,
-      scales + e * G * N, zps + e * G * N, out + static_cast<size_t>(e) * M * N,
-      M, K, N, group_size, hi ? 0 : shift,
-      hi ? 1.0f : static_cast<float>(1 << shift));
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core route (see the note at the top).
-
+constexpr int BK = 32;             // K rows per chunk: one quantization group
 constexpr int TC_BN = 64;          // output columns per block
 constexpr int TC_THREADS = 256;    // 8 warps
 constexpr int TC_LDX = BK + 8;     // x tile row: 40 bf16 (80 bytes)
@@ -259,22 +105,6 @@ constexpr int TC_LDT = BK + 16;    // output-major code tile row: 48 bytes
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_BATCH = 8;       // partials loaded before they are added
 constexpr int SPLIT_THREADS = 256;
-
-// One slot of the ring: a chunk of 32 rows of K.  Padded rows: the 8 rows
-// an `ldmatrix` of x reads fall in 8 distinct 16-byte bank groups.  K-major
-// codes are [32 k][64 n] and the 4 code rows 2q (q = lane % 4) a B
-// fragment gathers fall in 4 distinct banks; output-major codes are [64 n]
-// [32 k] in rows of 48 bytes (16-byte aligned `cp.async` destinations), so
-// the 8 columns g a fragment gathers start at words 12 g mod 32 and, with
-// the 2 words of their k pairs, fall in 16 distinct banks.  NP planes of
-// x: 1 for bf16 x, 3 for the exact bf16 planes of f32 x.
-template <int MT, bool TRANSPOSED, int NP>
-struct __align__(16) TcStage {
-  __nv_bfloat16 x[NP][16 * MT][TC_LDX];  // x rows m0 .. m0 + 16*MT, 32 of K
-  uint8_t codes[TRANSPOSED ? TC_BN : BK][TRANSPOSED ? TC_LDT : TC_LDC];
-  float scales[TC_BN];
-  uint8_t zps[TC_BN];
-};
 
 // The warps of a block: two along M when the block has two or more m16
 // tiles, the rest along its 64 columns.
@@ -285,15 +115,42 @@ struct TcWarps {
   static constexpr int MW = MT / WM;           // m16 tiles per warp
   static constexpr int COLS = TC_BN / WN;      // columns per warp: 8 or 16
   static constexpr int NT = COLS / 8;          // n8 tiles per warp
+  // One m16 tile of three planes covers 8 rows of x, packed into two m16
+  // tiles, hi over mid and lo over zeros: a k16 step takes two products
+  // and two `ldmatrix`, not three, the stage is a third smaller, and the
+  // decode batch (8 rows) fills the tiles instead of half of three.  Each
+  // lane's row g + 8 result is then its row g's mid product.  The rows of
+  // x a block covers, and the m16 tiles of x a stage holds.
+  static constexpr bool PACKED = NP == 3 && MT == 1;
+  static constexpr int ROWS = PACKED ? 8 : 16 * MT;
+  static constexpr int XT = PACKED ? 2 : NP;
   // Chunks of 32 rows a block computes between two barriers (independent
   // chains for the warps' schedulers), and the ring of chunks: two
   // iterations' chunks in flight while one iteration computes (49 KB of
   // shared memory at one m16 tile, 77 KB at eight; 55 and 80 KB with
-  // output-major codes).  Three planes do three times the tensor work per
-  // chunk, so 2 chunks suffice (39, 62 and 107 KB at 1, 2 and 4 m16
-  // tiles: two blocks per SM).
+  // output-major codes).  Three planes do two or three times the tensor
+  // work per chunk, so 2 chunks suffice (32, 62 and 107 KB at 1, 2 and 4
+  // m16 tiles; at one tile five blocks per SM, as many as 48 registers
+  // allow, where 4 chunks, 65 KB and three blocks, took 4-7% longer on
+  // an H100).
   static constexpr int CPI = (MT <= 2 && NP == 1) ? 4 : 2;
   static constexpr int STAGES = 3 * CPI;
+};
+
+// One slot of the ring: a chunk of 32 rows of K.  Padded rows: the 8 rows
+// an `ldmatrix` of x reads fall in 8 distinct 16-byte bank groups.  K-major
+// codes are [32 k][64 n] and the 4 code rows 2q (q = lane % 4) a B
+// fragment gathers fall in 4 distinct banks; output-major codes are [64 n]
+// [32 k] in rows of 48 bytes (16-byte aligned `cp.async` destinations), so
+// the 8 columns g a fragment gathers start at words 12 g mod 32 and, with
+// the 2 words of their k pairs, fall in 16 distinct banks.  NP planes of
+// x: 1 for bf16 x, 3 for the exact bf16 planes of f32 x, in XT m16 tiles.
+template <int MT, bool TRANSPOSED, int NP>
+struct __align__(16) TcStage {
+  __nv_bfloat16 x[TcWarps<MT, NP>::XT][16 * MT][TC_LDX];  // 32 of K
+  uint8_t codes[TRANSPOSED ? TC_BN : BK][TRANSPOSED ? TC_LDT : TC_LDC];
+  float scales[TC_BN];
+  uint8_t zps[TC_BN];
 };
 
 template <int MT, bool TRANSPOSED, int NP>
@@ -301,21 +158,23 @@ constexpr size_t tc_smem_bytes() {
   return TcWarps<MT, NP>::STAGES * sizeof(TcStage<MT, TRANSPOSED, NP>);
 }
 
-// The body of both tensor-core kernels: rows m0 .. m0 + 16*MT of x [M, K]
+// The body of both tensor-core kernels: rows m0 .. m0 + ROWS of x [M, K]
 // against columns n0 .. n0+64 of one matrix's codes ([K, N], or [N, K]
 // when TRANSPOSED; metadata [K/G, N]), over quantization groups [g_begin,
 // g_end), the sums written to dst [M, N].  `sh` and `mult` are the
 // precision (0 and 1 for MSB+LSB; shift and 2^shift for MSB only).  Each
 // warp builds the B fragments of its columns straight from the code tile
 // in registers (each weight an exact bf16 integer), so one barrier per CPI
-// chunks suffices.  x holds NP planes of [M, K], plane p at x + p*M*K;
-// each plane's product goes into the same group accumulator.
+// chunks suffices.  x holds NP planes of [M, K], plane p at x + p *
+// plane_stride (unused for NP = 1); each plane's product goes into the
+// same group accumulator.
 template <int MT, bool TRANSPOSED, int NP>
 __device__ __forceinline__ void amat_mma_tiles(
     unsigned char* smem, const __nv_bfloat16* __restrict__ x,
-    const uint8_t* __restrict__ codes, const float* __restrict__ scales,
-    const uint8_t* __restrict__ zps, float* __restrict__ dst, int M, int K,
-    int N, int group_size, int g_begin, int g_end, int sh, float mult) {
+    size_t plane_stride, const uint8_t* __restrict__ codes,
+    const float* __restrict__ scales, const uint8_t* __restrict__ zps,
+    float* __restrict__ dst, int M, int K, int N, int group_size,
+    int g_begin, int g_end, int sh, float mult) {
   using W = TcWarps<MT, NP>;
   using Stage = TcStage<MT, TRANSPOSED, NP>;
   constexpr int STAGES = W::STAGES;
@@ -330,7 +189,7 @@ __device__ __forceinline__ void amat_mma_tiles(
   const int g = lane >> 2;
   const int q = lane & 3;
   const int n0 = blockIdx.x * TC_BN;
-  const int m0 = blockIdx.y * 16 * MT;
+  const int m0 = blockIdx.y * W::ROWS;
   const int per_group = group_size / BK;
   const int c_begin = g_begin * per_group;
   const int n_chunks = (g_end - g_begin) * per_group;
@@ -340,16 +199,32 @@ __device__ __forceinline__ void amat_mma_tiles(
     Stage& s = st[slot];
     const int k0 = (c_begin + c) * BK;
     const size_t meta = static_cast<size_t>(k0 / group_size) * N;
-#pragma unroll
-    for (int pl = 0; pl < NP; ++pl) {
-      const __nv_bfloat16* xp = x + static_cast<size_t>(pl) * M * K;
-      for (int i = tid; i < 16 * MT * 4; i += TC_THREADS) {
-        const int r = i >> 2;
-        const int p = i & 3;
+    if constexpr (W::PACKED) {
+      // Plane pl's row r to tile pl / 2, row r + 8 (pl % 2).
+      if (tid < NP * 8 * 4) {
+        const int pl = tid >> 5;
+        const int r = (tid >> 2) & 7;
+        const int p = tid & 3;
         const bool ok = m0 + r < M;
-        cp_async16(&s.x[pl][r][p * 8],
-                   ok ? xp + static_cast<size_t>(m0 + r) * K + k0 + p * 8 : x,
+        cp_async16(&s.x[pl >> 1][r + 8 * (pl & 1)][p * 8],
+                   ok ? x + pl * plane_stride +
+                            static_cast<size_t>(m0 + r) * K + k0 + p * 8
+                      : x,
                    ok);
+      }
+    } else {
+#pragma unroll
+      for (int pl = 0; pl < NP; ++pl) {
+        const __nv_bfloat16* xp = x + pl * plane_stride;
+        for (int i = tid; i < 16 * MT * 4; i += TC_THREADS) {
+          const int r = i >> 2;
+          const int p = i & 3;
+          const bool ok = m0 + r < M;
+          cp_async16(&s.x[pl][r][p * 8],
+                     ok ? xp + static_cast<size_t>(m0 + r) * K + k0 + p * 8
+                        : x,
+                     ok);
+        }
       }
     }
     if (tid < 128) {
@@ -393,6 +268,14 @@ __device__ __forceinline__ void amat_mma_tiles(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  if constexpr (W::PACKED) {
+    // The zeros under lo, written once: the loads never touch them, and
+    // the loop's first barrier orders them before any product.
+    for (int i = tid; i < STAGES * 8 * 4; i += TC_THREADS)
+      *reinterpret_cast<uint4*>(&st[i >> 5].x[1][8 + ((i >> 2) & 7)]
+                                              [(i & 3) * 8]) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
 #pragma unroll
   for (int c = 0; c < STAGES - CPI; ++c) {
     if (c < n_chunks) load(c, c);
@@ -459,14 +342,22 @@ __device__ __forceinline__ void amat_mma_tiles(
 #pragma unroll
         for (int i = 0; i < W::MW; ++i)
 #pragma unroll
-          for (int pl = 0; pl < NP; ++pl) {
+          for (int t = 0; t < W::XT; ++t) {
             uint32_t a[4];
-            ldmatrix_x4(a, &s.x[pl][(wm * W::MW + i) * 16 + (lane & 15)]
+            ldmatrix_x4(a, &s.x[t][(wm * W::MW + i) * 16 + (lane & 15)]
                                [16 * kk + (lane >> 4) * 8]);
 #pragma unroll
             for (int j = 0; j < W::NT; ++j)
               mma_bf16(gacc[i][j], a, b[kk][j][0], b[kk][j][1]);
           }
+      if constexpr (W::PACKED) {
+        // Row g: hi + lo in c0, c1, mid in c2, c3.
+#pragma unroll
+        for (int j = 0; j < W::NT; ++j) {
+          gacc[0][j][0] += gacc[0][j][2];
+          gacc[0][j][1] += gacc[0][j][3];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < W::NT; ++j) {
         const float2 sc = *reinterpret_cast<const float2*>(
@@ -495,7 +386,7 @@ __device__ __forceinline__ void amat_mma_tiles(
       if (row < M)
         *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * N + col) =
             make_float2(acc[i][j][0], acc[i][j][1]);
-      if (row + 8 < M)
+      if (!W::PACKED && row + 8 < M)
         *reinterpret_cast<float2*>(dst + static_cast<size_t>(row + 8) * N +
                                    col) =
             make_float2(acc[i][j][2], acc[i][j][3]);
@@ -505,7 +396,8 @@ __device__ __forceinline__ void amat_mma_tiles(
 // One matrix, static precision: the quantization groups of split
 // blockIdx.z of gridDim.z.  With one split the block writes `out` [M, N];
 // otherwise its partial sums go to partials[blockIdx.z].  x is NP planes
-// of [M, K] bf16: bf16 x itself, or the three planes of f32 x.
+// of [M, K] bf16, one after the other: bf16 x itself, or the three planes
+// of f32 x.
 template <int MT, int NP>
 __global__ void __launch_bounds__(TC_THREADS)
 amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
@@ -524,14 +416,19 @@ amat_single_mma_kernel(const __nv_bfloat16* __restrict__ x,
   float* dst = splits == 1
                    ? out
                    : partials + static_cast<size_t>(blockIdx.z) * M * N;
-  amat_mma_tiles<MT, false, NP>(tc_smem, x, codes, scales, zps, dst, M, K,
-                                N, group_size, blockIdx.z * G / splits,
-                                (blockIdx.z + 1) * G / splits, sh, mult);
+  amat_mma_tiles<MT, false, NP>(
+      tc_smem, x, NP > 1 ? static_cast<size_t>(M) * K : 0, codes, scales,
+      zps, dst, M, K, N, group_size, blockIdx.z * G / splits, (blockIdx.z + 1) * G / splits,
+      sh, mult);
 }
 
 // Batched experts: expert blockIdx.z over the whole of K, at its own
-// precision use_lsb[e], as `amat_batched_kernel`.
-template <int MT, bool TRANSPOSED>
+// precision use_lsb[e] (the low-bit path shifts code and zero-point and
+// scales by 2^shift; the high-bit path uses them as they are).  x is NP
+// planes of [E, M, K] bf16, one after the other: bf16 x itself, or the
+// three planes of f32 x, so plane p of expert e starts at x + p*E*M*K +
+// e*M*K.
+template <int MT, bool TRANSPOSED, int NP>
 __global__ void __launch_bounds__(TC_THREADS)
 amat_batched_mma_kernel(const __nv_bfloat16* __restrict__ x,
                         const uint8_t* __restrict__ codes,
@@ -541,12 +438,16 @@ amat_batched_mma_kernel(const __nv_bfloat16* __restrict__ x,
                         float* __restrict__ out, int M, int K, int N,
                         int group_size, int shift) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
+  // The planes of f32 x come from the split pass, of which this grid is a
+  // programmatic dependent: it launches early and waits here.
+  if constexpr (NP > 1) wait_for_primary_grid();
   const int e = blockIdx.z;
   const bool hi = use_lsb[e] != 0;
   const int G = K / group_size;
   const size_t meta = static_cast<size_t>(e) * G * N;
-  amat_mma_tiles<MT, TRANSPOSED, 1>(
-      tc_smem, x + static_cast<size_t>(e) * M * K,
+  const size_t expert_x = static_cast<size_t>(M) * K;
+  amat_mma_tiles<MT, TRANSPOSED, NP>(
+      tc_smem, x + e * expert_x, gridDim.z * expert_x,
       codes + static_cast<size_t>(e) * K * N, scales + meta, zps + meta,
       out + static_cast<size_t>(e) * M * N, M, K, N, group_size, 0, G,
       hi ? 0 : shift, hi ? 1.0f : static_cast<float>(1 << shift));
@@ -656,8 +557,8 @@ int launch_single_mma(const __nv_bfloat16* x, const uint8_t* codes,
   cudaError_t err =
       allow_smem_once(amat_single_mma_kernel<MT, NP>, bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 16 * MT - 1) / (16 * MT),
-                  splits);
+  constexpr int ROWS = TcWarps<MT, NP>::ROWS;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + ROWS - 1) / ROWS, splits);
   if constexpr (NP > 1) {
     err = launch_dependent(amat_single_mma_kernel<MT, NP>, grid, TC_THREADS,
                            bytes, stream, x, codes, scales, zps, out,
@@ -681,21 +582,41 @@ int launch_single_mma(const __nv_bfloat16* x, const uint8_t* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT, bool TRANSPOSED>
+template <int MT, bool TRANSPOSED, int NP>
 int launch_batched_mma(const __nv_bfloat16* x, const uint8_t* codes,
                        const float* scales, const uint8_t* zps,
                        const uint8_t* use_lsb, float* out, int E, int M,
                        int K, int N, int group_size, int shift,
                        cudaStream_t stream) {
-  constexpr size_t bytes = tc_smem_bytes<MT, TRANSPOSED, 1>();
+  constexpr size_t bytes = tc_smem_bytes<MT, TRANSPOSED, NP>();
   static bool done[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem_once(amat_batched_mma_kernel<MT, TRANSPOSED>,
-                                    bytes, done);
+  cudaError_t err = allow_smem_once(
+      amat_batched_mma_kernel<MT, TRANSPOSED, NP>, bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 16 * MT - 1) / (16 * MT), E);
-  amat_batched_mma_kernel<MT, TRANSPOSED><<<grid, TC_THREADS, bytes, stream>>>(
-      x, codes, scales, zps, use_lsb, out, M, K, N, group_size, shift);
+  constexpr int ROWS = TcWarps<MT, NP>::ROWS;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + ROWS - 1) / ROWS, E);
+  if constexpr (NP > 1) {
+    err = launch_dependent(amat_batched_mma_kernel<MT, TRANSPOSED, NP>, grid,
+                           TC_THREADS, bytes, stream, x, codes, scales, zps,
+                           use_lsb, out, M, K, N, group_size, shift);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    amat_batched_mma_kernel<MT, TRANSPOSED, NP>
+        <<<grid, TC_THREADS, bytes, stream>>>(x, codes, scales, zps, use_lsb,
+                                              out, M, K, N, group_size, shift);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// f32 x [count] (16-byte aligned, count % 4 == 0) -> its three bf16
+// planes [3][count] by the split pass, enqueued on `stream`.
+cudaError_t split_planes(const void* x, __nv_bfloat16* planes, size_t count,
+                         cudaStream_t stream) {
+  const size_t blocks = (count / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  split_planes_kernel<<<static_cast<unsigned>(blocks), SPLIT_THREADS, 0,
+                        stream>>>(static_cast<const float*>(x), planes,
+                                  count);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -706,42 +627,56 @@ extern "C" {
 // code of its launch (0 on success); the caller checks it.
 
 // Batched experts, per-expert precision use_lsb [E]; transposed = 1 reads
-// output-major codes [E, N, K].  f32 x runs `amat_batched_kernel` (m_tiles
-// unused); bf16 x runs the tensor-core kernel on blocks of 16 * m_tiles
-// rows (1, 2, 4 or 8) and 64 columns, and takes N % 16 == 0 and 16-byte
-// aligned x, codes, scales and zps.
+// output-major codes [E, N, K].  Runs on the tensor cores on blocks of 16
+// * m_tiles rows and 64 columns.  bf16 x runs as it is (m_tiles 1, 2, 4
+// or 8; planes unused).  f32 x first goes through the split pass into
+// planes, bf16 scratch of 3 * E * M * K, then runs as three planes
+// (m_tiles 1, 2 or 4; one m16 tile covers 8 rows).  Takes N % 16 == 0 and 16-byte aligned x, codes,
+// scales and zps.
 int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
                         const void* scales, const void* zps,
-                        const void* use_lsb, void* out, int m_tiles, int E,
-                        int M, int K, int N, int group_size, int shift,
-                        int transposed, void* stream) {
+                        const void* use_lsb, void* out, void* planes,
+                        int m_tiles, int E, int M, int K, int N,
+                        int group_size, int shift, int transposed,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   const uint8_t* z = static_cast<const uint8_t*>(zps);
   const uint8_t* u = static_cast<const uint8_t*>(use_lsb);
   float* o = static_cast<float*>(out);
+  if (N % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (x_dtype == 0) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-    const float* xf = static_cast<const float*>(x);
-    if (transposed)
-      amat_batched_kernel<true><<<grid, THREADS, 0, s>>>(
-          xf, c, sc, z, u, o, M, K, N, group_size, shift);
-    else
-      amat_batched_kernel<false><<<grid, THREADS, 0, s>>>(
-          xf, c, sc, z, u, o, M, K, N, group_size, shift);
-    return static_cast<int>(cudaGetLastError());
+    if (planes == nullptr || m_tiles > 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    __nv_bfloat16* pl = static_cast<__nv_bfloat16*>(planes);
+    const cudaError_t err =
+        split_planes(x, pl, static_cast<size_t>(E) * M * K, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_m_tiles(m_tiles, [&](auto mt) {
+      constexpr int MT = decltype(mt)::value;
+      if constexpr (MT > 4) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        return transposed
+                   ? launch_batched_mma<MT, true, 3>(pl, c, sc, z, u, o, E, M,
+                                                     K, N, group_size, shift,
+                                                     s)
+                   : launch_batched_mma<MT, false, 3>(pl, c, sc, z, u, o, E,
+                                                      M, K, N, group_size,
+                                                      shift, s);
+      }
+    });
   }
-  if (x_dtype != 1 || N % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   return with_m_tiles(m_tiles, [&](auto mt) {
     constexpr int MT = decltype(mt)::value;
     return transposed
-               ? launch_batched_mma<MT, true>(xb, c, sc, z, u, o, E, M, K, N,
-                                              group_size, shift, s)
-               : launch_batched_mma<MT, false>(xb, c, sc, z, u, o, E, M, K,
-                                               N, group_size, shift, s);
+               ? launch_batched_mma<MT, true, 1>(xb, c, sc, z, u, o, E, M, K,
+                                                 N, group_size, shift, s)
+               : launch_batched_mma<MT, false, 1>(xb, c, sc, z, u, o, E, M,
+                                                  K, N, group_size, shift, s);
   });
 }
 
@@ -752,7 +687,7 @@ int amat_batched_matmul(const void* x, int x_dtype, const void* codes,
 // scratch of splits * M * N.  bf16 x runs as it is (m_tiles 1, 2, 4 or
 // 8; planes unused).  f32 x first goes through the split pass into
 // planes, bf16 scratch of 3 * M * K, then runs as three planes (m_tiles
-// 1, 2 or 4).  Takes N % 16 == 0 and 16-byte aligned x, codes, scales and
+// 1, 2 or 4; one m16 tile covers 8 rows).  Takes N % 16 == 0 and 16-byte aligned x, codes, scales and
 // zps.
 int amat_single_matmul(const void* x, int x_dtype, const void* codes,
                        const void* scales, const void* zps, void* out,
@@ -774,11 +709,8 @@ int amat_single_matmul(const void* x, int x_dtype, const void* codes,
     if (planes == nullptr || m_tiles > 4)
       return static_cast<int>(cudaErrorInvalidValue);
     __nv_bfloat16* pl = static_cast<__nv_bfloat16*>(planes);
-    const size_t count = static_cast<size_t>(M) * K;
-    const size_t blocks = (count / 4 + SPLIT_THREADS - 1) / SPLIT_THREADS;
-    split_planes_kernel<<<static_cast<unsigned>(blocks), SPLIT_THREADS, 0,
-                          s>>>(static_cast<const float*>(x), pl, count);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        split_planes(x, pl, static_cast<size_t>(M) * K, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     return with_m_tiles(m_tiles, [&](auto mt) {
       constexpr int MT = decltype(mt)::value;

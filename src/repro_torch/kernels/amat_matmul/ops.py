@@ -17,32 +17,29 @@ shape, contiguity and alignment, allocates the output, checks the
 launch's return code and adds one to its key of :data:`LAUNCHES`.  On CPU
 tensors it runs the plain PyTorch version in :mod:`.ref`.
 
-The routes:
+Every route runs on the tensor cores.  Each weight is an integer of at
+most 8 bits, exact in bf16, so each 32-row group's product is exact in
+``mma.sync`` bf16 -> f32 and its scale applies after it.
 
-* bf16 ``x``: the tensor-core kernels.  Each weight is an integer of at
-  most 8 bits, exact in bf16, so each 32-row group's product is exact in
-  ``mma.sync`` bf16 -> f32 and its scale applies after it.
-  :func:`amat_expert_matmul` (and ``expert_matmul``) runs one block per
-  expert, 64 columns and :func:`mma_m_tiles` rows over the whole of K,
-  on either code layout.  :func:`amat_matmul` splits K across blocks in
-  whole groups at small M (:func:`mma_plan`) and a second kernel sums
-  the splits in order; the call still counts one launch;
-* f32 ``x`` in :func:`amat_matmul`: the same tensor-core kernel on three
-  bf16 planes of x, ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo =
-  bf16(x - hi - mid)``, which sum to x exactly (:func:`split_planes` is
-  their plain version), written by a split pass into scratch the wrapper
-  allocates; each plane's product with the integer weights is exact in
-  f32, so only the order of the f32 sums differs from the plain version;
-* f32 ``x`` in :func:`amat_expert_matmul` (and ``expert_matmul``): the
-  CUDA-core kernel, f32 products of dequantized weights, the parity mode
-  of the engine's f32 models.
+* bf16 ``x`` runs as it is.  :func:`amat_expert_matmul` (and
+  ``expert_matmul``) runs one block per expert, 64 columns and
+  :func:`mma_m_tiles` rows over the whole of K, on either code layout.
+  :func:`amat_matmul` splits K across blocks in whole groups at small M
+  (:func:`mma_plan`) and a second kernel sums the splits in order; the
+  call still counts one launch;
+* f32 ``x`` runs the same kernels on three bf16 planes of x, ``hi =
+  bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``, which
+  sum to x exactly (:func:`split_planes` is their plain version), written
+  by a split pass into ``[3, *x.shape]`` scratch the wrapper allocates;
+  each plane's product with the integer weights is exact in f32, so only
+  the order of the f32 sums differs from the plain version.  In the
+  batched kernels this is the parity mode of the engine's f32 models.
 
-The kernels mask ragged M and N themselves.  The tensor-core kernels'
-metadata loads take 16 columns at a time, the CUDA-core kernel's K-major
-code loads 4, so :func:`launch`, the one launch path of every wrapper
-here and of ``expert_matmul``, pads a ragged N to that (zero scales null
-the pad).  No model shape has such an N, so the copy never runs on
-them.
+The kernels mask ragged M and N themselves.  Their metadata loads take
+16 columns at a time, so :func:`launch`, the one launch path of every
+wrapper here and of ``expert_matmul``, pads a ragged N to a multiple of
+16 (zero scales null the pad).  No model shape has such an N, so the copy
+never runs on them.
 """
 
 from __future__ import annotations
@@ -70,9 +67,10 @@ LAUNCHES = LaunchCounter("k_major", "output_major", "single")
 
 MODES = ("high", "low")
 
-# The tensor-core kernel's block: 64 columns and 16 * m_tiles rows; with
-# the three planes of f32 x, whose x tiles take three times the shared
-# memory, at most 4 m16 tiles.
+# The kernels' block: 64 columns and 16 * m_tiles rows; with the three
+# planes of f32 x, whose x tiles take three times the shared memory, at
+# most 4 m16 tiles, and one m16 tile takes 8 rows of x (its planes packed
+# into two m16 tiles, :func:`mma_rows`).
 MMA_BN = 64
 MMA_M_TILES = (1, 2, 4, 8)
 PLANES_M_TILES = (1, 2, 4)
@@ -80,7 +78,7 @@ PLANES_M_TILES = (1, 2, 4)
 # largest blocks (77 KB of shared memory at 128 rows of one plane, 107 KB
 # at 64 rows of three) fit on an SM.
 MMA_BLOCKS_PER_SM = 2
-# The planes of f32 x in :func:`amat_matmul`.
+# The planes of f32 x.
 X_PLANES = 3
 
 
@@ -96,7 +94,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Type the C entries of ``lib``, built from :data:`SOURCE` or from a
     variant of it with the same entries."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.amat_batched_matmul.argtypes = [P, I, P, P, P, P, P,
+    lib.amat_batched_matmul.argtypes = [P, I, P, P, P, P, P, P,
                                         I, I, I, I, I, I, I, I, P]
     lib.amat_single_matmul.argtypes = [P, I, P, P, P, P, P, P,
                                        I, I, I, I, I, I, I, I, P]
@@ -117,14 +115,21 @@ def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def mma_rows(m_tiles: int, planes: int = 1) -> int:
+    """The rows of x a block of ``m_tiles`` m16 tiles covers: 16 per tile,
+    but 8 for one tile of three planes, whose hi and mid planes share one
+    m16 tile and lo takes a second."""
+    return 8 if planes > 1 and m_tiles == 1 else 16 * m_tiles
+
+
 def mma_m_tiles(M: int, planes: int = 1) -> int:
     """The m16 tiles of a tensor-core block for ``M`` rows of x in
     ``planes`` planes: the fewest of :data:`MMA_M_TILES` (one plane) or
-    :data:`PLANES_M_TILES` (three) whose block covers ``min(M, 16 *
-    largest)``: 128 rows of one plane, 64 of three."""
+    :data:`PLANES_M_TILES` (three) whose block covers ``min(M, rows of the
+    largest)`` (:func:`mma_rows`): 128 rows of one plane, 64 of three."""
     tiles = MMA_M_TILES if planes == 1 else PLANES_M_TILES
-    rows = min(M, 16 * tiles[-1])
-    return next(t for t in tiles if 16 * t >= rows)
+    rows = min(M, mma_rows(tiles[-1], planes))
+    return next(t for t in tiles if mma_rows(t, planes) >= rows)
 
 
 def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132,
@@ -136,7 +141,7 @@ def mma_plan(M: int, K: int, N: int, group_size: int, sms: int = 132,
     many as keep the f32 partials (``splits * M * N * 4`` bytes) within
     twice the codes' ``K * N`` bytes."""
     m_tiles = mma_m_tiles(M, planes)
-    blocks = -(-N // MMA_BN) * -(-M // (16 * m_tiles))
+    blocks = -(-N // MMA_BN) * -(-M // mma_rows(m_tiles, planes))
     want = -(-MMA_BLOCKS_PER_SM * sms // blocks)
     cap = K // (2 * M)
     return m_tiles, max(1, min(want, cap, K // group_size))
@@ -217,14 +222,12 @@ def pad_columns(n_to: int, codes, scales, zps, *, transposed: bool = False):
 def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
            zps, use_lsb, *, group_size: int, shift: int,
            transposed: bool = False, high: bool = False):
-    """Check the operands, pad a ragged N (to a multiple of 16 for the
-    tensor-core kernels; to 4 for K-major codes on the CUDA cores), launch
-    the kernel on ``x``'s card and add one to ``counter``'s ``key``.
-    ``x`` is ``[E, M, K]`` with ``use_lsb [E]`` (C entry
-    ``amat_batched_matmul``) or ``[M, K]`` with ``use_lsb=None`` and the
-    static precision ``high`` (C entry ``amat_single_matmul``, on the
-    tensor cores for both types of x; f32 x gets its bf16 planes'
-    scratch here)."""
+    """Check the operands, pad a ragged N to a multiple of 16, launch the
+    kernel on ``x``'s card and add one to ``counter``'s ``key``.  ``x`` is
+    ``[E, M, K]`` with ``use_lsb [E]`` (C entry ``amat_batched_matmul``)
+    or ``[M, K]`` with ``use_lsb=None`` and the static precision ``high``
+    (C entry ``amat_single_matmul``).  f32 x gets the scratch of its
+    three bf16 planes here."""
     *lead, M, K = x.shape
     N = codes.shape[-2] if transposed else codes.shape[-1]
     use_lsb = check_operands(
@@ -232,12 +235,10 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
         codes_shape=(*lead, N, K) if transposed else (*lead, K, N),
         meta_shape=(*lead, K // group_size, N), use_lsb=use_lsb)
     single = use_lsb is None
-    mma = x.dtype == torch.bfloat16 or single
-    if mma:
-        for name, t in (("x", x), ("scales", scales), ("zps", zps)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{who}: {name} is not 16-byte aligned")
-    n_pad = -N % 16 if mma else (0 if transposed else -N % 4)
+    for name, t in (("x", x), ("scales", scales), ("zps", zps)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} is not 16-byte aligned")
+    n_pad = -N % 16
     if n_pad:
         codes, scales, zps = pad_columns(N + n_pad, codes, scales, zps,
                                          transposed=transposed)
@@ -247,9 +248,13 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
         lib = library()
         ptrs = (x.data_ptr(), X_DTYPES[x.dtype], codes.data_ptr(),
                 scales.data_ptr(), zps.data_ptr())
+        planes = X_PLANES if x.dtype == torch.float32 else 1
+        x_planes = torch.empty(
+            (planes, *x.shape), dtype=torch.bfloat16,
+            device=x.device) if planes > 1 else None
+        planes_ptr = None if x_planes is None else x_planes.data_ptr()
         with torch.cuda.device(x.device):
             if single:
-                planes = X_PLANES if x.dtype == torch.float32 else 1
                 sms = torch.cuda.get_device_properties(
                     x.device).multi_processor_count
                 m_tiles, splits = mma_plan(M, K, N + n_pad, group_size, sms,
@@ -257,20 +262,16 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
                 partials = torch.empty(
                     (splits, M, N + n_pad), dtype=torch.float32,
                     device=x.device) if splits > 1 else None
-                x_planes = torch.empty(
-                    (planes, M, K), dtype=torch.bfloat16,
-                    device=x.device) if planes > 1 else None
                 rc = lib.amat_single_matmul(
                     *ptrs, out.data_ptr(),
                     None if partials is None else partials.data_ptr(),
-                    None if x_planes is None else x_planes.data_ptr(),
-                    m_tiles, splits, M, K, N + n_pad, group_size, shift,
-                    int(high), stream_of(x.device))
+                    planes_ptr, m_tiles, splits, M, K, N + n_pad, group_size,
+                    shift, int(high), stream_of(x.device))
             else:
                 rc = lib.amat_batched_matmul(
-                    *ptrs, use_lsb.data_ptr(), out.data_ptr(),
-                    mma_m_tiles(M), lead[0], M, K, N + n_pad, group_size,
-                    shift, int(transposed), stream_of(x.device))
+                    *ptrs, use_lsb.data_ptr(), out.data_ptr(), planes_ptr,
+                    mma_m_tiles(M, planes), lead[0], M, K, N + n_pad,
+                    group_size, shift, int(transposed), stream_of(x.device))
         raise_on_error(rc, who)
         counter.by_key[key] += 1
     return out[..., :N].contiguous() if n_pad else out
@@ -283,7 +284,9 @@ def amat_expert_matmul(x, codes, scales, zps, use_lsb, *,
 
     ``use_lsb`` [E] selects MSB+LSB (high-bit) vs MSB-only dequant per
     expert.  ``transposed=True`` reads output-major codes ``[E, N, K]``
-    with the metadata still K-major ``[E, K//G, N]``.
+    with the metadata still K-major ``[E, K//G, N]``.  On the card both
+    types of ``x`` run on the tensor cores, f32 ``x`` as three exact bf16
+    planes (module docstring).
     """
     if x.device.type == "cuda":
         return launch("amat_expert_matmul", LAUNCHES,

@@ -243,14 +243,16 @@ def test_plane_route_order_matches_plain(mode, shift):
 @pytest.mark.parametrize("M", [1, 7, 16, 17, 64, 65, 128, 200])
 def test_plane_plan_fits_two_blocks_per_sm(M):
     """Three planes take blocks of at most 64 rows (4 m16 tiles, 107 KB
-    of shared memory, two per SM): the fewest tiles that cover min(M,
-    64), and a K split that still fills the card at K=2048."""
+    of shared memory, two per SM; one m16 tile takes 8 rows): the fewest
+    tiles that cover min(M, 64), and a K split that still fills the card
+    at K=2048."""
     m_tiles, splits = TOPS.mma_plan(M, 2048, 2816, 32, planes=3)
-    assert m_tiles in TOPS.PLANES_M_TILES and 16 * m_tiles >= min(M, 64)
-    assert m_tiles == 1 or 8 * m_tiles < min(M, 64)
+    rows = TOPS.mma_rows(m_tiles, planes=3)
+    assert m_tiles in TOPS.PLANES_M_TILES and rows >= min(M, 64)
+    assert m_tiles == 1 or TOPS.mma_rows(m_tiles // 2, planes=3) < min(M, 64)
     assert 1 <= splits <= 2048 // 32
     assert splits == 1 or splits * M * 2816 * 4 <= 2 * 2048 * 2816
-    blocks = -(-2816 // TOPS.MMA_BN) * -(-M // (16 * m_tiles)) * splits
+    blocks = -(-2816 // TOPS.MMA_BN) * -(-M // rows) * splits
     assert blocks >= 2 * 132 or splits == 2048 // (2 * M)
 
 

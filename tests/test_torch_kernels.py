@@ -97,15 +97,17 @@ def test_wrapper_rejects_an_unsupported_device():
 
 
 # --------------------------------------------------------------------------
-# The numerics of the tensor-core route (bf16 x), emulated on the CPU.
+# The numerics of the tensor-core routes, emulated on the CPU.
 # --------------------------------------------------------------------------
 def _mma_route_emulated(x, codes, scales, zps, use_lsb, *, transposed,
                         shift=4, group_size=32):
-    """The tensor-core kernel's order in torch, expert by expert: bf16 x
-    times the exact integer weights ``(c >> sh) - (z >> sh)`` of each
-    32-row chunk (exact products, f32 sums), then the group's scale times
-    2^sh (sh = 0 where ``use_lsb``, else ``shift``), over the whole K in
-    one pass (no split)."""
+    """The tensor-core kernel's order in torch, expert by expert: the bf16
+    planes of x (bf16 x itself, or the three exact planes of f32 x,
+    ``TOPS.split_planes``) times the exact integer weights ``(c >> sh) -
+    (z >> sh)`` of each 32-row chunk (exact products, f32 sums), every
+    plane into one group sum, then the group's scale times 2^sh (sh = 0
+    where ``use_lsb``, else ``shift``), over the whole K in one pass (no
+    split)."""
     E, M, K = x.shape
     out = []
     for e in range(E):
@@ -114,11 +116,12 @@ def _mma_route_emulated(x, codes, scales, zps, use_lsb, *, transposed,
         z = (zps[e].to(torch.int32) >> sh).repeat_interleave(group_size, 0)
         w = ((c >> sh) - z).to(torch.float32)
         scale = scales[e] * 2.0 ** sh
-        xf = x[e].to(torch.float32)
+        planes = (TOPS.split_planes(x[e]) if x.dtype == torch.float32
+                  else x[e][None]).to(torch.float32)
         acc = torch.zeros((M, c.shape[1]))
         for k0 in range(0, K, 32):
-            acc = acc + scale[k0 // group_size] * (xf[:, k0:k0 + 32]
-                                                   @ w[k0:k0 + 32])
+            group = sum(p[:, k0:k0 + 32] @ w[k0:k0 + 32] for p in planes)
+            acc = acc + scale[k0 // group_size] * group
         out.append(acc)
     return torch.stack(out)
 
@@ -139,6 +142,43 @@ def test_mma_route_order_matches_plain(transposed, M):
     plain = ref(*args, group_size=32, shift=4)
     err = (got - plain).abs()
     assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("M", [1, 8, 18])
+@pytest.mark.parametrize("transposed", [False, True], ids=["wi", "wo_t"])
+def test_planes_route_order_matches_plain(transposed, M):
+    """The f32 route: three exact bf16 planes of x, each plane's product
+    with the integer weights of a 32-row chunk into one group sum, then
+    the group's scale.  At qwen15-moe-a2.7b's depths (``wi`` K=2048,
+    ``wo`` K=1408) it holds the card's tolerance against the plain
+    version, with a mixed per-expert precision; M is one token, the
+    decode capacity (8) and the prefill capacity (18, two m16 tiles)."""
+    K = 1408 if transposed else 2048
+    args = _inputs(4, M, K, 48, seed=20 + M, transposed=transposed)
+    assert args[0].dtype == torch.float32
+    assert 0 < int(args[4].sum()) < 4           # both precisions occur
+    planes = TOPS.split_planes(args[0])
+    assert planes.shape == (TOPS.X_PLANES, 4, M, K)
+    torch.testing.assert_close(planes.to(torch.float32).sum(0), args[0],
+                               rtol=0, atol=0)
+    got = _mma_route_emulated(*args, transposed=transposed)
+    ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
+    plain = ref(*args, group_size=32, shift=4)
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["wi", "wo_t"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_planes_route_matches_reference(case, transposed):
+    """The emulated f32 route against the JAX package's wrapper (Pallas
+    interpret mode) on the file's cases, at the reference's kernel
+    tolerance."""
+    E, M, K, N = CASES[case]
+    args = _inputs(E, M, K, N, seed=7, transposed=transposed)
+    want = _jax_wrapper([a.numpy() for a in args], transposed)
+    got = _mma_route_emulated(*args, transposed=transposed).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 @pytest.mark.parametrize("transposed", [False, True], ids=["wi", "wo_t"])
@@ -169,12 +209,30 @@ def test_mma_m_tiles_is_the_fewest_covering(M):
     assert all(16 * t < rows for t in TOPS.MMA_M_TILES if t < m_tiles)
 
 
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 18, 33, 64, 65, 200])
+def test_planes_m_tiles_is_the_fewest_covering(M):
+    """With the three planes of f32 x the batched kernel's block covers
+    min(M, 64), the most that three planes' x tiles allow, and no smaller
+    choice would; one m16 tile of three planes covers 8 rows (hi and mid
+    packed into one tile's rows), more tiles 16 rows each."""
+    planes = TOPS.X_PLANES
+    m_tiles = TOPS.mma_m_tiles(M, planes=planes)
+    rows = min(M, 64)
+    assert [TOPS.mma_rows(t, planes) for t in TOPS.PLANES_M_TILES] \
+        == [8, 32, 64]
+    assert m_tiles in TOPS.PLANES_M_TILES
+    assert TOPS.mma_rows(m_tiles, planes) >= rows
+    assert all(TOPS.mma_rows(t, planes) < rows
+               for t in TOPS.PLANES_M_TILES if t < m_tiles)
+
+
 # --------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version.
 # --------------------------------------------------------------------------
 # On the card also: qwen15-moe-a2.7b's shapes at the decode and prefill
-# capacities, M past the tensor-core kernel's 128-row block (two row
-# tiles), and every expert at one precision.
+# capacities, M past the kernel's largest block (two 128-row tiles with
+# bf16 x, four 64-row tiles of three planes with f32 x), and every expert
+# at one precision.
 GPU_CASES = dict(CASES, full_wi=(60, 8, 2048, 2816), full_wo=(60, 8, 1408, 2048),
                  prefill_wi=(60, 18, 2048, 2816),
                  prefill_wo=(60, 18, 1408, 2048),
@@ -238,5 +296,54 @@ def test_cuda_wrapper_raises_on_bad_input(cuda_device):
     for codes, transposed in ((args[1], False), (codes_t, True)):
         with pytest.raises(ValueError, match="16-byte aligned"):
             TOPS.amat_expert_matmul(xb, codes, *args[2:],
+                                    transposed=transposed)
+    assert TOPS.LAUNCHES.count == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exponent", [-100, -40, 40, 100])
+@pytest.mark.parametrize("M", [8, 18])
+@pytest.mark.parametrize("transposed", [False, True], ids=["wi", "wo_t"])
+def test_cuda_f32_route_holds_wide_exponents(cuda_device, transposed, M,
+                                             exponent):
+    """f32 x with row r of expert e scaled by 2^(exponent + e_r), e_r drawn
+    from -8 to 8: the three bf16 planes carry every bit of x whatever its
+    exponent, so each row stays within the tolerance the unscaled row has,
+    1e-4 * 2^(exponent + e_r) + 1e-4 * |plain| (a power of two scales the
+    plain version exactly).  qwen15-moe-a2.7b's depths at the decode
+    capacity (one m16 tile: the planes packed into two) and the prefill
+    capacity (two m16 tiles)."""
+    E, K, N = (4, 1408, 256) if transposed else (4, 2048, 256)
+    args = _inputs(E, M, K, N, seed=13, transposed=transposed,
+                   device=cuda_device)
+    rows = torch.from_numpy(np.random.default_rng(13).integers(
+        -8, 9, (E, M, 1)).astype(np.float32)).to(cuda_device)
+    row_scale = torch.exp2(rows + exponent)
+    args[0] = (args[0] * row_scale).contiguous()
+    ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
+    plain = ref(*args, group_size=32, shift=4)
+    got = TOPS.amat_expert_matmul(*args, group_size=32, shift=4,
+                                  transposed=transposed)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-4 * row_scale + 1e-4 * plain.abs()
+    err = (got - plain).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.gpu
+def test_cuda_f32_route_refuses_misaligned_x(cuda_device):
+    """The split pass reads f32 x by 16-byte loads: a contiguous f32 view 4
+    bytes off alignment is refused on both layouts before any launch."""
+    args = _inputs(2, 3, 64, 16, seed=0, transposed=False,
+                   device=cuda_device)
+    xf = torch.zeros(2 * 3 * 64 + 1, dtype=torch.float32,
+                     device=cuda_device)[1:].view(2, 3, 64)
+    assert xf.is_contiguous() and xf.data_ptr() % 16
+    codes_t = args[1].transpose(1, 2).contiguous()
+    before = TOPS.LAUNCHES.count
+    for codes, transposed in ((args[1], False), (codes_t, True)):
+        with pytest.raises(ValueError, match="x is not 16-byte aligned"):
+            TOPS.amat_expert_matmul(xf, codes, *args[2:],
                                     transposed=transposed)
     assert TOPS.LAUNCHES.count == before

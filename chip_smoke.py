@@ -63,12 +63,24 @@ it goes, any failure exiting non-zero:
    routing with quantized execution, 4 requests of 128 prompt tokens and
    16 new tokens through the continuous-batching scheduler; the kernel's
    launch count must be 2 x 24 x (prefills + decode steps) and every
-   logit finite.
+   logit finite.  The run is recorded (``repro_torch.sim.TraceRecorder``);
+   the trace, written to ``build/`` and read back, must equal the record
+   and replay (``repro_torch.sim.replay_trace``) to the live run: epoch
+   counts, decode accesses and misses and the miss curve exactly, the
+   ledger at rtol 1e-6.  Replayed on the async timeline, the same trace
+   must keep the energy (rtol 1e-6) and not raise the latency (``[replay]``
+   lines, cost model);
+5b. the same traffic over the same params on the async slice-I/O timeline
+   with request-level prefetch (``prefetch_top_m=4``, lookahead 2, score
+   floor 0.02, PCW warmup): K1 and K2 launched 24 x (4 + 16) times each,
+   every logit finite, every request served in full, and its recorded
+   trace replaying to the live run with the prefetch summary exact
+   (``[serve-async]`` lines).
 
-``--profile`` adds a sixth phase: a second round of the same traffic
-with its decode steps under ``torch.profiler`` (device time and launches
-per step by kernel, the engine's host ranges, the device's busy share).
-Without arguments the script runs phases 1 to 5.
+``--profile`` adds a sixth phase, run between 5 and 5b: a second round of
+the same traffic with its decode steps under ``torch.profiler`` (device
+time and launches per step by kernel, the engine's host ranges, the
+device's busy share).  Without arguments the script runs phases 1 to 5b.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -80,6 +92,7 @@ phase 4's for the f32 rows of K1 and K2; ``graph_ms`` and
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -842,22 +855,31 @@ def phase_small_reference():
             "output_major_f32": launches["output_major"]}
 
 
-def phase_serving(cfg, device: str = "cuda"):
-    from repro_torch.core.amat import MatConfig, slice_nbytes
-    from repro_torch.core.engine import EngineConfig, PersistentEngine
+SERVE_PROMPT, SERVE_NEW, SERVE_REQ = 128, 16, 4
+
+
+def _serve(cfg, params, ecfg, prompts, tag: str, device: str):
+    """Serve ``prompts`` (``SERVE_NEW`` new tokens each) through the
+    continuous-batching scheduler with a trace recorder attached, the
+    launch counts set to 0 just before the run and read just after.
+    Fails unless every request is served in full, every logit is finite
+    and (on the card) K1 and K2 launched once per MoE layer per forward.
+    Returns the run's engine, scheduler, trace and figures."""
+    from repro_torch.core.engine import PersistentEngine
     from repro_torch.kernels.amat_matmul import ops
-    from repro_torch.models.model import init_params
-    from repro_torch.models.moe import RoutingPolicy
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                Request, SchedulerConfig)
+    from repro_torch.sim import TraceRecorder
 
     class CheckedEngine(PersistentEngine):
-        """Records on the card whether every logit it returns is finite."""
+        """Records on the card whether every logit it returns is finite,
+        and counts the decode steps' slice accesses and misses."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.all_finite = torch.ones((), dtype=torch.bool,
                                          device=self.device)
+            self.decode_accesses = self.decode_misses = 0
 
         def run_prefill(self, tokens, **kw):
             logits, kv, info = super().run_prefill(tokens, **kw)
@@ -867,6 +889,8 @@ def phase_serving(cfg, device: str = "cuda"):
         def decode_batch(self, token, kv_cache, **kw):
             logits, kv, charge = super().decode_batch(token, kv_cache, **kw)
             self.all_finite &= torch.isfinite(logits).all()
+            self.decode_accesses += charge.accesses
+            self.decode_misses += charge.misses
             return logits, kv, charge
 
     on_card = device == "cuda"
@@ -875,49 +899,30 @@ def phase_serving(cfg, device: str = "cuda"):
         if on_card:
             torch.cuda.synchronize()
 
-    mat = MatConfig(8, 4)
-    m = cfg.moe
-    per_expert = sum(
-        slice_nbytes(shape, mat.high_bits, mat.group_size, which=w,
-                     shift=mat.shift)
-        for shape in ((cfg.d_model, 2 * m.d_ff), (m.d_ff, cfg.d_model))
-        for w in ("msb", "lsb"))
-    store_bytes = per_expert * cfg.n_layers * m.n_experts
-    prompt_len, new_tokens, n_req = 128, 16, 4
-
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=device)
-    sync()
-    t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    ecfg = EngineConfig(
-        mat=mat, cache_bytes=store_bytes / 4,
-        policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
-                             quant_execution=True),
-        miss_rate_target=0.05, warmup="pcw",
-        max_seq=prompt_len + new_tokens + 1)
     t0 = time.perf_counter()
     engine = CheckedEngine(cfg, params, ecfg, device=device)
     sync()
     t_quant = time.perf_counter() - t0
-    if engine.store.total_bytes() != store_bytes:
-        fail("slice store size differs from its analytic size")
-    say(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{m.n_experts} experts top-{m.top_k}, {n_params / 1e9:.2f} B params "
-        f"in {cfg.dtype}; init {t_init:.1f} s, AMAT quantization "
-        f"{t_quant:.1f} s; slice cache {ecfg.cache_bytes / 1e9:.3f} GB "
-        f"(a quarter of the {store_bytes / 1e9:.3f} GB store)")
-
-    rng = np.random.default_rng(0)
     sched = ContinuousBatchingScheduler(
-        engine, SchedulerConfig(max_batch=4), device=device)
-    for i in range(n_req):
-        sched.submit(Request(
-            request_id=i,
-            prompt=rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32),
-            max_new_tokens=new_tokens))
+        engine, SchedulerConfig(max_batch=SERVE_REQ), device=device)
+    for i, prompt in enumerate(prompts):
+        sched.submit(Request(request_id=i, prompt=prompt,
+                             max_new_tokens=SERVE_NEW))
+    class TimedRecorder(TraceRecorder):
+        """Adds up its own host time: the run's walls include it."""
+        seconds = 0.0
+
+        def on_prefill(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().on_prefill(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def on_decode(self, tr):
+            t0 = time.perf_counter()
+            super().on_decode(tr)
+            self.seconds += time.perf_counter() - t0
+
+    recorder = sched.attach_recorder(TimedRecorder())
 
     sync()
     ops.LAUNCHES.reset()
@@ -927,15 +932,121 @@ def phase_serving(cfg, device: str = "cuda"):
     wall = time.perf_counter() - t0
     launches = {k: ops.LAUNCHES.by_key[k]
                 for k in ("k_major", "output_major")}
+    n_prefill, n_steps = len(sched.wall_prefill_s), len(sched.wall_step_s)
+    want = cfg.n_layers * (n_prefill + n_steps)
+    say(f"[{tag}] kernel launches: {launches} (want {want} each, "
+        f"{2 * want} in all)")
+    if len(completions) != len(prompts) or any(
+            len(c.tokens) != SERVE_NEW for c in completions):
+        fail(f"{tag}: not every request was served in full")
+    if on_card and (launches["k_major"] != want
+                    or launches["output_major"] != want):
+        fail(f"{tag}: the main path did not launch the kernel once per MoE "
+             "layer projection per forward pass")
+    if not bool(engine.all_finite):
+        fail(f"{tag}: non-finite logits")
+    return {"engine": engine, "sched": sched, "completions": completions,
+            "launches": launches, "wall": wall, "t_quant": t_quant,
+            "trace": recorder.trace(), "record_s": recorder.seconds}
+
+
+def _check_replay(run, tag: str, path: str):
+    """The recorded trace through a file, replayed by ``repro_torch.sim``:
+    it must equal the live run (epoch counts, decode accesses and misses,
+    the miss curve and the prefetch summary exactly; every ledger figure
+    at rtol 1e-6).  Returns the replay's report."""
+    from repro_torch.sim import Trace, replay_trace, traces_equal
+
+    engine, sched = run["engine"], run["sched"]
+    t0 = time.perf_counter()
+    loaded = Trace.load(run["trace"].save(path))
+    if not traces_equal(loaded, run["trace"]):
+        fail(f"{tag}: the trace read back from {path} differs")
+    rep = replay_trace(loaded)
+    wall = time.perf_counter() - t0
+    live = engine.ledger.snapshot()
+    off = [k for k in live if not (rep.ledger[k] == live[k] or abs(
+        rep.ledger[k] - live[k]) <= 1e-6 * max(abs(rep.ledger[k]),
+                                               abs(live[k])))]
+    pf_live = (engine.prefetcher.summary()
+               if engine.prefetcher is not None else None)
+    say(f"[replay] {tag}: {loaded.n_prefills} prefills, "
+        f"{loaded.n_decode_steps} decode steps, "
+        f"{os.path.getsize(path)} bytes, replayed in {wall:.2f} s (host)")
+    say(f"[replay] {tag}: decode accesses/misses replay "
+        f"{rep.decode_accesses}/{rep.decode_misses}, live "
+        f"{engine.decode_accesses}/{engine.decode_misses}; energy replay "
+        f"{rep.total_energy_j!r} J, live {live['total_energy_j']!r} J; "
+        f"latency replay {rep.total_latency_s!r} s, live "
+        f"{live['total_latency_s']!r} s (cost model)")
+    if rep.epoch_counts != engine.cache.epoch_counts():
+        fail(f"{tag}: replayed epoch counts differ from the live run")
+    if (rep.decode_accesses, rep.decode_misses) != (
+            engine.decode_accesses, engine.decode_misses):
+        fail(f"{tag}: replayed decode accesses/misses differ")
+    if rep.miss_curve != sched.telemetry.miss_rate_curve():
+        fail(f"{tag}: replayed miss curve differs from the live run")
+    if rep.prefetch != pf_live:
+        fail(f"{tag}: replayed prefetch summary {rep.prefetch} differs "
+             f"from the live {pf_live}")
+    if off:
+        fail(f"{tag}: replayed ledger differs from the live one at "
+             f"{off}")
+    return rep
+
+
+def phase_serving(cfg, device: str = "cuda"):
+    from repro_torch.core.amat import MatConfig, slice_nbytes
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe import RoutingPolicy
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.sim import replay_trace
+
+    on_card = device == "cuda"
+    mat = MatConfig(8, 4)
+    m = cfg.moe
+    per_expert = sum(
+        slice_nbytes(shape, mat.high_bits, mat.group_size, which=w,
+                     shift=mat.shift)
+        for shape in ((cfg.d_model, 2 * m.d_ff), (m.d_ff, cfg.d_model))
+        for w in ("msb", "lsb"))
+    store_bytes = per_expert * cfg.n_layers * m.n_experts
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    ecfg = EngineConfig(
+        mat=mat, cache_bytes=store_bytes / 4,
+        policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
+                             quant_execution=True),
+        miss_rate_target=0.05, warmup="pcw",
+        max_seq=SERVE_PROMPT + SERVE_NEW + 1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQ)]
+    run = _serve(cfg, params, ecfg, prompts, "serve", device)
+    engine, sched = run["engine"], run["sched"]
+    if engine.store.total_bytes() != store_bytes:
+        fail("slice store size differs from its analytic size")
+    say(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{m.n_experts} experts top-{m.top_k}, {n_params / 1e9:.2f} B params "
+        f"in {cfg.dtype}; init {t_init:.1f} s, AMAT quantization "
+        f"{run['t_quant']:.1f} s; slice cache {ecfg.cache_bytes / 1e9:.3f} GB "
+        f"(a quarter of the {store_bytes / 1e9:.3f} GB store)")
 
     def new_requests(n_new):
         return [Request(request_id=100 + i,
                         prompt=rng.integers(0, cfg.vocab_size,
-                                            prompt_len).astype(np.int32),
-                        max_new_tokens=n_new) for i in range(n_req)]
+                                            SERVE_PROMPT).astype(np.int32),
+                        max_new_tokens=n_new) for i in range(SERVE_REQ)]
 
-    n_prefill, n_steps = len(sched.wall_prefill_s), len(sched.wall_step_s)
-    for c in sorted(completions, key=lambda c: c.request_id):
+    for c in sorted(run["completions"], key=lambda c: c.request_id):
         dt = c.metrics["decode_totals"]
         cs = c.metrics["cache_stats"]
         acc = cs["msb_hits"] + cs["msb_misses"] + cs["lsb_hits"] \
@@ -947,12 +1058,16 @@ def phase_serving(cfg, device: str = "cuda"):
             f"{dt['flash_bytes']:.6g} B, dram {dt['dram_bytes']:.6g} B "
             f"(mobile_soc cost model); cache_stats miss rate {miss:.4f} "
             f"({acc} accesses)")
-    say(f"[serve] {n_prefill} prefills, {n_steps} decode steps, wall "
-        f"{wall:.2f} s; wall per prefill (s) "
+    say(f"[serve] {len(sched.wall_prefill_s)} prefills, "
+        f"{len(sched.wall_step_s)} decode steps, wall {run['wall']:.2f} s; "
+        f"wall per prefill (s) "
         f"{[round(s, 4) for s in sched.wall_prefill_s]}; wall per decode "
         f"step: median {np.median(sched.wall_step_s):.4f} s, "
         f"min {min(sched.wall_step_s):.4f} s, max "
         f"{max(sched.wall_step_s):.4f} s")
+    say(f"[serve] the walls include the trace recorder's host time: "
+        f"{run['record_s']:.6f} s in the run's wall, "
+        f"{run['record_s'] / run['wall']:.3%} of it")
     if on_card:
         say(f"[serve] max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -960,19 +1075,77 @@ def phase_serving(cfg, device: str = "cuda"):
     say(f"[serve] fleet: {summary['n_tokens']} tokens, mean miss rate "
         f"{summary['mean_miss_rate']:.4f}, steady-state miss rate "
         f"{summary['steady_state_miss_rate']:.4f}")
-    want = cfg.n_layers * (n_prefill + n_steps)
-    say(f"[serve] kernel launches: {launches} (want {want} each, "
-        f"{2 * want} in all)")
-    if len(completions) != n_req or any(
-            len(c.tokens) != new_tokens for c in completions):
-        fail("not every request was served in full")
-    if on_card and (launches["k_major"] != want
-                    or launches["output_major"] != want):
-        fail("the main path did not launch the kernel once per MoE layer "
-             "projection per forward pass")
-    if not bool(engine.all_finite):
-        fail("non-finite logits")
-    return launches, engine, new_requests, float(np.median(sched.wall_step_s))
+
+    # The recorded trace: a file, a replay equal to the live run, and the
+    # same trace on the async timeline, which must keep the energy and
+    # not raise the latency (the reference's timeline invariant).
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    rep = _check_replay(run, "serve",
+                        os.path.join(HERE, "build", "serve_trace.npz"))
+    asyn = replay_trace(run["trace"], async_io=True)
+    de = abs(asyn.total_energy_j - rep.total_energy_j) \
+        / rep.total_energy_j
+    say(f"[replay] serve on the async timeline: energy "
+        f"{asyn.total_energy_j!r} J (rel diff {de:.2e} from the serialized "
+        f"replay), latency {asyn.total_latency_s!r} s against "
+        f"{rep.total_latency_s!r} s, overlap_saved_s "
+        f"{asyn.ledger['overlap_saved_s']!r} (cost model)")
+    if de > 1e-6 or asyn.total_latency_s > rep.total_latency_s:
+        fail("the async replay changed the energy or raised the latency")
+    p5 = {"energy_j": rep.total_energy_j, "latency_s": rep.total_latency_s,
+          "cache_bytes": ecfg.cache_bytes}
+    return (run["launches"], engine, new_requests,
+            float(np.median(sched.wall_step_s)), params, prompts, p5)
+
+
+def phase_serving_async(cfg, params, prompts, p5, device: str = "cuda"):
+    """Phase 5b: phase 5's traffic over phase 5's params again, on the
+    async slice-I/O timeline with request-level prefetch (the golden
+    ``request_prefetch`` knobs, PCW warmup).  Its recorded trace must
+    replay to the live run, prefetch counters included."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models.moe import RoutingPolicy
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mat = MatConfig(8, 4)
+    ecfg = EngineConfig(
+        mat=mat, cache_bytes=p5["cache_bytes"],
+        policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
+                             quant_execution=True),
+        miss_rate_target=0.05, warmup="pcw",
+        max_seq=SERVE_PROMPT + SERVE_NEW + 1, async_io=True,
+        prefetch_top_m=4, prefetch_kind="request", prefetch_lookahead=2,
+        prefetch_min_score=0.02)
+    run = _serve(cfg, params, ecfg, prompts, "serve-async", device)
+    sched = run["sched"]
+    rep = _check_replay(run, "serve-async",
+                        os.path.join(HERE, "build", "serve_async_trace.npz"))
+    live = run["engine"].ledger.snapshot()
+    say(f"[serve-async] prefetch: {rep.prefetch}")
+    say(f"[serve-async] energy {live['total_energy_j']!r} J, latency "
+        f"{live['total_latency_s']!r} s, overlap_saved_s "
+        f"{live['overlap_saved_s']!r}, prefetch fills "
+        f"{live['n_prefetch_fills']}, wasted prefetch energy "
+        f"{live['prefetch_wasted_energy_j']!r} J; phase 5 (serialized, no "
+        f"prefetch): energy {p5['energy_j']!r} J, latency "
+        f"{p5['latency_s']!r} s (cost model)")
+    say(f"[serve-async] {len(sched.wall_prefill_s)} prefills, "
+        f"{len(sched.wall_step_s)} decode steps, wall {run['wall']:.2f} s; "
+        f"wall per decode step: median {np.median(sched.wall_step_s):.4f} "
+        f"s, min {min(sched.wall_step_s):.4f} s, max "
+        f"{max(sched.wall_step_s):.4f} s; recorder host time "
+        f"{run['record_s']:.6f} s ({run['record_s'] / run['wall']:.3%} "
+        "of the wall)")
+    if on_card:
+        say(f"[serve-async] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    p = rep.prefetch
+    if p["in_flight"] or p["issued"] != p["useful"] + p["late"] + p["wasted"]:
+        fail(f"serve-async: prefetch outcomes do not partition: {p}")
+    return run["launches"]
 
 
 def phase_profile(engine, new_requests, wall_step_s):
@@ -1043,10 +1216,17 @@ def main() -> None:
     launches = phase_slice_path(cfg)
     launches.update(phase_f32_path(cfg))
     launches.update(phase_small_reference())
-    serve_launches, engine, new_requests, wall_step = phase_serving(cfg)
+    serve_launches, engine, new_requests, wall_step, params, prompts, p5 = \
+        phase_serving(cfg)
     launches.update(serve_launches)     # k_major and output_major
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, new_requests, wall_step)
+    # Phase 5b builds its engine over the same params: release phase 5's
+    # codes and caches first, so the peak stays near phase 5's.
+    del engine, new_requests
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serving_async(cfg, params, prompts, p5)
     amat_src = "src/repro_torch/kernels/amat_matmul/csrc/amat_batched_matmul.cu"
     kernels = []
     for variant, key, source, replaces in (

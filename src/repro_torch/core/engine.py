@@ -1,4 +1,4 @@
-"""SliceMoE inference engine (port of ``repro.core.engine``, sync path).
+"""SliceMoE inference engine (port of ``repro.core.engine``).
 
 Runs the PyTorch MoE model token by token while simulating the DRAM/Flash
 offload hierarchy.  Per decode step:
@@ -20,12 +20,16 @@ quantized store, slice cache, hotness tracker, ledger) and per-request
 state (KV cache, controller ``alpha``); :class:`SliceMoEEngine` is the
 single-request API.
 
-This slice ports the serialized (sync) charge path on one device.  The
-knobs of the parts still in the queue (``ep_shards > 1``,
-``prefetch_top_m``, ``async_io``, an SLO ``controller``, ``buddy``
-routing, the ``tpu_offload`` profile) raise ``NotImplementedError``
-naming their ROADMAP.md item; the remaining reference knobs (prefetch
-predictor settings, placement policies) arrive with those items.
+The charge path is ported on one device in both disciplines: serialized
+(``async_io=False``) and the event-timeline pipeline (``async_io=True``),
+each with the configured expert prefetcher (``prefetch_top_m``,
+:mod:`repro_torch.core.prefetch`).  It consumes only routing arrays, so
+:class:`repro_torch.sim.replay.ReplayEngine` drives the same methods from
+a recorded or synthetic trace (``recorder`` captures one from a live
+run).  The knobs of the parts still in the queue (``ep_shards > 1``, an
+SLO ``controller``, placement policies, ``buddy`` routing, the
+``tpu_offload`` profile) raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 
 ``run_prefill`` and ``decode_batch`` mark their model forward and their
 charge path as ``torch.profiler`` ranges (``slicemoe.prefill_forward``,
@@ -46,6 +50,7 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amat import MatConfig
 from repro_torch.core.cache import SliceCache
+from repro_torch.core.prefetch import RequestPrefetcher, TransitionPrefetcher
 from repro_torch.core.routing import MissRateController
 from repro_torch.core.slices import SliceKey, quantize_moe_params
 from repro_torch.core.warmup import HotnessTracker, INIT_STATES, pcw_reshape
@@ -69,16 +74,48 @@ class EngineConfig:
     max_seq: int = 256
     # Whole-expert caching (high-bit baseline): both slices move together.
     fused_slices: bool = False
-    # Layer-transition prefetching; None disables (the only value ported).
+    # Layer-transition expert prefetching (the paper's §2.1 baseline):
+    # pull the top-m predicted next-layer experts into DRAM per layer.
+    # None disables.
     prefetch_top_m: Optional[int] = None
-    # Asynchronous slice-I/O timeline; False (serialized) is ported.
+    # Asynchronous slice-I/O timeline: replay decode as a per-expert
+    # fill -> DRAM-read -> matmul pipeline over the ledger's channel
+    # clocks (Flash / DRAM / XPU), with prefetch fills issued behind
+    # demand fills on the Flash channel.  False reproduces the
+    # serialized (paper Figs. 9-10) accounting exactly.
     async_io: bool = False
     # Cross-request hotness aging at each request boundary.
     hotness_request_decay: float = 0.5
     # Expert-parallel shards; 1 (one device) is ported.
     ep_shards: int = 1
+    # Prefetch confidence floor: a target layer must have been observed
+    # at least this many times before the prefetcher issues fills for it
+    # (0 = issue immediately).  Suppresses cold-start blind fills that
+    # burn Flash energy.  Applies to both predictor kinds (the
+    # transition baseline reads it as its min_transitions).
+    prefetch_min_obs: int = 0
+    # Which predictor drives prefetch_top_m:
+    #   'request'    — request-level activation matrices with cyclic
+    #                  multi-layer-ahead targets (MoE-Infinity style;
+    #                  the only kind that can land fills in time in the
+    #                  I/O-bound decode regime);
+    #   'transition' — the single-step Markov baseline (paper §2.1).
+    prefetch_kind: str = "request"
+    # Request predictor: how many layers ahead plan() may target
+    # (cyclic — distances past the end of the step wrap to the next
+    # decode step, which is where the real slack is).
+    prefetch_lookahead: int = 2
+    # Request predictor: activation-share floor below which a candidate
+    # is never issued (shares sum to <= 1 across experts).
+    prefetch_min_score: float = 0.02
     # Online SLO controller; None (static policy) is ported.
     controller: Optional[object] = None
+    # Expert placement across EP shards, its re-placement period in
+    # decode steps and its replication count; only the defaults
+    # (round-robin, never migrating, no replicas) are ported.
+    placement: str = "round_robin"
+    placement_period: int = 64
+    replicate_k: int = 0
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for settings of unported parts."""
@@ -87,11 +124,11 @@ class EngineConfig:
             todo.append("ep_shards > 1 (queue 1, 'EP, placement, control')")
         if self.controller is not None:
             todo.append("controller (queue 1, 'EP, placement, control')")
-        if self.prefetch_top_m:
-            todo.append("prefetch_top_m (queue 1, 'async timeline and "
-                        "prefetch')")
-        if self.async_io:
-            todo.append("async_io (queue 1, 'async timeline and prefetch')")
+        for knob, default in (("placement", "round_robin"),
+                              ("placement_period", 64), ("replicate_k", 0)):
+            if getattr(self, knob) != default:
+                todo.append(f"{knob}={getattr(self, knob)!r} (queue 1, "
+                            "'EP, placement, control')")
         if self.policy.kind == "buddy":
             todo.append("policy.kind='buddy' (queue 1, 'buddy routing')")
         if self.system not in SYSTEM_PROFILES:
@@ -107,6 +144,26 @@ class EngineConfig:
 
     def ledger(self) -> CostLedger:
         return CostLedger(system=SYSTEM_PROFILES[self.system])
+
+    def build_prefetcher(self, n_layers: int, n_experts: int):
+        """The configured predictor (or None) — one factory shared by
+        the live engine and the trace-replay engine so a sweep toggling
+        ``prefetch_kind`` exercises the identical construction."""
+        if not self.prefetch_top_m:
+            return None
+        if self.prefetch_kind == "transition":
+            return TransitionPrefetcher(
+                n_layers, n_experts, top_m=self.prefetch_top_m,
+                min_transitions=self.prefetch_min_obs)
+        if self.prefetch_kind == "request":
+            return RequestPrefetcher(
+                n_layers, n_experts, top_m=self.prefetch_top_m,
+                lookahead=self.prefetch_lookahead,
+                min_obs=self.prefetch_min_obs,
+                min_score=self.prefetch_min_score)
+        raise ValueError(
+            f"unknown prefetch_kind {self.prefetch_kind!r}; "
+            "expected 'request' or 'transition'")
 
 
 @dataclasses.dataclass
@@ -220,8 +277,23 @@ class PersistentEngine:
         self.ledger = ecfg.ledger()
         self.tracker = HotnessTracker(self.n_moe_layers, self.n_experts)
         self.requests_served = 0
+        # Optional routing-trace recorder (repro_torch.sim.trace.
+        # TraceRecorder): when attached, every prefill's and decode
+        # step's routing arrays are captured for offline replay.
+        self.recorder = None
+        # Timeline tracer hook (ROADMAP.md queue 1, 'Observability'):
+        # nothing attaches one yet.
+        self.tracer = None
         self.moe_positions = [i for i, s in enumerate(cfg.block_pattern)
                               if s.ffn == "moe"]
+        self.prefetcher = ecfg.build_prefetcher(
+            self.n_moe_layers, self.n_experts)
+        # Prefetches in flight across decode steps: target flat layer ->
+        # {SliceKey: (ready_t, nbytes, distance)}.  The request
+        # predictor's cyclic targets judge at the *next* execution of
+        # the target layer, which may be next step — state must outlive
+        # a single charge_step_trace call.
+        self._pf_pending: dict = {}
         # Prefill routes with the configured policy only when it is
         # state-free (cumsum); compute stays high-bit either way.
         self._prefill_policy = ecfg.policy \
@@ -317,6 +389,10 @@ class PersistentEngine:
             active = h.get("active")
             if active is not None and active.all():
                 active = None
+            if self.recorder is not None:
+                self.recorder.on_prefill(h["ids"], h["gates"], active=active,
+                                         label=label, inflight=inflight,
+                                         tenant=tenant)
             self._charge_prefill(h["ids"], h["gates"], active)
             info = self._finish_prefill(label)
         return logits, kv_cache, info
@@ -329,6 +405,10 @@ class PersistentEngine:
             decay = self.ecfg.hotness_request_decay \
                 ** (1.0 / (1.0 + max(inflight, 0)))
             self.tracker.begin_request(decay)
+            if self.prefetcher is not None:
+                # Request-level predictor state ages on the same schedule
+                # as cache hotness (no-op on the transition baseline).
+                self.prefetcher.begin_request(decay)
         self.requests_served += 1
         if label is not None:
             self.cache.begin_epoch(f"{label}/prefill")
@@ -350,6 +430,12 @@ class PersistentEngine:
                 sel_ids = ids[period, pidx][a2d]
                 sel_gates = gates[period, pidx][a2d]
                 self.tracker.observe(lidx, sel_ids, sel_gates)
+                if self.prefetcher is not None:
+                    # Seed the request-level activation matrix from
+                    # prompt routing (no-op on the transition baseline).
+                    self.prefetcher.observe_prefill(
+                        lidx, sel_ids, sel_gates,
+                        n_tokens=int(a2d.any(axis=1).sum()))
                 for e in np.unique(sel_ids):
                     for kind in ("msb", "lsb"):   # prefill is high-bit
                         key = SliceKey(lidx, int(e), kind)
@@ -374,6 +460,10 @@ class PersistentEngine:
         else:
             INIT_STATES[self.ecfg.warmup](self.cache, self.store)
             warmup_summary = {"init": self.ecfg.warmup}
+        # Admission-time prefetch: issue from the prompt-seeded activation
+        # matrix now that the reshape has settled residency (no-op for
+        # the transition baseline and with prefetch off).
+        self._prefetch_issue_prefill()
         snapshot = self.ledger.snapshot()
         if label is not None:
             self.cache.begin_epoch(f"{label}/decode")
@@ -437,10 +527,48 @@ class PersistentEngine:
             _StepTrace.from_aux(aux, slot_active, slot_tenants))
 
     def charge_step_trace(self, tr: _StepTrace) -> StepCharge:
-        """Charge an already-assembled :class:`_StepTrace` (serialized
-        issue: every Flash fill, DRAM read and matmul blocks the
-        timeline)."""
-        return self._charge_sync(tr)
+        """Charge an already-assembled :class:`_StepTrace`.
+
+        The model-free entry point shared by the live engine (which
+        builds the trace from the forward's routing aux) and the
+        trace-replay simulator (which builds it from a recorded or
+        synthetic trace): both run the identical cache/ledger replay.
+
+        * ``async_io=False`` — serialized issue: every Flash fill, DRAM
+          read and matmul blocks the timeline;
+        * ``async_io=True`` — a double-buffered layer pipeline: each
+          expert's fill → DRAM read → matmul chain is issued with real
+          data dependencies on the per-channel clocks, prefetch fills
+          ride the Flash channel behind demand fills, and only the layer
+          that consumes a late slice stalls.
+        """
+        if self.recorder is not None:
+            self.recorder.on_decode(tr)
+        replay = self._charge_async if self.ecfg.async_io \
+            else self._charge_sync
+        return replay(tr)
+
+    # ------------------------------------------- one-device routing bits
+    # The reference dispatches these on its sharded ledger and cache;
+    # on one device each has its single-shard form.  Expert parallelism
+    # (ROADMAP.md queue 1, 'EP, placement, control') fills in the bodies.
+    def _ledger_for(self, lidx: int, expert: int) -> CostLedger:
+        """The cost ledger owning ``expert``'s slices at ``lidx``."""
+        return self.ledger
+
+    def _compute_frontier(self) -> float:
+        return self.ledger.compute_ch.busy_until
+
+    def _segment_capacity(self, key: SliceKey) -> float:
+        """Capacity of the cache segment that would hold ``key`` (the
+        "would this fill be dropped" bound)."""
+        return self.cache.capacity
+
+    def _layer_a2a_demand(self, tr: _StepTrace, period: int, pidx: int,
+                          lidx: int):
+        """All-to-all dispatch demand ``(bytes, remote_experts)`` of one
+        layer: none on one device."""
+        return 0.0, frozenset()
 
     # -------------------------------------------------- shared replay bits
     def _slice_nbytes(self, key: SliceKey) -> float:
@@ -476,6 +604,136 @@ class PersistentEngine:
             return mat.low_bits
         return mat.high_bits if lsb_available else mat.low_bits  # dbsc
 
+    def _msb_resident_row(self, lidx: int) -> np.ndarray:
+        """[E] bool: experts whose MSB slice for ``lidx`` is cached."""
+        row = np.zeros(self.n_experts, bool)
+        for e in range(self.n_experts):
+            row[e] = SliceKey(lidx, e, "msb") in self.cache
+        return row
+
+    # ------------------------------------------- request-kind prefetch bits
+    def _pf_pending_keys(self) -> set:
+        keys: set = set()
+        for m in self._pf_pending.values():
+            keys.update(m)
+        return keys
+
+    def _lsb_prefetch_allowed(self) -> bool:
+        """Whether LSB slices are worth prefetching: DBSC mode only (other
+        modes never demand LSBs separately).  The reference also refuses
+        when an SLO controller has demoted every active slot; the
+        controller is not ported."""
+        return self.ecfg.policy.slice_mode == "dbsc" \
+            and not self.ecfg.fused_slices
+
+    def _prefetch_judge(self, lidx: int, msb_demand: np.ndarray,
+                        lsb_wanted: set, t_route: float) -> None:
+        """Judge pending prefetches targeting ``lidx`` against the
+        layer's actual demand, *before* demand charging mutates the
+        cache.  Kind-aware: an LSB fill is useful only if the layer
+        wanted that expert's LSB.  ``t_route`` is the usefulness bar
+        (serialized replay passes 0.0 — fills land instantly there).
+
+        A pending entry survives un-demanded as long as it stays
+        resident; it is wasted when evicted unused or still unused when
+        the run flushes (:meth:`_prefetch_flush`).  Conservation
+        ``issued == useful + late + wasted + in_flight`` holds
+        throughout."""
+        pf = self.prefetcher
+        demanded = set(int(e) for e in msb_demand)
+        survivors = {}
+        for key, (ready_t, p_nb, d) in \
+                self._pf_pending.pop(lidx, {}).items():
+            if key not in self.cache:        # evicted before use
+                pf.mark_wasted(distance=d)
+                self._ledger_for(key.layer,
+                                 key.expert).mark_prefetch_wasted(p_nb)
+            elif (key.expert in demanded if key.kind == "msb"
+                  else key.expert in lsb_wanted):
+                if ready_t <= t_route:
+                    pf.mark_useful(distance=d)
+                else:
+                    pf.mark_late(distance=d)
+            else:                            # resident, un-demanded: wait
+                survivors[key] = (ready_t, p_nb, d)
+        if survivors:
+            self._pf_pending[lidx] = survivors
+
+    def _prefetch_flush(self) -> None:
+        """End-of-run settlement for the request-kind predictor: any
+        pending fill still unused is wasted, exactly like an eviction
+        before use.  Afterwards ``issued == useful + late + wasted`` and
+        ``in_flight`` is zero."""
+        pf = self.prefetcher
+        if pf is None or pf.kind != "request":
+            return
+        for m in self._pf_pending.values():
+            for key, (ready_t, p_nb, d) in m.items():
+                pf.mark_wasted(distance=d)
+                self._ledger_for(key.layer,
+                                 key.expert).mark_prefetch_wasted(p_nb)
+        self._pf_pending.clear()
+
+    def _prefetch_issue(self, lidx: int, flat_ids: np.ndarray,
+                        t_issue: float, *, timeline: bool) -> None:
+        """Plan + enqueue request-predictor fills after ``lidx`` routed.
+
+        Fills ride the Flash background lane behind the layer's demand
+        fills (``timeline=True``) or charge the serialized accounting
+        (``timeline=False``).  Capacity-skipped candidates never count as
+        issued — they moved no bytes."""
+        pf = self.prefetcher
+        cands = pf.plan(
+            lidx, flat_ids,
+            is_resident=lambda k: k in self.cache,
+            slice_bytes=self._slice_nbytes,
+            pending=self._pf_pending_keys(),
+            lsb_allowed=self._lsb_prefetch_allowed())
+        for key, d in cands:
+            nb = self._slice_nbytes(key)
+            if key in self.cache or nb > self._segment_capacity(key):
+                continue
+            led = self._ledger_for(key.layer, key.expert)
+            if timeline:
+                # Background-priority lane: speculative fills never
+                # delay the demand queue (demand preempts).
+                _, end = led.prefetch_fill_at(t_issue, nb)
+                self.cache.insert(key, nb)
+                self.cache.mark_inflight(key, end)
+            else:
+                led.prefetch_fill_at(None, nb)
+                self.cache.insert(key, nb)
+                end = 0.0
+            self._pf_pending.setdefault(key.layer, {})[key] = \
+                (end, nb, d)
+            pf.mark_issued(distance=d)
+
+    def _prefetch_issue_prefill(self) -> None:
+        """Admission-time issuance: once per request, after the prefill
+        charge seeded the activation matrix and the warmup reshape
+        settled residency.  Fills charge the serialized accounting —
+        prefill is off the decode timeline in both engine modes — so
+        ``ready_t = 0.0`` at the first decode judge of a sync run."""
+        pf = self.prefetcher
+        if pf is None or pf.kind != "request" or not pf.top_m:
+            return
+        cands = pf.plan_prefill(
+            is_resident=lambda k: k in self.cache,
+            slice_bytes=self._slice_nbytes,
+            pending=self._pf_pending_keys())
+        for key, d in cands:
+            nb = self._slice_nbytes(key)
+            if key in self.cache or nb > self._segment_capacity(key):
+                continue
+            _, end = self._ledger_for(key.layer,
+                                      key.expert).prefetch_fill_at(None, nb)
+            self.cache.insert(key, nb)
+            if not self.ecfg.async_io:
+                end = 0.0    # serialized judge bar is t_route == 0.0
+            self._pf_pending.setdefault(key.layer, {})[key] = \
+                (end, nb, d)
+            pf.mark_issued(distance=d)
+
     def _attribute_slot_misses(self, tr: _StepTrace, period: int, pidx: int,
                                missed_expert: np.ndarray) -> None:
         """Charge each slot for every selection that landed on an expert
@@ -510,43 +768,45 @@ class PersistentEngine:
             per_tenant=self._per_tenant_counts(tr),
         )
 
-    # ----------------------------------------- serialized (sync) replay
+    # ----------------------------------------- per-expert charge kernels
+    # Both take the cache segment and ledger they charge explicitly, as
+    # the reference's do (one pair per shard under expert parallelism).
     def _charge_expert_sync(self, tr: _StepTrace, lidx: int, e: int,
-                            ntok: int, lsb_wanted: set) -> bool:
-        """Slice demand + matmul for one expert.  Returns whether any of
-        its slices missed."""
-        cache, led = self.cache, self.ledger
+                            cache_seg, led: CostLedger, ntok: int,
+                            lsb_wanted: set) -> bool:
+        """Serialized-issue slice demand + matmul for one expert.
+        Returns whether any of its slices missed."""
         missed = False
         key = SliceKey(lidx, e, "msb")
         nb = self._slice_nbytes(key)
-        hit = cache.access(key, nb)
+        hit = cache_seg.access(key, nb)
         tr.accesses += 1
         if not hit:
             tr.misses += 1
             missed = True
-            if key in cache:           # fill landed
+            if key in cache_seg:       # fill landed
                 led.miss_fill(nb)
             else:                      # dropped: direct stream
                 led.flash_stream(nb)
-        if hit or key in cache:
+        if hit or key in cache_seg:
             led.dram_read(nb)
         lsb_available = False
         if e in lsb_wanted and not self.ecfg.fused_slices:
             fetch = self.ecfg.policy.fetch_lsb_on_miss
             lkey = SliceKey(lidx, e, "lsb")
             lnb = self.store.slice_bytes(lkey)
-            lhit = cache.access(lkey, lnb, fill_on_miss=fetch)
+            lhit = cache_seg.access(lkey, lnb, fill_on_miss=fetch)
             tr.accesses += 1
             if not lhit:
                 tr.misses += 1
                 missed = True
                 if fetch:
-                    if lkey in cache:
+                    if lkey in cache_seg:
                         led.miss_fill(lnb)
                     else:
                         led.flash_stream(lnb)
             if lhit or fetch:
-                if lhit or lkey in cache:
+                if lhit or lkey in cache_seg:
                     led.dram_read(lnb)
                 lsb_available = True
         led.matmul(ntok, self.cfg.d_model,
@@ -554,21 +814,129 @@ class PersistentEngine:
                    self._expert_bits(lsb_available))
         return missed
 
+    def _charge_expert_async(self, tr: _StepTrace, lidx: int, e: int,
+                             cache_seg, led: CostLedger, ntok: int,
+                             lsb_wanted: set, t_route: float,
+                             t_disp: Optional[float] = None) -> bool:
+        """Event-timeline fill → read → matmul chain for one expert.
+        ``t_disp``: all-to-all completion the matmul must additionally
+        wait for (remote experts only).  Returns whether any of its
+        slices missed."""
+        missed = False
+        key = SliceKey(lidx, e, "msb")
+        nb = self._slice_nbytes(key)
+        hit = cache_seg.access(key, nb)
+        tr.accesses += 1
+        if hit:
+            # wait out an in-flight (prefetched) transfer
+            t_data = max(t_route, cache_seg.ready_time(key))
+            _, t_data = led.dram_read_at(t_data, nb)
+        else:
+            tr.misses += 1
+            missed = True
+            if key in cache_seg:        # fill landed
+                _, fill_end = led.fill_at(t_route, nb)
+                cache_seg.mark_inflight(key, fill_end)
+                _, t_data = led.dram_read_at(fill_end, nb)
+            else:                       # dropped: direct stream
+                _, t_data = led.flash_stream_at(t_route, nb)
+        lsb_available = False
+        if e in lsb_wanted and not self.ecfg.fused_slices:
+            fetch = self.ecfg.policy.fetch_lsb_on_miss
+            lkey = SliceKey(lidx, e, "lsb")
+            lnb = self.store.slice_bytes(lkey)
+            lhit = cache_seg.access(lkey, lnb, fill_on_miss=fetch)
+            tr.accesses += 1
+            if lhit:
+                t_lsb = max(t_route, cache_seg.ready_time(lkey))
+                _, t_lsb = led.dram_read_at(t_lsb, lnb)
+                t_data = max(t_data, t_lsb)
+                lsb_available = True
+            else:
+                tr.misses += 1
+                missed = True
+                if fetch:
+                    if lkey in cache_seg:
+                        _, lf_end = led.fill_at(t_route, lnb)
+                        cache_seg.mark_inflight(lkey, lf_end)
+                        _, t_lsb = led.dram_read_at(lf_end, lnb)
+                    else:
+                        _, t_lsb = led.flash_stream_at(t_route, lnb)
+                    t_data = max(t_data, t_lsb)
+                    lsb_available = True
+        led.matmul_at(
+            t_data if t_disp is None else max(t_data, t_disp),
+            ntok, self.cfg.d_model,
+            self.expert_macs_per_token // self.cfg.d_model,
+            self._expert_bits(lsb_available))
+        return missed
+
+    # -------------------------------------------- serialized (sync) replay
     def _charge_sync(self, tr: _StepTrace) -> StepCharge:
         base = self.ledger.snapshot()
+        pf = self.prefetcher
+        pf_req = pf is not None and pf.kind == "request"
+        prev_used = None
         for period in range(tr.P):
             for pidx, pos in enumerate(self.moe_positions):
                 lidx = self.layer_map[(pos, period)]
+                # --- transition prefetch (paper §2.1 baseline): before
+                # this layer runs, the predictor has pulled its guesses
+                # into DRAM.  Residency-filtered, so every prediction is
+                # a real fill; capacity-skipped ones moved no bytes and
+                # do not count as issued.
+                issued = None
+                if pf is not None and not pf_req \
+                        and prev_used is not None:
+                    predicted = pf.predict(
+                        lidx - 1, prev_used,
+                        resident=self._msb_resident_row(lidx))
+                    issued = set()
+                    for e in predicted:
+                        key = SliceKey(lidx, int(e), "msb")
+                        nb = self._slice_nbytes(key)
+                        if key not in self.cache \
+                                and nb <= self._segment_capacity(key):
+                            self._ledger_for(lidx, int(e)).miss_fill(
+                                nb, prefetch=True)
+                            self.cache.insert(key, nb)
+                            issued.add(int(e))
+                    pf.mark_issued(len(issued))
                 flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e = \
                     self._layer_demand(tr, period, pidx)
                 self.tracker.observe(lidx, flat_ids, flat_gates)
+                if pf_req:
+                    # Serialized fills land instantly, so a correct
+                    # prediction that survived until its target layer is
+                    # useful by definition (bar t_route=0).
+                    self._prefetch_judge(lidx, msb_demand, lsb_wanted, 0.0)
+                elif pf is not None:
+                    if prev_used is not None:
+                        pf.observe(lidx, prev_used, flat_ids)
+                        demanded = set(int(e) for e in msb_demand)
+                        pf.mark_useful(len(demanded & issued))
+                        for e in sorted(issued - demanded):
+                            pf.mark_wasted()
+                            self._ledger_for(lidx, e).mark_prefetch_wasted(
+                                self._slice_nbytes(SliceKey(lidx, e, "msb")))
+                    prev_used = flat_ids
+
                 missed_expert = np.zeros(self.n_experts, bool)
                 for e in msb_demand:
                     e = int(e)
-                    if self._charge_expert_sync(tr, lidx, e,
-                                                int(tok_per_e[e]),
-                                                lsb_wanted):
+                    if self._charge_expert_sync(
+                            tr, lidx, e, self.cache,
+                            self._ledger_for(lidx, e),
+                            int(tok_per_e[e]), lsb_wanted):
                         missed_expert[e] = True
+                # --- learn + issue for future layers (request kind):
+                # plan() sees post-demand residency, so every candidate
+                # is a fill that could save a future miss.
+                if pf_req:
+                    pf.observe(lidx, flat_ids, flat_gates,
+                               crit_ids=lsb_wanted)
+                    self._prefetch_issue(lidx, flat_ids, 0.0,
+                                         timeline=False)
                 self._attribute_slot_misses(tr, period, pidx, missed_expert)
         self._charge_resident_sync(tr)
         return self._step_charge(tr, base)
@@ -579,6 +947,136 @@ class PersistentEngine:
         self.ledger.dram_read(self.resident_bytes)
         self.ledger.matmul(share, self.cfg.d_model,
                            int(self.resident_bytes / self.cfg.d_model) + 1, 8)
+
+    # ------------------------------------------- pipelined (async) replay
+    def _charge_async(self, tr: _StepTrace) -> StepCharge:
+        """Event-timeline replay: the double-buffered layer pipeline.
+
+        Per flat layer (execution order):
+
+        1. the layer's routing is known once the previous layer's compute
+           drains (``t_route``); demand fills issue on the Flash channel
+           at that instant and each expert's DRAM read / matmul chain
+           follows its own data dependencies — expert ``e+1``'s fill
+           overlaps expert ``e``'s read and compute;
+        2. prefetch fills for later layers (predicted from this layer's
+           routing, residency-filtered) are enqueued on the Flash
+           channel behind this layer's demand fills and marked in-flight
+           in the cache; a consumer that arrives before a prefetched
+           transfer lands stalls only for the remaining tail;
+        3. a prediction is **useful** iff its transfer landed before its
+           consuming layer started, **late** if demanded but still in
+           flight, **wasted** if never demanded (its Flash/DRAM energy is
+           attributed to ``prefetch_wasted_energy_j``).
+
+        The resident (non-expert) weight stream for the step is issued
+        once behind the expert reads and overlaps expert compute.
+        """
+        base = self.ledger.snapshot()
+        t_step = self._compute_frontier()
+        pf = self.prefetcher
+        pf_req = pf is not None and pf.kind == "request"
+        prev_used = None
+        # Transition-kind prefetches in flight: key -> (ready_t, nbytes)
+        # per target layer.  Step-local: the Markov baseline only ever
+        # targets the next layer of the same step.  The request kind
+        # uses the engine-level ``_pf_pending`` instead (cyclic targets
+        # cross the step boundary).
+        pending: dict = {}
+        for period in range(tr.P):
+            for pidx, pos in enumerate(self.moe_positions):
+                lidx = self.layer_map[(pos, period)]
+                t_route = max(t_step, self._compute_frontier())
+                flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e = \
+                    self._layer_demand(tr, period, pidx)
+                self.tracker.observe(lidx, flat_ids, flat_gates)
+                # All-to-all dispatch: the reference charges the layer's
+                # dispatch bytes here and remote experts' matmuls wait
+                # for them; on one device there are none.
+                _, remote_experts = self._layer_a2a_demand(
+                    tr, period, pidx, lidx)
+                t_disp = t_route
+
+                # --- prefetch usefulness for THIS layer, judged before
+                # demand charging mutates the cache.  The bar is t_route
+                # — when the consuming layer starts.
+                demanded = set(int(e) for e in msb_demand)
+                if pf_req:
+                    self._prefetch_judge(lidx, msb_demand, lsb_wanted,
+                                         t_route)
+                else:
+                    for key, (ready_t, p_nb) in \
+                            pending.pop(lidx, {}).items():
+                        if key not in self.cache:  # evicted before use
+                            pf.mark_wasted()
+                            self._ledger_for(
+                                key.layer,
+                                key.expert).mark_prefetch_wasted(p_nb)
+                        elif key.expert in demanded:
+                            if ready_t <= t_route:
+                                pf.mark_useful()
+                            else:
+                                pf.mark_late()
+                        else:
+                            pf.mark_wasted()
+                            self._ledger_for(
+                                key.layer,
+                                key.expert).mark_prefetch_wasted(p_nb)
+
+                missed_expert = np.zeros(self.n_experts, bool)
+                for e in msb_demand:
+                    e = int(e)
+                    if self._charge_expert_async(
+                            tr, lidx, e, self.cache,
+                            self._ledger_for(lidx, e), int(tok_per_e[e]),
+                            lsb_wanted, t_route,
+                            t_disp if e in remote_experts else None):
+                        missed_expert[e] = True
+                # --- learn + issue prefetch for future layers, behind
+                # this layer's demand fills on the Flash channel.
+                if pf_req:
+                    pf.observe(lidx, flat_ids, flat_gates,
+                               crit_ids=lsb_wanted)
+                    self._prefetch_issue(lidx, flat_ids, t_route,
+                                         timeline=True)
+                elif pf is not None:
+                    if prev_used is not None:
+                        pf.observe(lidx, prev_used, flat_ids)
+                    prev_used = flat_ids
+                    if lidx + 1 < self.n_moe_layers:
+                        predicted = pf.predict(
+                            lidx, flat_ids,
+                            resident=self._msb_resident_row(lidx + 1))
+                        n_issued = 0
+                        for e in predicted:
+                            key = SliceKey(lidx + 1, int(e), "msb")
+                            nb = self._slice_nbytes(key)
+                            if key in self.cache \
+                                    or nb > self._segment_capacity(key):
+                                continue
+                            _, end = self._ledger_for(
+                                lidx + 1, int(e)).fill_at(
+                                    t_route, nb, prefetch=True)
+                            self.cache.insert(key, nb)
+                            self.cache.mark_inflight(key, end)
+                            pending.setdefault(lidx + 1, {})[key] = (end, nb)
+                            n_issued += 1
+                        pf.mark_issued(n_issued)
+                self._attribute_slot_misses(tr, period, pidx, missed_expert)
+        # Transition-kind prefetch targets lidx+1 (< n_moe_layers), which
+        # always runs later in the same step and pops its pending entries
+        # — so issued == useful + late + wasted holds per step.
+        assert not pending, f"unconsumed prefetch bookkeeping: {pending}"
+        # Resident (non-expert) weights stream behind the expert reads
+        # and overlap expert compute; the dense step compute waits on
+        # them.
+        share = max(int(tr.slot_mask.sum()), 1)
+        _, res_ready = self.ledger.dram_read_at(t_step, self.resident_bytes)
+        self.ledger.matmul_at(res_ready, share, self.cfg.d_model,
+                              int(self.resident_bytes / self.cfg.d_model)
+                              + 1, 8)
+        self.cache.settle(self.ledger.now)
+        return self._step_charge(tr, base)
 
 
 class SliceMoEEngine(PersistentEngine):

@@ -5,21 +5,32 @@ The cost model behind the paper's Figs. 9-10: every expert-slice transfer
 (Flash→DRAM on a miss, DRAM→XPU on use) and every expert matmul is
 charged against the active :class:`~repro_torch.hw.specs.SystemSpec`.
 Each hardware channel (Flash, DRAM, XPU compute) carries its own
-busy-until clock (:class:`ChannelTimeline`); the serialized issue methods
-the engine's sync charge path uses (:meth:`CostLedger.miss_fill`,
-:meth:`~CostLedger.flash_stream`, :meth:`~CostLedger.dram_read`,
-:meth:`~CostLedger.matmul`) issue every event at the global frontier, so
-the makespan is the sum of all durations.
+busy-until clock (:class:`ChannelTimeline`).  Two issue disciplines feed
+the timeline:
 
-This slice ports the single-device ledger on the sync path.  The
-prefetch lane, the interconnect and migration charges, the tracer hook
-and ``ShardedCostLedger`` arrive with their queue items (ROADMAP.md);
-their accumulators stay in :meth:`CostLedger.snapshot` at zero so a
-snapshot compares key for key with the reference's.
+* the serialized methods the sync charge path uses
+  (:meth:`CostLedger.miss_fill`, :meth:`~CostLedger.flash_stream`,
+  :meth:`~CostLedger.dram_read`, :meth:`~CostLedger.matmul`) issue every
+  event at the global frontier, so the makespan is the sum of all
+  durations;
+* the event methods the async charge path uses (:meth:`~CostLedger.fill_at`,
+  :meth:`~CostLedger.dram_read_at`, :meth:`~CostLedger.matmul_at`,
+  :meth:`~CostLedger.prefetch_fill_at`) take an explicit data-dependency
+  time, so fills overlap compute and speculative fills ride a background
+  Flash lane.
+
+Energy is time-independent, so both disciplines charge the same energy
+for the same events.  The ledger here is the single-device one with its
+prefetch lane; the interconnect and migration charges, ``reset``, the
+tracer hook and ``ShardedCostLedger`` are ROADMAP.md queue 1, 'EP,
+placement, control' and 'Observability'.  Their accumulators stay in
+:meth:`CostLedger.snapshot` at zero so a snapshot compares key for key
+with the reference's.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -87,13 +98,20 @@ class CostLedger:
         default_factory=lambda: ChannelTimeline("dram"))
     compute_ch: ChannelTimeline = dataclasses.field(
         default_factory=lambda: ChannelTimeline("compute"))
-    io_stall_s: float = 0.0
+    # Background-priority Flash lane (see :meth:`prefetch_fill_at`):
+    # speculative fills drain here so they never delay demand traffic.
+    flash_bg_ch: ChannelTimeline = dataclasses.field(
+        default_factory=lambda: ChannelTimeline("flash_bg"))
+    io_stall_s: float = 0.0            # compute idle time waiting on data
 
-    # Charges of parts not ported yet (prefetch, interconnect, migration):
-    # always zero here, kept so snapshots share the reference's keys.
+    # asynchronous-prefetch traffic (a subset of the flash accumulators)
     n_prefetch_fills: int = 0
     prefetch_flash_bytes: float = 0.0
     prefetch_wasted_energy_j: float = 0.0
+
+    # Interconnect and migration charges (ROADMAP.md queue 1, 'EP,
+    # placement, control'): zero on one device, kept so snapshots share
+    # the reference's keys.
     ici_bytes: float = 0.0
     ici_latency_s: float = 0.0
     ici_energy_j: float = 0.0
@@ -111,10 +129,12 @@ class CostLedger:
 
     # ------------------------------------------------- event API (timed)
     def fill_at(self, t_ready: float, nbytes: float, *,
+                prefetch: bool = False,
                 dram_write: bool = True) -> Tuple[float, float]:
         """Flash read issued at ``t_ready``; returns its (start, end) span.
         ``dram_write`` distinguishes a Flash → DRAM fill from a direct
-        Flash → XPU stream (dropped fill, no DRAM write)."""
+        Flash → XPU stream (dropped fill, no DRAM write); ``prefetch``
+        tags a speculative fill in the prefetch counters."""
         sysspec = self.system
         self.flash_bytes += nbytes
         self.n_flash_transfers += 1
@@ -123,7 +143,37 @@ class CostLedger:
         self.flash_energy_j += sysspec.flash.transfer_energy_j(nbytes)
         if dram_write:
             self.dram_energy_j += sysspec.dram.transfer_energy_j(nbytes)
+        if prefetch:
+            self.n_prefetch_fills += 1
+            self.prefetch_flash_bytes += nbytes
         return self.flash_ch.issue(t_ready, dur)
+
+    def prefetch_fill_at(self, t_ready: Optional[float],
+                         nbytes: float) -> Tuple[float, float]:
+        """Background-priority speculative Flash → DRAM fill.
+
+        Demand fills preempt: the fill starts once the demand frontier at
+        issue time has drained and occupies a separate background lane
+        whose completion does not extend the makespan.  Energy and
+        traffic are charged in full.  The returned ``end`` is the
+        earliest the slice is usable.  ``t_ready=None`` issues at the
+        ledger's frontier (:attr:`now`).  Only the request-level predictor's fills
+        ride this lane; the transition baseline's go through
+        :meth:`fill_at` / :meth:`miss_fill` in FIFO order with demand.
+        """
+        if t_ready is None:
+            t_ready = self.now
+        sysspec = self.system
+        self.flash_bytes += nbytes
+        self.n_flash_transfers += 1
+        dur = sysspec.flash.transfer_latency_s(nbytes)
+        self.flash_latency_s += dur
+        self.flash_energy_j += sysspec.flash.transfer_energy_j(nbytes)
+        self.dram_energy_j += sysspec.dram.transfer_energy_j(nbytes)
+        self.n_prefetch_fills += 1
+        self.prefetch_flash_bytes += nbytes
+        return self.flash_bg_ch.issue(
+            max(t_ready, self.flash_ch.busy_until), dur)
 
     def flash_stream_at(self, t_ready: float,
                         nbytes: float) -> Tuple[float, float]:
@@ -160,10 +210,20 @@ class CostLedger:
         self.io_stall_s += max(0.0, t_ready - self.compute_ch.busy_until)
         return self.compute_ch.issue(t_ready, dur)
 
+    def mark_prefetch_wasted(self, nbytes: float) -> None:
+        """Attribute an already-charged prefetch fill as wasted (never
+        demanded, or evicted before use).  Informational: the Flash read
+        and DRAM write energy was spent at issue time and stays spent."""
+        sysspec = self.system
+        self.prefetch_wasted_energy_j += (
+            sysspec.flash.transfer_energy_j(nbytes)
+            + sysspec.dram.transfer_energy_j(nbytes))
+
     # ---------------------------------------- serialized (legacy) events
-    def miss_fill(self, nbytes: float) -> None:
-        """Flash -> DRAM fill caused by a slice miss (blocking issue)."""
-        self.fill_at(self.now, nbytes)
+    def miss_fill(self, nbytes: float, *, prefetch: bool = False) -> None:
+        """Flash -> DRAM fill caused by a slice miss (blocking issue);
+        ``prefetch`` tags speculative fills in the traffic counters."""
+        self.fill_at(self.now, nbytes, prefetch=prefetch)
 
     def flash_stream(self, nbytes: float) -> None:
         """Direct Flash -> XPU stream for a dropped fill (blocking)."""
@@ -241,6 +301,11 @@ class CostLedger:
             "migration_bytes": self.migration_bytes,
             "n_migrations": self.n_migrations,
         }
+
+    def clone(self) -> "CostLedger":
+        """Deep copy of the full ledger (accumulators + channel clocks):
+        the replay simulator forks a timeline mid-trace with it."""
+        return copy.deepcopy(self)
 
     def delta_since(self, prev: Optional[dict]) -> dict:
         cur = self.snapshot()

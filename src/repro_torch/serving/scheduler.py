@@ -17,9 +17,10 @@ TTFT and throughput are deterministic functions of the workload and the
 modeled hardware.  Wall seconds (host clock) are reported separately on
 each :class:`Completion`.
 
-Prompt clipping and bucketing, admission hooks, metrics sampling, trace
-recording and timeline spans wait for ROADMAP.md queue 1, 'serving
-extras'.
+``attach_recorder`` records the run's routing trace for offline replay
+(:mod:`repro_torch.sim`).  Prompt clipping and bucketing, admission
+hooks, metrics sampling and timeline spans wait for ROADMAP.md queue 1,
+'serving extras'.
 """
 
 from __future__ import annotations
@@ -109,6 +110,14 @@ class ContinuousBatchingScheduler:
         self.wall_prefill_s: List[float] = []
         self.wall_step_s: List[float] = []
 
+    def attach_recorder(self, recorder):
+        """Wire a :class:`repro_torch.sim.trace.TraceRecorder` into the
+        engine.  The engine hooks capture the replayable routing arrays;
+        the scheduler additionally annotates each prefill event with the
+        request id and tenant, which only it knows.  Returns the
+        recorder for chaining."""
+        return recorder.attach(self.engine)
+
     def _sync(self) -> None:
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
@@ -161,6 +170,9 @@ class ContinuousBatchingScheduler:
         logits, kv_cache, _info = self.engine.run_prefill(
             prompt[None], label=label, inflight=self.n_active(),
             tenant=req.tenant)
+        if self.engine.recorder is not None:
+            self.engine.recorder.annotate_prefill(
+                request_id=req.request_id, tenant=req.tenant)
         last_token = int(torch.argmax(logits, dim=-1)[0])
         self._sync()
         wall = time.perf_counter() - t0
@@ -281,9 +293,12 @@ class ContinuousBatchingScheduler:
         """Drive until the queue drains and every sequence retires."""
         while self.step():
             pass
+        self.engine._prefetch_flush()   # settle never-used pending fills
         self.engine.cache.end_epoch()   # flush the last request's window
         return self.completions
 
     def summary(self, **kw) -> dict:
+        if self.engine.prefetcher is not None:
+            kw.setdefault("prefetch", self.engine.prefetcher.summary())
         return self.telemetry.summary(
             total_energy_j=self.engine.ledger.total_energy_j, **kw)

@@ -207,8 +207,8 @@ def test_aux_to_host_restores_dtypes_in_one_buffer():
 
 @pytest.mark.parametrize("over, item", [
     (dict(ep_shards=2), "EP, placement, control"),
-    (dict(prefetch_top_m=4), "async timeline and prefetch"),
-    (dict(async_io=True), "async timeline and prefetch"),
+    (dict(placement="hotness"), "EP, placement, control"),
+    (dict(replicate_k=2), "EP, placement, control"),
     (dict(controller=object()), "EP, placement, control"),
     (dict(system="tpu_offload"), "tpu_offload profile"),
     (dict(policy=TRP(kind="buddy")), "buddy routing"),

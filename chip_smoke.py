@@ -75,12 +75,30 @@ it goes, any failure exiting non-zero:
    floor 0.02, PCW warmup): K1 and K2 launched 24 x (4 + 16) times each,
    every logit finite, every request served in full, and its recorded
    trace replaying to the live run with the prefetch summary exact
-   (``[serve-async]`` lines).
+   (``[serve-async]`` lines);
+6. train, checkpoint, serve (after 5b's params are released):
+   Qwen1.5-MoE-A2.7B at its published widths with its depth cut to 2 of
+   24 layers (training holds 16 B per parameter: 1.76 B parameters, 28
+   GB, where 24 layers would need 229 GB), bf16 from the port's init
+   with seed 0, trained for 40 steps with ``train_or_load``'s settings
+   (batch 8, seq 64, lr 2e-3, cosine, warmup 4) on ``SyntheticLM``
+   (``[train]`` lines: every loss, the wall per step, the peak memory;
+   every loss finite and the last below the first and ln(vocab)); the
+   weights saved with the port's checkpoint writer under ``build/`` and
+   restored onto the card bit for bit (``[ckpt]``); the restored model
+   served with phase 5's traffic shape (4 prompts of 128 tokens from
+   ``eval_batches``, 16 new tokens each) under Fig. 9's
+   ``buddy_highbit`` and under phase 5's Cache-Prior + DBSC + PCW, both
+   with quantized execution, each run with the launch counts reset just
+   before and read just after (K1 and K2 2 x (4 + 16) = 40 times each);
+   the same model at its untrained init served beside it, for the
+   ``[serve-6]`` lines' decode miss rates and modeled energy and
+   latency (descriptive, cost model).
 
-``--profile`` adds a sixth phase, run between 5 and 5b: a second round of
-the same traffic with its decode steps under ``torch.profiler`` (device
-time and launches per step by kernel, the engine's host ranges, the
-device's busy share).  Without arguments the script runs phases 1 to 5b.
+``--profile`` adds a phase run between 5 and 5b: a second round of the
+same traffic with its decode steps under ``torch.profiler`` (device time
+and launches per step by kernel, the engine's host ranges, the device's
+busy share).  Without arguments the script runs phases 1 to 6.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -995,8 +1013,22 @@ def _check_replay(run, tag: str, path: str):
     return rep
 
 
+def _store_bytes(cfg, mat) -> float:
+    """The slice store's size from the shapes: MSB and LSB slices of
+    every expert's ``wi`` and ``wo`` in every layer."""
+    from repro_torch.core.amat import slice_nbytes
+
+    m = cfg.moe
+    per_expert = sum(
+        slice_nbytes(shape, mat.high_bits, mat.group_size, which=w,
+                     shift=mat.shift)
+        for shape in ((cfg.d_model, 2 * m.d_ff), (m.d_ff, cfg.d_model))
+        for w in ("msb", "lsb"))
+    return per_expert * cfg.n_layers * m.n_experts
+
+
 def phase_serving(cfg, device: str = "cuda"):
-    from repro_torch.core.amat import MatConfig, slice_nbytes
+    from repro_torch.core.amat import MatConfig
     from repro_torch.core.engine import EngineConfig
     from repro_torch.models.model import init_params
     from repro_torch.models.moe import RoutingPolicy
@@ -1006,12 +1038,7 @@ def phase_serving(cfg, device: str = "cuda"):
     on_card = device == "cuda"
     mat = MatConfig(8, 4)
     m = cfg.moe
-    per_expert = sum(
-        slice_nbytes(shape, mat.high_bits, mat.group_size, which=w,
-                     shift=mat.shift)
-        for shape in ((cfg.d_model, 2 * m.d_ff), (m.d_ff, cfg.d_model))
-        for w in ("msb", "lsb"))
-    store_bytes = per_expert * cfg.n_layers * m.n_experts
+    store_bytes = _store_bytes(cfg, mat)
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1148,6 +1175,173 @@ def phase_serving_async(cfg, params, prompts, p5, device: str = "cuda"):
     return run["launches"]
 
 
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 40, 8, 64, 2e-3
+
+
+def _scheme_configs(cfg):
+    """Phase 6's two serving schemes, both with quantized execution and a
+    slice cache of a quarter of the store: Fig. 9's ``buddy_highbit``, and
+    phase 5's Cache-Prior + DBSC + PCW."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models.moe import RoutingPolicy
+
+    mat = MatConfig(8, 4)
+    common = dict(mat=mat, cache_bytes=_store_bytes(cfg, mat) / 4,
+                  miss_rate_target=0.05,
+                  max_seq=SERVE_PROMPT + SERVE_NEW + 1)
+    return {
+        "buddy_highbit": EngineConfig(
+            policy=RoutingPolicy(kind="buddy", slice_mode="highbit",
+                                 quant_execution=True),
+            fused_slices=True, warmup="empty", **common),
+        "cache_prior_dbsc_pcw": EngineConfig(
+            policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
+                                 quant_execution=True),
+            warmup="pcw", **common),
+    }
+
+
+def _serve_schemes(cfg, params, prompts, tag: str, device: str) -> dict:
+    """Serve ``prompts`` under both schemes in turn (``_serve``: launch
+    counts reset just before each run and read just after, every request
+    in full, finite logits); returns each scheme's decode miss rate and
+    modeled energy and latency."""
+    out = {}
+    for name, ecfg in _scheme_configs(cfg).items():
+        run = _serve(cfg, params, ecfg, prompts, f"{tag} {name}", device)
+        engine = run["engine"]
+        live = engine.ledger.snapshot()
+        out[name] = {
+            "miss_rate": engine.decode_misses / max(engine.decode_accesses, 1),
+            "accesses": engine.decode_accesses,
+            "misses": engine.decode_misses,
+            "energy_j": live["total_energy_j"],
+            "latency_s": live["total_latency_s"],
+            "launches": run["launches"], "wall": run["wall"]}
+        del run, engine
+        gc.collect()
+    return out
+
+
+def phase_train_serve(cfg, device: str = "cuda"):
+    """Phase 6: train, checkpoint, serve.  ``cfg`` at its published widths,
+    cut to ``TRAIN_LAYERS`` layers, trained from the port's init (seed 0)
+    with ``train_or_load``'s settings on ``SyntheticLM``; the weights go
+    through the port's checkpoint writer and reader (bit for bit), and the
+    restored model is served under two schemes.  The same model at its
+    untrained init is served beside it (descriptive only)."""
+    import dataclasses
+    import math
+    import shutil
+
+    sys.path.insert(0, HERE)
+    from benchmarks.torch_common import eval_batches
+    from repro_torch.checkpoint import ckpt as CKPT
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import init_params, tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    n_small, n_full = small.param_count(), cfg.param_count()
+    say(f"[train] {cfg.name} at its published widths, depth cut to "
+        f"{TRAIN_LAYERS} of {cfg.n_layers} layers: training holds 16 B per "
+        "parameter (bf16 weights and grads; f32 mu, nu and master copy), "
+        f"{n_small / 1e9:.3f} B params x 16 B = {16 * n_small / 1e9:.1f} GB "
+        f"at {TRAIN_LAYERS} layers against {16 * n_full / 1e9:.0f} GB at "
+        f"{cfg.n_layers}, which one card cannot hold")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(TRAIN_STEPS // 10, 1))
+    t0 = time.perf_counter()
+    params, opt_state, hist = train_loop(
+        small, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, opt_cfg=opt_cfg,
+        log_every=max(TRAIN_STEPS // 4, 1), seed=0, collect_history=True,
+        device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    losses = [m["loss"] for m in hist]
+    ends = [m["wall_s"] for m in hist]
+    per_step = np.diff([0.0] + ends)
+    say(f"[train] {TRAIN_STEPS} steps, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"lr {TRAIN_LR} cosine, warmup {opt_cfg.warmup_steps}, vocab "
+        f"{small.vocab_size}: losses {[round(x, 4) for x in losses]}")
+    say(f"[train] aux_loss first/last {hist[0]['aux_loss']:.4f} / "
+        f"{hist[-1]['aux_loss']:.4f}; grad_norm first/last "
+        f"{hist[0]['grad_norm']:.3f} / {hist[-1]['grad_norm']:.3f}")
+    say(f"[train] wall {wall:.2f} s; per step: first {per_step[0]:.4f} s, "
+        f"median {np.median(per_step):.4f} s, min {per_step.min():.4f} s, "
+        f"max {per_step.max():.4f} s (host clock; each step ends when its "
+        "loss reaches the host)")
+    if on_card:
+        say(f"[train] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    uniform = math.log(small.vocab_size)
+    if not all(np.isfinite(losses)):
+        fail("train: a non-finite loss")
+    if not (losses[-1] < losses[0] and losses[-1] < uniform):
+        fail(f"train: the last loss {losses[-1]:.4f} is not below both the "
+             f"first {losses[0]:.4f} and ln(vocab) = {uniform:.4f}")
+    del opt_state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    path = os.path.join(HERE, "build", "phase6_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    CKPT.save(path, {"params": params}, step=TRAIN_STEPS)
+    t_save = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    t0 = time.perf_counter()
+    restored = CKPT.restore(path, device)["params"]
+    sync()
+    t_restore = time.perf_counter() - t0
+    def bits(t):                    # floats compared by their bit patterns
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) \
+            if t.is_floating_point() else t
+
+    pairs = list(zip(tree_leaves(restored), tree_leaves(params)))
+    same = len(pairs) == len(list(tree_leaves(params))) and all(
+        a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+        and torch.equal(bits(a), bits(b)) for a, b in pairs)
+    say(f"[ckpt] {len(pairs)} leaves, {nbytes} bytes: save {t_save:.2f} s, "
+        f"restore onto {device} {t_restore:.2f} s; step "
+        f"{CKPT.restore_step(path)}; bit-equal: {same}")
+    shutil.rmtree(path)
+    if not same:
+        fail("ckpt: the restored leaves differ from the trained ones")
+    del params, pairs
+    gc.collect()
+
+    prompts = [row[:SERVE_PROMPT] for row in eval_batches(
+        small, n_batches=1, batch=SERVE_REQ, seq=SERVE_PROMPT)[0]]
+    trained = _serve_schemes(small, restored, prompts, "serve-trained",
+                             device)
+    del restored
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    init = _serve_schemes(small, init_params(small, seed=0, device=device),
+                          prompts, "serve-init", device)
+    for name in trained:
+        for label, r in (("trained", trained[name]), ("init", init[name])):
+            say(f"[serve-6] {name} {label}: decode miss rate "
+                f"{r['miss_rate']:.4f} ({r['misses']} of {r['accesses']}), "
+                f"energy {r['energy_j']!r} J, latency {r['latency_s']!r} s "
+                f"(cost model); K1/K2 launches {r['launches']}; wall "
+                f"{r['wall']:.2f} s")
+
+
 def phase_profile(engine, new_requests, wall_step_s):
     """A second round of the same traffic on the warm engine with its
     decode steps under ``torch.profiler``: device kernel time and launches
@@ -1227,6 +1421,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serving_async(cfg, params, prompts, p5)
+    # Phase 6 trains and serves a model of its own: release 5b's params.
+    del params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_serve(cfg)
     amat_src = "src/repro_torch/kernels/amat_matmul/csrc/amat_batched_matmul.cu"
     kernels = []
     for variant, key, source, replaces in (

@@ -104,6 +104,40 @@ class ModelConfig:
             total += n
         return total
 
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: same family, tiny dims (the reference's
+        rule; SSM mixers, which the port does not run, are left as they
+        are)."""
+        plen = len(self.block_pattern)
+        n_kv = min(self.n_kv_heads, 2)
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff=min(self.moe.d_ff, 128),
+                d_ff_shared=min(self.moe.d_ff_shared, 128)
+                if self.moe.d_ff_shared else 0,
+            )
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=2 * plen if plen > 1 else 2,
+            d_model=min(self.d_model, 256),
+            n_heads=n_kv * max(1, min(self.n_heads // self.n_kv_heads, 2)),
+            n_kv_heads=n_kv,
+            head_dim=32,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            moe=moe,
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 16) if self.encoder_seq else 0,
+            prefix_len=min(self.prefix_len, 8) if self.prefix_len else 0,
+            sliding_window=min(self.sliding_window, 64)
+            if self.sliding_window else None,
+        )
+
 
 # Paper-reproduction MoE configs (DeepSeek-V2-Lite / Qwen1.5-MoE structure).
 REPRO_IDS = ("deepseek-v2-lite-repro", "qwen15-moe-repro")

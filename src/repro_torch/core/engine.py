@@ -27,9 +27,10 @@ each with the configured expert prefetcher (``prefetch_top_m``,
 :class:`repro_torch.sim.replay.ReplayEngine` drives the same methods from
 a recorded or synthetic trace (``recorder`` captures one from a live
 run).  The knobs of the parts still in the queue (``ep_shards > 1``, an
-SLO ``controller``, placement policies, ``buddy`` routing, the
-``tpu_offload`` profile) raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+SLO ``controller``, placement policies, the ``tpu_offload`` profile)
+raise ``NotImplementedError`` naming their ROADMAP.md item.  BuddyMoE
+routing (``policy.kind="buddy"``) calibrates its expert pairs from the
+dense weights when the engine is built.
 
 ``run_prefill`` and ``decode_batch`` mark their model forward and their
 charge path as ``torch.profiler`` ranges (``slicemoe.prefill_forward``,
@@ -51,7 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amat import MatConfig
 from repro_torch.core.cache import SliceCache
 from repro_torch.core.prefetch import RequestPrefetcher, TransitionPrefetcher
-from repro_torch.core.routing import MissRateController
+from repro_torch.core.routing import MissRateController, compute_buddies
 from repro_torch.core.slices import SliceKey, quantize_moe_params
 from repro_torch.core.warmup import HotnessTracker, INIT_STATES, pcw_reshape
 from repro_torch.device import resolve_device
@@ -129,8 +130,6 @@ class EngineConfig:
             if getattr(self, knob) != default:
                 todo.append(f"{knob}={getattr(self, knob)!r} (queue 1, "
                             "'EP, placement, control')")
-        if self.policy.kind == "buddy":
-            todo.append("policy.kind='buddy' (queue 1, 'buddy routing')")
         if self.system not in SYSTEM_PROFILES:
             todo.append(f"system={self.system!r} (queue 1, 'tpu_offload "
                         "profile')")
@@ -267,6 +266,19 @@ class PersistentEngine:
         self.cfg = cfg
         self.ecfg = ecfg
         params = _to_device(params, self.device)
+        self.moe_positions = [i for i, s in enumerate(cfg.block_pattern)
+                              if s.ffn == "moe"]
+        # BuddyMoE offline calibration (policy.kind == 'buddy'): nearest
+        # expert by weight cosine similarity, per (position, period), from
+        # the dense weights, before quantization replaces them.
+        self.buddies = None
+        if ecfg.policy.kind == "buddy":
+            self.buddies = {}
+            for i in self.moe_positions:
+                wi = params["blocks"][f"pos{i}"]["moe"]["experts"]["wi"]
+                flat = wi.reshape(wi.shape[0], wi.shape[1], -1)
+                self.buddies[f"pos{i}"] = torch.stack(
+                    [compute_buddies(flat[p]) for p in range(flat.shape[0])])
         self.qparams, self.store, self.layer_map = quantize_moe_params(
             params, cfg, ecfg.mat,
             quant_execution=ecfg.policy.quant_execution)
@@ -284,8 +296,6 @@ class PersistentEngine:
         # Timeline tracer hook (ROADMAP.md queue 1, 'Observability'):
         # nothing attaches one yet.
         self.tracer = None
-        self.moe_positions = [i for i, s in enumerate(cfg.block_pattern)
-                              if s.ffn == "moe"]
         self.prefetcher = ecfg.build_prefetcher(
             self.n_moe_layers, self.n_experts)
         # Prefetches in flight across decode steps: target flat layer ->
@@ -474,7 +484,8 @@ class PersistentEngine:
     # -------------------------------------------------------------- decode
     def _policy_state(self) -> dict:
         """Residency masks ``cached_msb``/``cached_lsb`` [n_periods, E] per
-        MoE position, moved to the device in one transfer."""
+        MoE position, moved to the device in one transfer, and with buddy
+        routing the calibrated ``buddies`` [n_periods, E]."""
         msb, lsb = self.cache.residency(self.n_moe_layers, self.n_experts)
         n_periods = self.cfg.n_periods
         npos = len(self.moe_positions)
@@ -485,8 +496,13 @@ class PersistentEngine:
                 host[j, 0, period] = msb[lidx]
                 host[j, 1, period] = lsb[lidx]
         dev = torch.from_numpy(host).to(self.device)
-        return {f"pos{pos}": {"cached_msb": dev[j, 0], "cached_lsb": dev[j, 1]}
-                for j, pos in enumerate(self.moe_positions)}
+        state = {f"pos{pos}": {"cached_msb": dev[j, 0],
+                               "cached_lsb": dev[j, 1]}
+                 for j, pos in enumerate(self.moe_positions)}
+        if self.buddies is not None:
+            for key, b in self.buddies.items():
+                state[key]["buddies"] = b
+        return state
 
     def _decode(self, token: torch.Tensor, kv_cache: dict, alpha: float,
                 token_mask: Optional[torch.Tensor]):

@@ -4,6 +4,8 @@
 * ``cumsum_routing``      — cumulative-threshold expert selection.
 * ``cache_prior_routing`` — Cache-Prior: boost the gating scores of
   DRAM-resident experts by ``alpha`` before top-k.
+* ``buddy_routing``       — BuddyMoE: a missed expert runs as its cached
+  buddy (``compute_buddies`` calibrates the pairs offline).
 * ``criticality``         — DBSC's single-head test on renormalized gates.
 
 Top-k ties resolve as ``jax.lax.top_k`` resolves them, toward the lower
@@ -56,6 +58,32 @@ def cache_prior_routing(probs: torch.Tensor, cached: torch.Tensor, alpha,
     _, ids = top_k(probs * boost, k)
     gates = torch.gather(probs, -1, ids)
     return _renorm(gates), ids
+
+
+def buddy_routing(probs: torch.Tensor, cached: torch.Tensor,
+                  buddies: torch.Tensor, k: int):
+    """BuddyMoE: substitute a missed expert with its cached "buddy".
+
+    ``buddies``: [E] int, each expert's most interchangeable expert.
+    Selection is vanilla top-k; each selected-but-uncached expert is
+    replaced by its buddy iff the buddy is cached (otherwise the miss
+    stands).  Gates keep the original expert's probability.
+    """
+    gates, ids = topk_routing(probs, k)
+    buddy_ids = buddies[ids]
+    use_buddy = (~cached[ids]) & cached[buddy_ids]
+    return gates, torch.where(use_buddy, buddy_ids, ids)
+
+
+def compute_buddies(flat_weights: torch.Tensor) -> torch.Tensor:
+    """Offline buddy calibration: each expert's nearest other expert by
+    weight cosine similarity.  ``flat_weights``: [E, D_flat].  Ties go to
+    the lower index, as ``jnp.argmax`` resolves them."""
+    w = flat_weights.to(torch.float32)
+    w = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-9)
+    sim = w @ w.T
+    sim = sim - 2.0 * torch.eye(sim.shape[0], device=sim.device)
+    return torch.argmax(sim, dim=-1)
 
 
 def criticality(gates: torch.Tensor, theta: float = 0.5) -> torch.Tensor:

@@ -7,8 +7,12 @@ package's parameters onto the port one leaf to one leaf.  The reference
 slice (a view, no copy).
 
 Public entry points: ``param_shapes`` / ``init_params``, ``embed_inputs``,
-``unembed``, ``init_cache``, ``prefill``, ``decode_step`` (scalar and
-``[B]`` positions, ``token_mask``), ``count_params``.
+``forward`` (full sequence, differentiable), ``lm_loss`` (chunked
+cross-entropy plus the MoE load-balance loss), ``unembed``,
+``init_cache``, ``prefill``, ``decode_step`` (scalar and ``[B]``
+positions, ``token_mask``), ``count_params``.  The reference wraps each
+period of ``forward`` in ``jax.checkpoint`` (remat); that changes memory,
+not values, and is not ported.
 
 Departures from the functional reference, both to save device memory:
 ``decode_step`` writes the new KV row into the cache tensors in place
@@ -31,6 +35,7 @@ from repro_torch.quant.groupquant import QuantizedTensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+LOSS_CHUNKS = 16
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -179,10 +184,25 @@ def _attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+def _self_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     positions: torch.Tensor):
+    """Causal self-attention over the whole sequence with its residual;
+    returns (x, (k, v)) with ``k``/``v`` after RoPE (the cache rows)."""
+    b, s, _ = x.shape
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _attn_qkv(p, h, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = L.attention(q, k, v, causal=True)
+    return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
+
+
 def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
                *, collect: bool, policy=None, policy_state=None, mat=None,
                token_mask=None, quant_execution=None, force_high_bit=False):
-    """The block's FFN half; returns (x, routing trace or None)."""
+    """The block's FFN half; returns (x, aux): the MoE layer's whole aux
+    with ``collect``, else only its ``aux_loss`` and ``dropped_frac``
+    (None for a dense FFN)."""
     if spec.ffn == "dense":
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         return x + L.mlp_apply(p["mlp"], h, cfg.mlp_type), None
@@ -192,7 +212,10 @@ def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
         p["moe"], h.reshape(-1, d), cfg.moe, policy=policy,
         policy_state=policy_state, mat=mat, token_mask=token_mask,
         quant_execution=quant_execution, force_high_bit=force_high_bit)
-    return x + y.reshape(b, s, d), (aux if collect else None)
+    if not collect:
+        aux = {"aux_loss": aux["aux_loss"],
+               "dropped_frac": aux["dropped_frac"]}
+    return x + y.reshape(b, s, d), aux
 
 
 def _stack_aux(per_period: list) -> dict:
@@ -212,8 +235,60 @@ def embed_inputs(params: dict, cfg: ModelConfig,
     return params["embed"][tokens].to(_dt(cfg))
 
 
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    """Full-sequence forward over float experts (the training path).
+    tokens: [B, S] int.  Returns (hidden [B, S, d] after the final norm,
+    aux): ``aux["aux_loss"]`` sums the MoE layers' load-balance losses;
+    ``aux["moe"]`` holds their ``aux_loss`` and ``dropped_frac`` stacked
+    ``[n_periods, n_moe_pos]``.  Differentiable unless run under
+    ``torch.no_grad()``."""
+    _check_supported(cfg)
+    x = embed_inputs(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux_rows = []
+    for period in range(cfg.n_periods):
+        period_params = _index(params["blocks"], period)
+        row = []
+        for i, spec in enumerate(cfg.block_pattern):
+            p = period_params[f"pos{i}"]
+            x, _ = _self_attn_block(p, x, cfg, positions)
+            x, aux = _ffn_block(p, x, cfg, spec, collect=False)
+            if aux is not None:
+                row.append(aux)
+        aux_rows.append(row)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    stacked = _stack_aux(aux_rows)
+    if stacked:
+        return x, {"moe": stacked, "aux_loss": torch.sum(stacked["aux_loss"])}
+    return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
+                                       device=x.device)}
+
+
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return (h @ params["unembed"].to(h.dtype)).to(torch.float32)
+
+
+def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, *, aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over the flattened token stream,
+    plus ``aux_weight`` times the load-balance loss; returns (loss, aux).
+    The logits are formed ``LOSS_CHUNKS`` token chunks at a time (one
+    chunk when the token count does not divide), never as one [T, V]."""
+    h, aux = forward(params, cfg, tokens)
+    d = h.shape[-1]
+    hf = h.reshape(-1, d)
+    lf = labels.reshape(-1)
+    T = hf.shape[0]
+    n_chunks = LOSS_CHUNKS if T % LOSS_CHUNKS == 0 else 1
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hx, lx in zip(hf.reshape(n_chunks, T // n_chunks, d),
+                      lf.reshape(n_chunks, T // n_chunks)):
+        logits = unembed(params, cfg, hx)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx[:, None].long())[:, 0]
+        total = total + torch.sum(logz - gold)
+    loss = total / T
+    return loss + aux_weight * aux["aux_loss"], aux
 
 
 # ==========================================================================
@@ -258,12 +333,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         row = []
         for i, spec in enumerate(cfg.block_pattern):
             p = period_params[f"pos{i}"]
-            h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-            q, k, v = _attn_qkv(p, h, cfg)
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
-            o = L.attention(q, k, v, causal=True)
-            x = x + o.reshape(b, s, -1) @ p["wo"]
+            x, (k, v) = _self_attn_block(p, x, cfg, positions)
             entry = cache[f"pos{i}"]
             entry["k"][period, :, :s] = k.to(entry["k"].dtype)
             entry["v"][period, :, :s] = v.to(entry["v"].dtype)

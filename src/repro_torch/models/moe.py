@@ -14,6 +14,12 @@ Dispatch is the Switch/GShard capacity scheme: per-k-slot one-hot
 position ranking, scatter into an ``[E, C, d]`` buffer, batched expert
 matmuls, gather + combine.  The reference's sharding hints
 (``shard_hint``) have no counterpart on one card and are gone.
+
+With float experts and outside ``torch.no_grad()`` the layer is
+differentiable as in the reference: gradients reach ``x`` through the
+dispatch scatter and the gates through ``combine``; the aux leaves
+``aux_loss`` (the Switch load-balance loss) and ``dropped_frac`` serve
+training.
 """
 
 from __future__ import annotations
@@ -35,8 +41,7 @@ from repro_torch.quant.groupquant import QuantizedTensor, dequantize
 class RoutingPolicy:
     """Static cache-aware routing policy (SliceMoE engine; paper §2.1/§4.1).
 
-    kind:        'topk' | 'cache_prior' | 'cumsum'  ('buddy' is not
-                 ported yet)
+    kind:        'topk' | 'cache_prior' | 'cumsum' | 'buddy'
     slice_mode:  'dbsc' | 'highbit' | 'lowbit' | 'amat_static'
     fetch_lsb_on_miss: if False, an LSB miss degrades the expert to
                  MSB-only compute instead of fetching (needs cached_lsb).
@@ -73,6 +78,16 @@ def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
     """[T, d] @ [d, E] -> softmax probs [T, E] (f32)."""
     logits = x.to(torch.float32) @ w_router.to(torch.float32)
     return torch.softmax(logits, dim=-1)
+
+
+def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * <f_e> . <p_e>.  A masked token's
+    sentinel id one-hots to zero and counts toward no expert."""
+    sel = R.one_hot(ids, n_experts, torch.float32)            # [T, k, E]
+    frac_tokens = torch.mean(torch.sum(sel, dim=1), dim=0)    # [E]
+    mean_probs = torch.mean(probs, dim=0)                     # [E]
+    return n_experts * torch.sum(frac_tokens * mean_probs)
 
 
 # --------------------------------------------------------------------------
@@ -231,6 +246,10 @@ def moe_apply(
             gates, ids = R.cache_prior_routing(
                 probs, policy_state["cached_msb"], policy_state["alpha"],
                 cfg.top_k)
+        elif policy.kind == "buddy":
+            gates, ids = R.buddy_routing(
+                probs, policy_state["cached_msb"], policy_state["buddies"],
+                cfg.top_k)
         elif policy.kind == "cumsum":
             kmax = min(policy.cumsum_kmax, E)
             gates, ids, active = R.cumsum_routing(probs, policy.cumsum_tau,
@@ -238,9 +257,7 @@ def moe_apply(
         elif policy.kind == "topk":
             gates, ids = R.topk_routing(probs, cfg.top_k)
         else:
-            raise NotImplementedError(
-                f"routing kind {policy.kind!r} is not ported yet "
-                "(ROADMAP.md queue 1, 'buddy routing')")
+            raise ValueError(f"unknown routing kind {policy.kind!r}")
         gates, ids, active = mask_routing(gates, ids, active)
         gates = gates.to(x.dtype)
         k_eff = ids.shape[-1]
@@ -266,6 +283,8 @@ def moe_apply(
         if force_high_bit:
             use_lsb = None
     else:
+        # The reference's topk_select with renormalization: the same
+        # computation as routing.topk_routing.
         gates, ids = R.topk_routing(probs, cfg.top_k)
         gates, ids, active = mask_routing(gates, ids, active)
         gates = gates.to(x.dtype)
@@ -296,7 +315,12 @@ def moe_apply(
     if cfg.n_shared_experts > 0:
         y = y + mlp_apply(params["shared"], x, cfg.mlp_type)
 
-    aux = {"ids": ids, "gates": gates}
+    aux = {
+        "ids": ids,
+        "gates": gates,
+        "aux_loss": load_balance_loss(probs, ids, E),
+        "dropped_frac": 1.0 - torch.mean(keep.to(torch.float32)),
+    }
     if policy is not None:
         ones_e = torch.ones((E,), dtype=torch.bool, device=x.device)
         aux["critical"] = critical

@@ -211,7 +211,7 @@ def test_aux_to_host_restores_dtypes_in_one_buffer():
     (dict(replicate_k=2), "EP, placement, control"),
     (dict(controller=object()), "EP, placement, control"),
     (dict(system="tpu_offload"), "tpu_offload profile"),
-    (dict(policy=TRP(kind="buddy")), "buddy routing"),
+    (dict(placement_period=32), "EP, placement, control"),
 ])
 def test_unported_engine_settings_name_their_queue_item(model, over, item):
     _, tcfg, _, tparams = model

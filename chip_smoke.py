@@ -14,9 +14,10 @@ it goes, any failure exiting non-zero:
    PyTorch versions on the card (tolerance 1e-4 + 1e-4*|plain|: f32
    accumulation in another order): both code layouts with the bf16
    activations the main path gives them at its decode (4 sequences) and
-   prefill (128 tokens) capacities, with f32 activations (the engine's
-   parity mode: three exact bf16 planes of x) at the same two
-   capacities, and ragged cases in both types (N = 72, and N = 70 for
+   prefill (128 tokens) capacities and at phase 7c's long-prefill
+   capacity (9216 tokens: 1229 rows, ten row blocks with a ragged last),
+   with f32 activations (the engine's parity mode: three exact bf16
+   planes of x) at the decode and prefill capacities, and ragged cases in both types (N = 72, and N = 70 for
    bf16, which the wrapper pads); every route runs on the tensor cores.
    The decode shapes are then timed beside the plain version, one
    ``torch.bmm`` on pre-dequantized f32 weights (the nearest library
@@ -57,7 +58,13 @@ it goes, any failure exiting non-zero:
    x) and on the CPU through the plain dense-dequant path must agree
    (tokens exact, logits 1e-4, cache stats equal), with the launch counts
    set to 0 just before and read just after: K1 and K2 must have
-   launched;
+   launched.  Then the same with the int8 KV cache (``kv_dtype="int8"``),
+   the card's prefill and its decode each counted on their own (K1 and
+   K2 must launch in both): prefill logits at 1e-4 and the two devices' caches compared code by
+   code; the card decodes from the CPU's cache, carried across (a value
+   within an f32 ulp of a rounding tie may take either code), and each
+   of 6 steps' logits must agree at 1e-4, tokens and cache stats
+   exactly;
 5. serving at full width: Qwen1.5-MoE-A2.7B (24 layers, d_model 2048,
    60 experts, bf16, random weights from seed 0), cache-prior + DBSC
    routing with quantized execution, 4 requests of 128 prompt tokens and
@@ -95,16 +102,41 @@ it goes, any failure exiting non-zero:
    ``[serve-6]`` lines' decode miss rates and modeled energy and
    latency (descriptive, cost model).
 
+7. expert parallelism, the SLO controller, int8 KV and blockwise
+   attention at full width, over phase 5's params after 5b (each
+   engine released before the next is built; phase 6 runs last), every
+   serving run with K1 and K2 launched once per MoE layer per forward:
+   7a. phase 5's traffic with ``ep_shards=4`` (simulated in the charge
+       path on this one card), hotness placement re-packed every 4
+       decode steps and the 2 hottest (layer, expert) pairs replicated
+       (``[ep]`` lines: per-shard counts, all-to-all and migration
+       bytes, ``placement_summary()``); its recorded trace must replay to
+       the live run, per-shard epoch counts, migrations and placement
+       exactly; at least one migration and some all-to-all traffic;
+   7b. the same traffic from two tenants in turn with the int8 KV cache
+       and the SLO controller (two tenant SLOs, a partitioned cache):
+       the controller's actions and summary, per-tenant miss rates and
+       low-bit shares, the KV cache's bytes ((head_dim + 4) / (2
+       head_dim) of bf16's) (``[ctl-int8]``); the trace's replay must
+       reproduce the live epoch counts and miss curve exactly, the
+       energy curve at rtol 1e-6 and the controller's summary;
+   7c. one request of 9216 prompt tokens (above the 8192-key threshold:
+       every layer's prefill attention runs blockwise) with the int8 KV
+       cache, then 4 decode steps; before it, layer 0's q/k/v of that
+       prompt in f32 through ``blockwise_attention`` and the dense body
+       on the card, which must agree at 1e-4 + 1e-4*|dense|
+       (``[long]``: both times, the prefill's wall, peak memory).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 6.
+busy share).  Without arguments the script runs phases 1 to 7.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
 and K5 as rows of their own; ``launches`` counts phase 5's run for K1 and
 K2, phase 3c's for K3-K5, phase 3d's for the f32 rows of K3 and K5 and
-phase 4's for the f32 rows of K1 and K2; ``graph_ms`` and
+phase 4's bf16-KV run for the f32 rows of K1 and K2; ``graph_ms`` and
 ``library_graph_ms`` beside ``ms`` and ``library_ms``).
 """
 
@@ -350,12 +382,14 @@ def _versus_library(name, t) -> None:
 def phase_kernels(cfg):
     """Each variant of the kernel against its plain version at the shapes
     the main path gives it, then timed.  The main path runs bf16
-    activations (the model's dtype) at the decode capacity (4 sequences)
-    and the prefill capacity (128 tokens); the f32 rows are the engine's
-    f32 parity mode (three bf16 planes of x) at the same shapes.  Returns,
-    per code layout and activation type (``k_major``, ``output_major``,
-    with ``_f32`` for f32 x), the timings of the decode variant and the
-    largest error over all its rows."""
+    activations (the model's dtype) at the decode capacity (4 sequences),
+    the prefill capacity (128 tokens) and phase 7c's long-prefill capacity
+    (``LONG_PROMPT`` tokens, more than one block of rows); the f32 rows
+    are the engine's f32 parity mode (three bf16 planes of x) at the
+    decode and prefill shapes.  Returns, per code layout and activation
+    type (``k_major``, ``output_major``, with ``_f32`` for f32 x), the
+    timings of the decode variant and the largest error over all its
+    rows."""
     from repro_torch.kernels.amat_matmul import ops
     from repro_torch.kernels.amat_matmul.ref import (
         _dequant_mixed_ref, amat_batched_matmul_ref, amat_batched_matmul_t_ref)
@@ -366,6 +400,7 @@ def phase_kernels(cfg):
     m = cfg.moe
     m_dec = capacity(4, m.top_k, m.n_experts, m.capacity_factor)
     m_pre = capacity(128, m.top_k, m.n_experts, m.capacity_factor)
+    m_long = capacity(LONG_PROMPT, m.top_k, m.n_experts, m.capacity_factor)
     wi = (m.n_experts, cfg.d_model, 2 * m.d_ff)         # (E, K, N)
     wo = (m.n_experts, m.d_ff, cfg.d_model)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -383,6 +418,10 @@ def phase_kernels(cfg):
          False, False),
         ("wo_t_bf16_prefill", "output_major", True, bf16,
          (wo[0], m_pre, *wo[1:]), False, False),
+        ("wi_bf16_long_prefill", "k_major", False, bf16,
+         (wi[0], m_long, *wi[1:]), False, False),
+        ("wo_t_bf16_long_prefill", "output_major", True, bf16,
+         (wo[0], m_long, *wo[1:]), False, False),
         ("wi_f32_prefill", "k_major", False, f32, (wi[0], m_pre, *wi[1:]),
          False, False),
         ("wo_t_f32_prefill", "output_major", True, f32,
@@ -712,11 +751,9 @@ def phase_sweep_splits(cfg):
         amat_ops.mma_plan = plan
 
 
-def _drive_entry_points(tag, run, want):
-    """Set every kernel's launch count to 0, call ``run()``, which returns
-    ``{what: (output, expected shape)}``, and read the counts just after.
-    Fails if an output is not finite or of another shape, or if the counts
-    are not ``want``; returns the counts."""
+def _counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before and
+    read just after; returns its result and the counts."""
     from repro_torch.kernels.amat_matmul import ops as amat_ops
     from repro_torch.kernels.expert_matmul import ops as expert_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -725,9 +762,17 @@ def _drive_entry_points(tag, run, want):
     torch.cuda.synchronize()
     for c in counters:
         c.reset()
-    outs = run()
+    out = run()
     torch.cuda.synchronize()
-    launches = {k: n for c in counters for k, n in c.by_key.items()}
+    return out, {k: n for c in counters for k, n in c.by_key.items()}
+
+
+def _drive_entry_points(tag, run, want):
+    """Set every kernel's launch count to 0, call ``run()``, which returns
+    ``{what: (output, expected shape)}``, and read the counts just after.
+    Fails if an output is not finite or of another shape, or if the counts
+    are not ``want``; returns the counts."""
+    outs, launches = _counted(run)
     for what, (out, shape) in outs.items():
         finite = bool(torch.isfinite(out).all())
         say(f"[{tag}] {what}: {tuple(out.shape)} f32, finite {finite}")
@@ -818,45 +863,50 @@ def phase_f32_path(cfg):
             "flash_f32": launches["flash"]}
 
 
+def _small_engine(cfg, params, device: str):
+    """Phase 4's engine over ``params`` on ``device``: the kernel path on
+    the card, the plain dense path on the CPU."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import EngineConfig, SliceMoEEngine
+    from repro_torch.models.moe import RoutingPolicy
+
+    return SliceMoEEngine(cfg, params, EngineConfig(
+        mat=MatConfig(8, 4), cache_bytes=50e6,
+        policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
+                             quant_execution=device == "cuda"),
+        miss_rate_target=0.05, warmup="pcw", max_seq=48), device=device)
+
+
+def _launched_k1_k2(launches) -> bool:
+    return launches["k_major"] > 0 and launches["output_major"] > 0
+
+
 def phase_small_reference():
     """The kernel path on the card against the plain dense path on the
     CPU, end to end through the engine, on a small input in f32: the
-    batched expert kernels' f32 route (three bf16 planes of x).  Every
-    launch count is set to 0 just before and read just after; K1 and K2
-    must have launched.  Returns their counts, keyed as the JSON rows of
-    the f32 routes."""
+    batched expert kernels' f32 route (three bf16 planes of x), then the
+    same with the int8 KV cache.  Every launch count is set to 0 just
+    before each card run and read just after; K1 and K2 must have
+    launched in each.  Returns the bf16-KV run's counts, keyed as the JSON
+    rows of the f32 routes."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.amat import MatConfig
-    from repro_torch.core.engine import EngineConfig, SliceMoEEngine
-    from repro_torch.kernels.amat_matmul import ops as amat_ops
-    from repro_torch.kernels.expert_matmul import ops as expert_ops
-    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.models.model import init_params
-    from repro_torch.models.moe import RoutingPolicy
-
-    counters = (amat_ops.LAUNCHES, expert_ops.LAUNCHES, flash_ops.LAUNCHES)
 
     cfg = dataclasses.replace(get_config("qwen15-moe-repro"), n_layers=2,
                               dtype="float32")
     params = init_params(cfg, seed=0, device="cpu")
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 24))
-    out = {}
-    torch.cuda.synchronize()
-    for c in counters:
-        c.reset()
-    for dev, qe in (("cpu", False), ("cuda", True)):
-        eng = SliceMoEEngine(cfg, params, EngineConfig(
-            mat=MatConfig(8, 4), cache_bytes=50e6,
-            policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
-                                 quant_execution=qe),
-            miss_rate_target=0.05, warmup="pcw", max_seq=48), device=dev)
+
+    def run(dev):
+        eng = _small_engine(cfg, params, dev)
         logits = eng.prefill(prompt)
         toks, metrics = eng.decode(torch.argmax(logits, -1), 6)
-        out[dev] = (logits.cpu(), toks.cpu(), metrics["cache_stats"])
-    torch.cuda.synchronize()
-    launches = {k: n for c in counters for k, n in c.by_key.items()}
+        return logits.cpu(), toks.cpu(), metrics["cache_stats"]
+
+    out = {"cpu": run("cpu")}
+    out["cuda"], launches = _counted(lambda: run("cuda"))
     lerr = float((out["cpu"][0] - out["cuda"][0]).abs().max())
     same_tokens = bool(torch.equal(out["cpu"][1], out["cuda"][1]))
     same_stats = out["cpu"][2] == out["cuda"][2]
@@ -867,22 +917,101 @@ def phase_small_reference():
         f"output_major > 0: the f32 route of K1 and K2)")
     if not (lerr <= 1e-4 and same_tokens and same_stats):
         fail("small-input reference check")
-    if not (launches["k_major"] > 0 and launches["output_major"] > 0):
+    if not _launched_k1_k2(launches):
         fail("reference check: the f32 path did not launch K1 and K2")
+    _small_int8_kv(cfg, params, prompt)
     return {"k_major_f32": launches["k_major"],
             "output_major_f32": launches["output_major"]}
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _small_int8_kv(cfg, params, prompt, steps: int = 6):
+    """Phase 4's int8-KV run: the same model and prompt with
+    ``kv_dtype="int8"``, on the card through the kernel and on the CPU
+    through the plain path.  Both prefill (logits at 1e-4, and the two
+    caches' codes compared); the card then decodes from the CPU's cache,
+    carried across, so both decodes start from the same int8 codes: a
+    K/V value within an f32 ulp of a rounding tie may take either code,
+    and one code step moves the logits by about 3e-4.  Each decode
+    step's logits must agree at 1e-4, the tokens exactly, and the cache
+    stats at the end.  The card's prefill and its decode each count their
+    own launches, and K1 and K2 must launch in both."""
+    import dataclasses
+
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    eng = {dev: _small_engine(cfg8, params, dev) for dev in ("cpu", "cuda")}
+    first = {"cpu": eng["cpu"].prefill(prompt).cpu()}
+    first["cuda"], pre_launches = _counted(
+        lambda: eng["cuda"].prefill(prompt).cpu())
+    perr = float((first["cpu"] - first["cuda"]).abs().max())
+    code_diff = [int((eng["cpu"].kv_cache[key][name]
+                      != eng["cuda"].kv_cache[key][name].cpu()).sum())
+                 for key in eng["cpu"].kv_cache if key != "pos"
+                 for name in ("k", "v")]
+    n_codes = sum(eng["cpu"].kv_cache[key][name].numel()
+                  for key in eng["cpu"].kv_cache if key != "pos"
+                  for name in ("k", "v"))
+    eng["cuda"].kv_cache = _to_device(eng["cpu"].kv_cache, "cuda")
+
+    def decode(e, first_logits):
+        token = torch.argmax(first_logits, -1).to(e.device)
+        logits, tokens = [], [token.cpu()]
+        for _ in range(steps):
+            lg, e.kv_cache, charge = e.decode_batch(token, e.kv_cache,
+                                                    alpha=e.alpha)
+            if e.controller is not None:
+                e.alpha = e.controller.update(charge.miss_rate)
+            token = torch.argmax(lg, -1)
+            logits.append(lg.cpu())
+            tokens.append(token.cpu())
+        return logits, tokens
+
+    logits, tokens = {}, {}
+    logits["cpu"], tokens["cpu"] = decode(eng["cpu"], first["cpu"])
+    (logits["cuda"], tokens["cuda"]), dec_launches = _counted(
+        lambda: decode(eng["cuda"], first["cuda"]))
+    errs = [float((a - b).abs().max())
+            for a, b in zip(logits["cpu"], logits["cuda"])]
+    same_tokens = all(torch.equal(a, b)
+                      for a, b in zip(tokens["cpu"], tokens["cuda"]))
+    same_stats = eng["cpu"].cache.stats.snapshot() == \
+        eng["cuda"].cache.stats.snapshot()
+    kv = eng["cuda"].kv_cache["pos0"]
+    say(f"[reference] int8 KV (kv_dtype int8, cache leaves "
+        f"{ {n: str(t.dtype) for n, t in kv.items()} }): prefill logits max "
+        f"diff {perr:.2e}; the two prefill caches differ in "
+        f"{sum(code_diff)} of {n_codes} codes; decode from one cache, "
+        f"{steps} steps: logits max diff per step "
+        f"{[f'{e:.2e}' for e in errs]}, tokens equal {same_tokens}, cache "
+        f"stats equal {same_stats}")
+    say(f"[reference] int8-KV kernel launches: prefill {pre_launches}, "
+        f"decode {dec_launches} (want k_major and output_major > 0 in each)")
+    if not (perr <= 1e-4 and max(errs) <= 1e-4 and same_tokens
+            and same_stats):
+        fail("int8-KV reference check")
+    if not (_launched_k1_k2(pre_launches) and _launched_k1_k2(dec_launches)):
+        fail("int8-KV reference check: the card's prefill or decode did not "
+             "launch K1 and K2")
 
 
 SERVE_PROMPT, SERVE_NEW, SERVE_REQ = 128, 16, 4
 
 
-def _serve(cfg, params, ecfg, prompts, tag: str, device: str):
-    """Serve ``prompts`` (``SERVE_NEW`` new tokens each) through the
-    continuous-batching scheduler with a trace recorder attached, the
-    launch counts set to 0 just before the run and read just after.
-    Fails unless every request is served in full, every logit is finite
-    and (on the card) K1 and K2 launched once per MoE layer per forward.
-    Returns the run's engine, scheduler, trace and figures."""
+def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
+           new: int = SERVE_NEW, tenants=None):
+    """Serve ``prompts`` (``new`` new tokens each, request ``i`` from
+    tenant ``tenants[i]`` when given) through the continuous-batching
+    scheduler (one slot per prompt, at most ``SERVE_REQ``) with a trace
+    recorder attached, the launch counts set to 0 just before the run and
+    read just after.  Fails unless every request is served in full, every
+    logit is finite and (on the card) K1 and K2 launched once per MoE
+    layer per forward.  Returns the run's engine, scheduler, trace and
+    figures."""
     from repro_torch.core.engine import PersistentEngine
     from repro_torch.kernels.amat_matmul import ops
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
@@ -922,10 +1051,14 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str):
     sync()
     t_quant = time.perf_counter() - t0
     sched = ContinuousBatchingScheduler(
-        engine, SchedulerConfig(max_batch=SERVE_REQ), device=device)
+        engine, SchedulerConfig(max_batch=min(len(prompts), SERVE_REQ)),
+        device=device)
     for i, prompt in enumerate(prompts):
-        sched.submit(Request(request_id=i, prompt=prompt,
-                             max_new_tokens=SERVE_NEW))
+        if not sched.submit(Request(
+                request_id=i, prompt=prompt, max_new_tokens=new,
+                tenant="default" if tenants is None else tenants[i])):
+            fail(f"{tag}: request {i} was not admitted")
+
     class TimedRecorder(TraceRecorder):
         """Adds up its own host time: the run's walls include it."""
         seconds = 0.0
@@ -955,7 +1088,7 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str):
     say(f"[{tag}] kernel launches: {launches} (want {want} each, "
         f"{2 * want} in all)")
     if len(completions) != len(prompts) or any(
-            len(c.tokens) != SERVE_NEW for c in completions):
+            len(c.tokens) != new for c in completions):
         fail(f"{tag}: not every request was served in full")
     if on_card and (launches["k_major"] != want
                     or launches["output_major"] != want):
@@ -1172,6 +1305,243 @@ def phase_serving_async(cfg, params, prompts, p5, device: str = "cuda"):
     p = rep.prefetch
     if p["in_flight"] or p["issued"] != p["useful"] + p["late"] + p["wasted"]:
         fail(f"serve-async: prefetch outcomes do not partition: {p}")
+    return run["launches"]
+
+
+EP_SHARDS, EP_PERIOD, EP_REPLICAS = 4, 4, 2
+LONG_PROMPT, LONG_NEW = 9216, 4
+
+
+def _phase7_engine_config(p5, **over):
+    """Phase 5's engine settings (MAT84, Cache-Prior + DBSC with quantized
+    execution, PCW, a quarter of the store cached) with ``over``."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models.moe import RoutingPolicy
+
+    kw = dict(mat=MatConfig(8, 4), cache_bytes=p5["cache_bytes"],
+              policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
+                                   quant_execution=True),
+              miss_rate_target=0.05, warmup="pcw",
+              max_seq=SERVE_PROMPT + SERVE_NEW + 1)
+    kw.update(over)
+    return EngineConfig(**kw)
+
+
+def _say_walls(tag: str, run) -> None:
+    sched = run["sched"]
+    say(f"[{tag}] {len(sched.wall_prefill_s)} prefills, "
+        f"{len(sched.wall_step_s)} decode steps, wall {run['wall']:.2f} s; "
+        f"wall per prefill (s) {[round(x, 4) for x in sched.wall_prefill_s]}"
+        f"; wall per decode step: median {np.median(sched.wall_step_s):.4f}"
+        f" s, min {min(sched.wall_step_s):.4f} s, max "
+        f"{max(sched.wall_step_s):.4f} s")
+
+
+def phase_ep_placement(cfg, params, prompts, p5, device: str = "cuda"):
+    """Phase 7a: phase 5's traffic over phase 5's params with expert
+    parallelism simulated in the charge path on this one device:
+    ``ep_shards=4``, hotness placement re-packed every 4 decode steps
+    with the 2 hottest (layer, expert) pairs replicated.  Prints the
+    per-shard counts, the all-to-all and migration traffic and the
+    placement summary; the recorded trace must replay to the live run
+    (epoch counts, per-shard epoch counts, migrations and the placement
+    summary exactly, the ledger at rtol 1e-6)."""
+    ecfg = _phase7_engine_config(
+        p5, ep_shards=EP_SHARDS, placement="hotness",
+        placement_period=EP_PERIOD, replicate_k=EP_REPLICAS)
+    run = _serve(cfg, params, ecfg, prompts, "ep", device)
+    engine = run["engine"]
+    for row in engine.shard_breakdown():
+        say(f"[ep] shard {row['shard']}: owns {len(row['experts'])} of "
+            f"layer 0's {cfg.moe.n_experts} experts; accesses "
+            f"{row['accesses']}, misses {row['misses']} (miss rate "
+            f"{row['miss_rate']:.4f}); flash {row['flash_bytes']!r} B, "
+            f"energy {row['energy_j']!r} J, makespan {row['makespan_s']!r} "
+            f"s (cost model)")
+    led = engine.ledger.snapshot()
+    a2a = led["ici_bytes"] - led["migration_bytes"]
+    say(f"[ep] all-to-all bytes {a2a!r}, migrations {led['n_migrations']} "
+        f"slices, migration bytes {led['migration_bytes']!r}, interconnect "
+        f"energy {led['ici_energy_j']!r} J; total energy "
+        f"{led['total_energy_j']!r} J, latency {led['total_latency_s']!r} "
+        f"s; phase 5 (one device): {p5['energy_j']!r} J, "
+        f"{p5['latency_s']!r} s (cost model)")
+    say(f"[ep] placement_summary: {engine.placement_summary()}")
+    say(f"[ep] migration events: {engine.migration_events}")
+    say(f"[ep] kernel launches {run['launches']}")
+    _say_walls("ep", run)
+    rep = _check_replay(run, "ep",
+                        os.path.join(HERE, "build", "ep_trace.npz"))
+    per_shard = engine.cache.per_shard_epoch_counts()
+    say(f"[replay] ep: per-shard epoch counts equal "
+        f"{rep.per_shard_epoch_counts == per_shard}, migrations equal "
+        f"{(rep.migration_events or []) == engine.migration_events}, "
+        f"placement summary equal "
+        f"{rep.placement == engine.placement_summary()}")
+    if rep.per_shard_epoch_counts != per_shard:
+        fail("ep: replayed per-shard epoch counts differ")
+    if (rep.migration_events or []) != engine.migration_events \
+            or rep.placement != engine.placement_summary():
+        fail("ep: replayed migrations or placement differ")
+    if not engine.migration_events or a2a <= 0:
+        fail("ep: no migration or no all-to-all traffic in the run")
+    return run["launches"]
+
+
+def _kv_bytes(cache) -> float:
+    return float(sum(t.numel() * t.element_size()
+                     for key, entry in cache.items() if key != "pos"
+                     for t in entry.values()))
+
+
+def phase_controller_int8(cfg, params, prompts, p5, device: str = "cuda"):
+    """Phase 7b: phase 5's traffic from two tenants in turn, with the int8
+    KV cache and the SLO controller (two tenant SLOs, a partitioned cache,
+    one device).  ``batch`` carries a miss SLO no run meets, so the
+    controller demotes it and then moves cache bytes to it from
+    ``premium``.  Prints the controller's actions and summary, each
+    tenant's miss rate and low-bit share and the KV cache's bytes (about
+    half of bf16's); the recorded trace must replay to the live run
+    (epoch counts and the miss curve exactly, the energy curve and the
+    ledger at rtol 1e-6, the controller's summary equal)."""
+    import dataclasses
+
+    from repro_torch.control import ControllerConfig, TenantSLO
+
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    ctl = ControllerConfig(
+        slos={"premium": TenantSLO(miss_rate=0.60, lowbit_frac=0.05,
+                                   bit_floor="high"),
+              "batch": TenantSLO(miss_rate=1e-6, lowbit_frac=1.0)},
+        interval=2, window=8, cooldown=4, partition=True)
+    ecfg = _phase7_engine_config(p5, controller=ctl)
+    tenants = ["premium", "batch"] * (len(prompts) // 2)
+    run = _serve(cfg8, params, ecfg, prompts, "ctl-int8", device,
+                 tenants=tenants)
+    engine, sched = run["engine"], run["sched"]
+    kv8 = _kv_bytes(sched.batch_cache)
+    kv16 = float(sum(2 * sched.batch_cache[key][name].numel()
+                     for key in sched.batch_cache if key != "pos"
+                     for name in ("k", "v")))
+    say(f"[ctl-int8] KV cache {kv8 / 1e6:.3f} MB (int8 codes + f32 scales, "
+        f"{max(len(prompts), 1)} slots x {ecfg.max_seq} positions x "
+        f"{cfg.n_layers} layers), bf16 would take {kv16 / 1e6:.3f} MB: "
+        f"{kv8 / kv16:.4f} of it, (head_dim + 4) / (2 head_dim)")
+    summary = engine.slo_controller.summary()
+    say(f"[ctl-int8] controller actions: {engine.slo_controller.actions}")
+    say(f"[ctl-int8] controller summary: levels {summary['levels']}, "
+        f"budgets {summary['budgets']}, admit_fracs "
+        f"{summary['admit_fracs']}, {summary['n_actions']} actions over "
+        f"{summary['steps']} steps; cache segments "
+        f"{engine.cache.budgets()}")
+    totals: dict = {}
+    for step in sched.telemetry.steps:
+        for t, row in (step.per_tenant or {}).items():
+            acc = totals.setdefault(t, dict.fromkeys(row, 0))
+            for k, v in row.items():
+                acc[k] += v
+    for t, row in sorted(totals.items()):
+        say(f"[ctl-int8] tenant {t}: {row['tokens']} decode tokens, miss "
+            f"rate {row['misses'] / max(row['accesses'], 1):.4f} "
+            f"({row['misses']} of {row['accesses']}), low-bit share of "
+            f"critical selections "
+            f"{row['critical_low'] / max(row['critical'], 1):.4f} "
+            f"({row['critical_low']} of {row['critical']})")
+    say(f"[ctl-int8] kernel launches {run['launches']}")
+    _say_walls("ctl-int8", run)
+    rep = _check_replay(run, "ctl-int8",
+                        os.path.join(HERE, "build", "ctl_int8_trace.npz"))
+    live_e = sched.telemetry.energy_curve()
+    e_off = [i for i, (a, b) in enumerate(zip(rep.energy_curve, live_e))
+             if abs(a - b) > 1e-6 * max(abs(a), abs(b))]
+    say(f"[replay] ctl-int8: energy curve equal at rtol 1e-6 "
+        f"{not e_off and len(rep.energy_curve) == len(live_e)}, controller "
+        f"summary equal {rep.controller_summary == summary}")
+    if e_off or len(rep.energy_curve) != len(live_e):
+        fail(f"ctl-int8: replayed energy curve differs at steps {e_off}")
+    if rep.controller_summary != summary:
+        fail("ctl-int8: replayed controller summary differs")
+    hd = cfg.head_dim
+    if kv8 * 2 * hd != kv16 * (hd + 4):
+        fail("ctl-int8: the int8 KV cache is not (head_dim + 4) / "
+             "(2 head_dim) of bf16's")
+    if not summary["n_actions"]:
+        fail("ctl-int8: the controller never acted")
+    return run["launches"]
+
+
+def phase_long_prefill(cfg, params, p5, device: str = "cuda",
+                       n_prompt: int = LONG_PROMPT):
+    """Phase 7c: one request of ``n_prompt`` tokens (above the 8192-key
+    threshold, so every layer's prefill attention runs blockwise) with
+    the int8 KV cache through the engine, then ``LONG_NEW`` decode steps.
+    First layer 0's q/k/v of that prompt (from the float params, in f32)
+    go through ``blockwise_attention`` and the dense body of
+    ``attention`` on the device: they must agree at 1e-4 + 1e-4*|dense|.
+    Prints both times, the prefill's wall and the peak memory."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MDL
+
+    on_card = device == "cuda"
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab_size, n_prompt).astype(np.int32)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        p0 = MDL._index(params["blocks"], 0)["pos0"]
+        x = params["embed"][torch.as_tensor(prompt, device=device)[None]]
+        h = L.rms_norm(x.to(MDL._dt(cfg)), p0["norm"], cfg.norm_eps)
+        q, k, v = MDL._attn_qkv(p0, h, cfg)
+        pos = torch.arange(n_prompt, device=device)[None]
+        q, k, v = (L.apply_rope(q, pos, cfg.rope_theta).float(),
+                   L.apply_rope(k, pos, cfg.rope_theta).float(), v.float())
+        sync()
+        t0 = time.perf_counter()
+        blk = L.blockwise_attention(q, k, v, causal=True)
+        sync()
+        t_blk = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = L.dense_attention(q, k, v, causal=True)
+        sync()
+        t_dense = time.perf_counter() - t0
+        err = (blk - dense).abs()
+        bad = int((err > TOL_ABS + TOL_REL * dense.abs()).sum())
+        max_err = float(err.max())
+    peak_check = torch.cuda.max_memory_allocated() if on_card else 0
+    say(f"[long] layer 0 of a {n_prompt}-token prompt ({cfg.n_heads} heads "
+        f"of {cfg.head_dim}, f32 q/k/v): blockwise_attention (blocks of "
+        f"{L.BLOCK_KV} keys) {t_blk * 1e3:.1f} ms, dense body "
+        f"{t_dense * 1e3:.1f} ms (first calls, host clock); max abs diff "
+        f"{max_err:.2e}, {bad} entries over 1e-4 + 1e-4*|dense|; peak "
+        f"memory of the check {peak_check / 1e9:.2f} GB")
+    if bad or not bool(torch.isfinite(blk).all()):
+        fail("long: blockwise attention disagrees with the dense body")
+    del q, k, v, blk, dense, err, x, h
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ecfg = _phase7_engine_config(p5, max_seq=n_prompt + LONG_NEW + 12)
+    run = _serve(cfg8, params, ecfg, [prompt], "long", device, new=LONG_NEW)
+    sched = run["sched"]
+    kv = _kv_bytes(sched.batch_cache)
+    say(f"[long] prefill of {n_prompt} tokens through the engine: wall "
+        f"{sched.wall_prefill_s[0]:.4f} s; {len(sched.wall_step_s)} decode "
+        f"steps, wall per step {[round(x, 4) for x in sched.wall_step_s]} "
+        f"s; int8 KV cache {kv / 1e9:.3f} GB for {ecfg.max_seq} positions; "
+        f"kernel launches {run['launches']}")
+    if on_card:
+        say(f"[long] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return run["launches"]
 
 
@@ -1398,6 +1768,11 @@ def _leaves(tree):
         yield tree
 
 
+def _release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     name, count, _ = phase_device()
     sys.path.insert(0, os.path.join(HERE, "src"))
@@ -1418,13 +1793,18 @@ def main() -> None:
     # Phase 5b builds its engine over the same params: release phase 5's
     # codes and caches first, so the peak stays near phase 5's.
     del engine, new_requests
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     phase_serving_async(cfg, params, prompts, p5)
-    # Phase 6 trains and serves a model of its own: release 5b's params.
+    # Phase 7 serves phase 5's params again, one engine at a time, each
+    # released before the next is built.
+    for phase in (phase_ep_placement, phase_controller_int8):
+        _release()
+        phase(cfg, params, prompts, p5)
+    _release()
+    phase_long_prefill(cfg, params, p5)
+    # Phase 6 trains and serves a model of its own: release the params.
     del params, prompts
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     phase_train_serve(cfg)
     amat_src = "src/repro_torch/kernels/amat_matmul/csrc/amat_batched_matmul.cu"
     kernels = []

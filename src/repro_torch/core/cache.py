@@ -104,8 +104,8 @@ class SliceCache:
     def set_active_tenant(self, tenant) -> None:
         """Tenant-attribution hint for fills.  No-op here: the flat cache
         has no per-tenant segments.  The engine calls this unconditionally
-        on its charge path; the reference's tenant-partitioned cache
-        (``repro.control.partition``, not ported yet) overrides it."""
+        on its charge path; :class:`repro_torch.control.partition.
+        TenantPartitionedCache` overrides it to route fills."""
 
     def __init__(self, capacity_bytes: float, *, slice_aware: bool = True):
         self.capacity = float(capacity_bytes)

@@ -20,17 +20,25 @@ quantized store, slice cache, hotness tracker, ledger) and per-request
 state (KV cache, controller ``alpha``); :class:`SliceMoEEngine` is the
 single-request API.
 
-The charge path is ported on one device in both disciplines: serialized
-(``async_io=False``) and the event-timeline pipeline (``async_io=True``),
-each with the configured expert prefetcher (``prefetch_top_m``,
-:mod:`repro_torch.core.prefetch`).  It consumes only routing arrays, so
+The charge path runs in both disciplines: serialized (``async_io=False``)
+and the event-timeline pipeline (``async_io=True``), each with the
+configured expert prefetcher (``prefetch_top_m``,
+:mod:`repro_torch.core.prefetch`).  Expert parallelism (``ep_shards > 1``)
+is simulated in the charge path on the one device the model runs on: a
+:class:`ShardedSliceCache` and :class:`ShardedCostLedger` split the DRAM
+budget and the channel clocks by shard, the expert placement policy
+(:mod:`repro_torch.core.placement`) decides ownership and migrates slices
+every ``placement_period`` decode steps, and remote selections pay
+all-to-all bytes on the interconnect.  An SLO ``controller``
+(:mod:`repro_torch.control`) plans per-tenant bit levels and resizes the
+tenant segments of a partitioned cache from charge-path counters only.
+The charge path consumes only routing arrays, so
 :class:`repro_torch.sim.replay.ReplayEngine` drives the same methods from
-a recorded or synthetic trace (``recorder`` captures one from a live
-run).  The knobs of the parts still in the queue (``ep_shards > 1``, an
-SLO ``controller``, placement policies, the ``tpu_offload`` profile)
-raise ``NotImplementedError`` naming their ROADMAP.md item.  BuddyMoE
-routing (``policy.kind="buddy"``) calibrates its expert pairs from the
-dense weights when the engine is built.
+a recorded or synthetic trace (``recorder`` captures one from a live run)
+and reproduces every placement and controller decision.  The
+``tpu_offload`` profile raises ``NotImplementedError`` naming its
+ROADMAP.md item.  BuddyMoE routing (``policy.kind="buddy"``) calibrates
+its expert pairs from the dense weights when the engine is built.
 
 ``run_prefill`` and ``decode_batch`` mark their model forward and their
 charge path as ``torch.profiler`` ranges (``slicemoe.prefill_forward``,
@@ -42,21 +50,28 @@ device, since moving the routing trace to the host synchronizes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.control.controller import SLOController
+from repro_torch.control.partition import TenantPartitionedCache
 from repro_torch.core.amat import MatConfig
 from repro_torch.core.cache import SliceCache
+from repro_torch.core.placement import build_placement_policy
 from repro_torch.core.prefetch import RequestPrefetcher, TransitionPrefetcher
 from repro_torch.core.routing import MissRateController, compute_buddies
+from repro_torch.core.shard import (ShardedSliceCache, expert_placement,
+                                    home_shard_of_token,
+                                    remote_selection_mask, shard_of_expert)
 from repro_torch.core.slices import SliceKey, quantize_moe_params
 from repro_torch.core.warmup import HotnessTracker, INIT_STATES, pcw_reshape
 from repro_torch.device import resolve_device
-from repro_torch.hw.energy import CostLedger, expert_weight_step_bytes
+from repro_torch.hw.energy import (CostLedger, ShardedCostLedger,
+                                   expert_weight_step_bytes)
 from repro_torch.hw.specs import SYSTEM_PROFILES
 from repro_torch.models import model as MDL
 from repro_torch.models.moe import RoutingPolicy
@@ -87,7 +102,12 @@ class EngineConfig:
     async_io: bool = False
     # Cross-request hotness aging at each request boundary.
     hotness_request_decay: float = 0.5
-    # Expert-parallel shards; 1 (one device) is ported.
+    # Expert-parallel sharding: partition the experts of every MoE layer
+    # across this many shards (simulated in the charge path).  Each shard
+    # owns its own slice cache segment (cache_bytes / ep_shards, iso
+    # aggregate DRAM) and its own Flash/DRAM/XPU channel clocks; token
+    # dispatch to remote experts is charged on the interconnect channel.
+    # 1 = the single-device model.
     ep_shards: int = 1
     # Prefetch confidence floor: a target layer must have been observed
     # at least this many times before the prefetcher issues fills for it
@@ -109,40 +129,56 @@ class EngineConfig:
     # Request predictor: activation-share floor below which a candidate
     # is never issued (shares sum to <= 1 across experts).
     prefetch_min_score: float = 0.02
-    # Online SLO controller; None (static policy) is ported.
+    # Online SLO controller (repro_torch.control.controller.
+    # ControllerConfig): per-tenant closed-loop bit-plan / cache-partition
+    # / admission adaptation.  None = static policy.
     controller: Optional[object] = None
-    # Expert placement across EP shards, its re-placement period in
-    # decode steps and its replication count; only the defaults
-    # (round-robin, never migrating, no replicas) are ported.
+    # Expert placement policy across EP shards (repro_torch.core.placement):
+    #   'round_robin'          — expert % ep, never migrates;
+    #   'hotness'              — greedy balanced bin-packing of hotness-
+    #                            ranked experts, re-placed every
+    #                            placement_period decode steps with
+    #                            migration bytes charged on the ici channel;
+    #   'hotness+replicate:K'  — hotness plus the K globally hottest
+    #                            experts replicated on every shard.
+    # Ignored (after validation) when ep_shards == 1.
     placement: str = "round_robin"
+    # Decode steps between hotness re-placements (migration cadence).
     placement_period: int = 64
+    # Replication count for the hotness policy (scalar alternative to the
+    # '+replicate:K' spec suffix; the explicit knob wins).
     replicate_k: int = 0
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for settings of unported parts."""
-        todo = []
-        if self.ep_shards != 1:
-            todo.append("ep_shards > 1 (queue 1, 'EP, placement, control')")
-        if self.controller is not None:
-            todo.append("controller (queue 1, 'EP, placement, control')")
-        for knob, default in (("placement", "round_robin"),
-                              ("placement_period", 64), ("replicate_k", 0)):
-            if getattr(self, knob) != default:
-                todo.append(f"{knob}={getattr(self, knob)!r} (queue 1, "
-                            "'EP, placement, control')")
         if self.system not in SYSTEM_PROFILES:
-            todo.append(f"system={self.system!r} (queue 1, 'tpu_offload "
-                        "profile')")
-        if todo:
             raise NotImplementedError(
-                "not ported yet, see ROADMAP.md: " + "; ".join(todo))
+                f"not ported yet, see ROADMAP.md: system={self.system!r} "
+                "(queue 1, 'tpu_offload profile')")
 
-    def cache(self) -> SliceCache:
+    def cache(self, *, placement=None):
         slice_aware = self.policy.slice_mode == "dbsc" and not self.fused_slices
+        if self.controller is not None and self.controller.partition:
+            if self.ep_shards > 1:
+                raise ValueError(
+                    "controller cache partitioning and ep_shards > 1 are "
+                    "mutually exclusive: the DRAM budget cannot be split "
+                    "along both the tenant and the placement axis")
+            return TenantPartitionedCache(
+                self.cache_bytes, sorted(self.controller.slos),
+                shared_frac=self.controller.shared_frac,
+                slice_aware=slice_aware)
+        if self.ep_shards > 1:
+            return ShardedSliceCache(self.cache_bytes, self.ep_shards,
+                                     slice_aware=slice_aware,
+                                     placement=placement)
         return SliceCache(self.cache_bytes, slice_aware=slice_aware)
 
-    def ledger(self) -> CostLedger:
-        return CostLedger(system=SYSTEM_PROFILES[self.system])
+    def ledger(self):
+        system = SYSTEM_PROFILES[self.system]
+        if self.ep_shards > 1:
+            return ShardedCostLedger(system, self.ep_shards)
+        return CostLedger(system=system)
 
     def build_prefetcher(self, n_layers: int, n_experts: int):
         """The configured predictor (or None) — one factory shared by
@@ -164,6 +200,15 @@ class EngineConfig:
             f"unknown prefetch_kind {self.prefetch_kind!r}; "
             "expected 'request' or 'transition'")
 
+    def build_placement_policy(self, n_layers: int, n_experts: int):
+        """The configured placement policy, or None on a single device.
+        Shared by the live engine and the trace-replay engine; the spec is
+        validated even at ``ep_shards == 1``."""
+        pol = build_placement_policy(
+            self.placement, n_layers, n_experts, max(self.ep_shards, 1),
+            replicate_k=self.replicate_k if self.replicate_k else None)
+        return pol if self.ep_shards > 1 else None
+
 
 @dataclasses.dataclass
 class StepCharge:
@@ -174,8 +219,9 @@ class StepCharge:
     misses: int
     per_slot_miss: np.ndarray             # [B] selection-weighted miss rate
     ledger_delta: dict                    # cost delta for this step
-    # Per-tenant counters {tenant: {tokens, accesses, misses}}; None unless
-    # slot tenants were supplied.
+    # Per-tenant charge-path counters {tenant: {tokens, accesses, misses,
+    # critical, critical_low}}: the SLO controller's input signal.  None
+    # unless slot tenants were supplied or a controller is attached.
     per_tenant: Optional[dict] = None
 
 
@@ -219,7 +265,17 @@ class _StepTrace:
     slot_misses: np.ndarray
     accesses: int = 0
     misses: int = 0
+    # [T] tenant names (None entries = unattributed slots): drive the
+    # controller's per-tenant signals and the partitioned cache's fills.
     slot_tenants: Optional[list] = None
+    # Controller bit plan for this step: [T] int8, 0 = full AMAT plan,
+    # 1 = demoted to MSB-only.  Set by the engine after the recorder sees
+    # the trace (recomputed on replay, never recorded).
+    slot_bit_level: Optional[np.ndarray] = None
+    # Accuracy-proxy counters (mutated during replay): per-slot critical
+    # selections, and those served at low precision.
+    slot_critical: Optional[np.ndarray] = None
+    slot_critical_low: Optional[np.ndarray] = None
 
     @property
     def P(self) -> int:
@@ -285,7 +341,20 @@ class PersistentEngine:
         self.n_moe_layers = len(self.layer_map)
         self.n_experts = cfg.moe.n_experts
 
-        self.cache = ecfg.cache()
+        # Expert placement across EP shards: the policy decides the
+        # [L, E] -> shard ownership table; the cache routes keys by it.
+        # None on a single device.
+        self.placement_policy = ecfg.build_placement_policy(
+            self.n_moe_layers, self.n_experts)
+        self.placement = (self.placement_policy.initial()
+                          if self.placement_policy is not None else None)
+        # Re-packing bookkeeping: the decode-step counter driving the
+        # migration cadence, and the executed migrations [{step, moved,
+        # bytes}] that a replay must reproduce exactly.
+        self._decode_steps = 0
+        self.migration_events: List[dict] = []
+
+        self.cache = ecfg.cache(placement=self.placement)
         self.ledger = ecfg.ledger()
         self.tracker = HotnessTracker(self.n_moe_layers, self.n_experts)
         self.requests_served = 0
@@ -308,6 +377,12 @@ class PersistentEngine:
         # state-free (cumsum); compute stays high-bit either way.
         self._prefill_policy = ecfg.policy \
             if ecfg.policy.kind == "cumsum" else None
+        # Online SLO controller: closed-loop bit-plan / cache-partition
+        # adaptation (named apart from the per-request MissRateController).
+        self.slo_controller = None
+        if ecfg.controller is not None:
+            self.slo_controller = SLOController(
+                ecfg.controller, cache_bytes=ecfg.cache_bytes)
 
         # Non-expert resident weight bytes touched per decode step (INT8
         # per the paper's G128 non-expert quantization).
@@ -338,6 +413,52 @@ class PersistentEngine:
         return expert_weight_step_bytes(
             n_codes, n_groups, quant_execution=quant_execution,
             dense_itemsize=MDL._dt(self.cfg).itemsize)
+
+    def shard_breakdown(self) -> Optional[List[dict]]:
+        """Per-shard serving breakdown (None on a single-device engine):
+        lifetime cache accesses/misses, Flash/DRAM traffic, energy and the
+        shard's timeline makespan, one row per shard."""
+        if not isinstance(self.ledger, ShardedCostLedger) \
+                or not isinstance(self.cache, ShardedSliceCache):
+            return None
+        rows = []
+        counts = self.cache.per_shard_counts()
+        if self.placement is not None:
+            # Ownership can differ per layer under the hotness policy; the
+            # row reports the first MoE layer's assignment.
+            owner0 = self.placement.owner_row(0)
+        else:
+            owner0 = expert_placement(self.n_experts, self.ledger.n_shards)
+        for sid, led in enumerate(self.ledger.shards):
+            acc, miss = counts[sid]
+            rows.append({
+                "shard": sid,
+                "experts": np.nonzero(owner0 == sid)[0].tolist(),
+                "accesses": acc,
+                "misses": miss,
+                "miss_rate": miss / max(acc, 1),
+                "flash_bytes": led.flash_bytes,
+                "dram_bytes": led.dram_bytes,
+                "energy_j": led.total_energy_j,
+                "makespan_s": led.now,
+            })
+        return rows
+
+    def placement_summary(self) -> Optional[dict]:
+        """Placement policy + migration accounting (None unsharded)."""
+        if self.placement is None:
+            return None
+        return {
+            "policy": self.placement_policy.name,
+            "period": int(self.ecfg.placement_period),
+            "replicated_pairs": int(np.count_nonzero(
+                self.placement.replicated)),
+            "n_migration_events": len(self.migration_events),
+            "migrated_slices": sum(e["moved"]
+                                   for e in self.migration_events),
+            "migration_bytes": float(
+                getattr(self.ledger, "migration_bytes", 0.0)),
+        }
 
     # --------------------------------------------------- per-request state
     def new_controller(self) -> Optional[MissRateController]:
@@ -432,7 +553,6 @@ class PersistentEngine:
         """
         if active is None:
             active = np.ones(ids.shape, bool)
-        led = self.ledger
         for period in range(ids.shape[0]):
             for pidx, pos in enumerate(self.moe_positions):
                 lidx = self.layer_map[(pos, period)]
@@ -446,20 +566,49 @@ class PersistentEngine:
                     self.prefetcher.observe_prefill(
                         lidx, sel_ids, sel_gates,
                         n_tokens=int(a2d.any(axis=1).sum()))
+                # All-to-all: prompt tokens live round-robin across
+                # shards; selections landing on remote experts pay
+                # dispatch + combine bytes (zero on a single device).
+                nb_a2a, _ = self._a2a_layer_demand(lidx, a2d,
+                                                   ids[period, pidx])
+                if nb_a2a > 0:
+                    self.ledger.ici_transfer(nb_a2a)
+                rep = self._replica_targets(lidx, a2d, ids[period, pidx])
                 for e in np.unique(sel_ids):
-                    for kind in ("msb", "lsb"):   # prefill is high-bit
-                        key = SliceKey(lidx, int(e), kind)
-                        nb = self.store.slice_bytes(key)
-                        hit = self.cache.access(key, nb)
-                        if hit or key in self.cache:
-                            if not hit:           # fill landed
-                                led.miss_fill(nb)
-                            led.dram_read(nb)
-                        else:                     # dropped: direct stream
-                            led.flash_stream(nb)
-                led.matmul(sel_ids.size, self.cfg.d_model,
-                           self.expert_macs_per_token // self.cfg.d_model,
-                           self.ecfg.mat.high_bits)
+                    e = int(e)
+                    # A replicated expert streams into every shard whose
+                    # tokens selected it (each replica charged against
+                    # that shard's cache + channels); everything else
+                    # fills the owning shard.
+                    if e in rep:
+                        segs = [(self.cache.shards[sid],
+                                 self.ledger.shards[sid])
+                                for sid, _ in rep[e]]
+                    else:
+                        segs = [(self.cache, self._ledger_for(lidx, e))]
+                    for cache_seg, led in segs:
+                        for kind in ("msb", "lsb"):   # prefill is high-bit
+                            key = SliceKey(lidx, e, kind)
+                            nb = self.store.slice_bytes(key)
+                            hit = cache_seg.access(key, nb)
+                            if hit or key in cache_seg:
+                                if not hit:           # fill landed
+                                    led.miss_fill(nb)
+                                led.dram_read(nb)
+                            else:                     # dropped: stream
+                                led.flash_stream(nb)
+                # Prefill compute: all actively routed tokens at high
+                # precision, split over the shards executing the
+                # selections (the owner; the token's home shard for a
+                # replicated expert).
+                exec_sh = None if self._n_shards() == 1 else \
+                    self._selection_exec_shards(lidx, a2d, ids[period, pidx])
+                for sid, led in enumerate(self._shard_ledgers()):
+                    t_s = sel_ids.size if exec_sh is None else \
+                        int(np.count_nonzero(exec_sh == sid))
+                    led.matmul(t_s, self.cfg.d_model,
+                               self.expert_macs_per_token // self.cfg.d_model,
+                               self.ecfg.mat.high_bits)
 
     def _finish_prefill(self, label: Optional[str]) -> dict:
         """Prefill→decode transition: warmup reshape + epoch rollover."""
@@ -557,34 +706,205 @@ class PersistentEngine:
           data dependencies on the per-channel clocks, prefetch fills
           ride the Flash channel behind demand fills, and only the layer
           that consumes a late slice stalls.
+
+        The SLO controller is applied entirely inside this function: it
+        plans the step's bit levels after the recorder captures the raw
+        trace and observes/actuates after the charge, consuming only
+        charge-path counters, so a replay recomputes its decisions.
         """
         if self.recorder is not None:
             self.recorder.on_decode(tr)
+        # Placement re-packing runs after the recorder and before any
+        # charging; it consumes only charge-path state (the hotness
+        # tracker and the decode-step counter), so a replay recomputes
+        # the identical migration sequence.
+        self._maybe_migrate()
+        ctl = self.slo_controller
+        T = tr.slot_mask.shape[0]
+        if ctl is not None:
+            tr.slot_bit_level = ctl.plan_bits(tr.slot_tenants, T)
+        # Accuracy-proxy counters run controller or not, so a static
+        # config's low-bit exposure is measurable on the same accounting.
+        tr.slot_critical = np.zeros(T, np.int64)
+        tr.slot_critical_low = np.zeros(T, np.int64)
         replay = self._charge_async if self.ecfg.async_io \
             else self._charge_sync
-        return replay(tr)
+        charge = replay(tr)
+        if ctl is not None:
+            actions = ctl.observe_step(charge.per_tenant or {},
+                                       charge.ledger_delta)
+            budgets = actions.get("budgets")
+            if budgets and self._partitioned:
+                self.cache.set_budgets(budgets)
+        return charge
 
-    # ------------------------------------------- one-device routing bits
-    # The reference dispatches these on its sharded ledger and cache;
-    # on one device each has its single-shard form.  Expert parallelism
-    # (ROADMAP.md queue 1, 'EP, placement, control') fills in the bodies.
+    # -------------------------------------------------- shard routing bits
+    # The helpers dispatch on the ledger and cache objects, not on the
+    # config, so a replay can swap sharded components onto an engine
+    # (``ReplayEngine.force_sharded``) and exercise the identical path.
+    def _shard_ledgers(self) -> List[CostLedger]:
+        led = self.ledger
+        if isinstance(led, ShardedCostLedger):
+            return led.shards
+        return [led]
+
+    def _n_shards(self) -> int:
+        led = self.ledger
+        return led.n_shards if isinstance(led, ShardedCostLedger) else 1
+
+    def _owner_shard(self, lidx: int, expert: int) -> int:
+        """Owning shard of ``expert`` at MoE layer ``lidx`` under the
+        active placement map (round-robin modulo without one)."""
+        if self.placement is not None:
+            return self.placement.owner_of(lidx, expert)
+        return shard_of_expert(expert, self._n_shards())
+
     def _ledger_for(self, lidx: int, expert: int) -> CostLedger:
         """The cost ledger owning ``expert``'s slices at ``lidx``."""
-        return self.ledger
+        led = self.ledger
+        if isinstance(led, ShardedCostLedger):
+            return led.shards[self._owner_shard(lidx, int(expert))]
+        return led
 
     def _compute_frontier(self) -> float:
-        return self.ledger.compute_ch.busy_until
+        led = self.ledger
+        if isinstance(led, ShardedCostLedger):
+            return led.compute_frontier()
+        return led.compute_ch.busy_until
 
     def _segment_capacity(self, key: SliceKey) -> float:
-        """Capacity of the cache segment that would hold ``key`` (the
-        "would this fill be dropped" bound)."""
+        """Capacity of the cache segment that would hold ``key``: the
+        owning shard's share under EP, the targeted tenant segment under
+        partitioning, the whole cache otherwise (the "would this fill be
+        dropped" bound)."""
+        if isinstance(self.cache, ShardedSliceCache):
+            return self.cache.shard(key).capacity
+        if self._partitioned:
+            return self.cache.fill_capacity()
         return self.cache.capacity
+
+    @property
+    def _partitioned(self) -> bool:
+        """Whether the cache routes fills into per-tenant segments."""
+        return isinstance(self.cache, TenantPartitionedCache)
+
+    def _expert_owner(self, tr: _StepTrace, period: int, pidx: int):
+        """expert id -> tenant whose segment a miss fill charges: the
+        first active slot (in slot order, so replay agrees) selecting that
+        expert.  None when fills are unattributed (no tenants, or the
+        cache is not partitioned)."""
+        if tr.slot_tenants is None or not self._partitioned:
+            return None
+        owner: dict = {}
+        act2d = tr.active[period, pidx] & tr.slot_mask[:, None]
+        for b in np.nonzero(tr.slot_mask)[0]:
+            t = tr.slot_tenants[b]
+            if t is None:
+                continue
+            for e in tr.ids[period, pidx][b][act2d[b]]:
+                owner.setdefault(int(e), t)
+        return owner
+
+    def _placement_rows(self, lidx: int):
+        """(owner_row, replicated_row) for ``lidx``; (None, None) when no
+        placement map is active."""
+        if self.placement is None:
+            return None, None
+        return (self.placement.owner_row(lidx),
+                self.placement.replicated_row(lidx))
+
+    def _a2a_layer_demand(self, lidx: int, act2d: np.ndarray,
+                          ids2d: np.ndarray):
+        """All-to-all demand ``(bytes, remote_experts)`` of one layer's
+        ``[T, k]`` routing.  Each active selection whose expert lives on
+        another shard than its token moves its activation out and the
+        result back; selections of replicated experts are never remote.
+        ``(0.0, frozenset())`` on a single device."""
+        n = self._n_shards()
+        if n == 1:
+            return 0.0, frozenset()
+        rows, _ = np.nonzero(act2d)
+        sel = ids2d[act2d]
+        orow, rrow = self._placement_rows(lidx)
+        remote = remote_selection_mask(rows, sel, n,
+                                       owner_row=orow, replicated_row=rrow)
+        if not remote.any():
+            return 0.0, frozenset()
+        return (2.0 * self.cfg.d_model * float(np.count_nonzero(remote)),
+                frozenset(int(e) for e in np.unique(sel[remote])))
 
     def _layer_a2a_demand(self, tr: _StepTrace, period: int, pidx: int,
                           lidx: int):
-        """All-to-all dispatch demand ``(bytes, remote_experts)`` of one
-        layer: none on one device."""
-        return 0.0, frozenset()
+        if self._n_shards() == 1:
+            return 0.0, frozenset()
+        return self._a2a_layer_demand(
+            lidx,
+            tr.active[period, pidx] & tr.slot_mask[:, None],
+            tr.ids[period, pidx])
+
+    def _replica_targets(self, lidx: int, act2d: np.ndarray,
+                         ids2d: np.ndarray) -> dict:
+        """Replica dispatch plan for one layer: ``{expert: [(shard,
+        n_tokens), ...]}`` over the replicated experts with at least one
+        active selection, each expert's tokens split by home shard.
+        Empty unless a placement map with replication is active."""
+        if self.placement is None:
+            return {}
+        rrow = self.placement.replicated_row(lidx)
+        if not rrow.any():
+            return {}
+        n = self._n_shards()
+        rows, _ = np.nonzero(act2d)
+        sel = ids2d[act2d]
+        mask = rrow[sel]
+        out: dict = {}
+        for tok, e in zip(rows[mask], sel[mask]):
+            d = out.setdefault(int(e), {})
+            sid = home_shard_of_token(int(tok), n)
+            d[sid] = d.get(sid, 0) + 1
+        return {e: sorted(d.items()) for e, d in out.items()}
+
+    def _selection_exec_shards(self, lidx: int, act2d: np.ndarray,
+                               ids2d: np.ndarray) -> np.ndarray:
+        """Shard executing each active selection's expert matmul: the
+        owner, except replicated experts run on the token's home shard."""
+        n = self._n_shards()
+        rows, _ = np.nonzero(act2d)
+        sel = ids2d[act2d]
+        if self.placement is None:
+            return shard_of_expert(sel, n)
+        owner = self.placement.owner_row(lidx)[sel]
+        rep = self.placement.replicated_row(lidx)[sel]
+        if rep.any():
+            owner = np.where(rep, home_shard_of_token(rows, n), owner)
+        return owner
+
+    def _maybe_migrate(self) -> None:
+        """Periodic hotness re-placement at decode-step granularity.
+
+        Deterministic in charge-path state only (the hotness tracker and
+        the step counter), so record -> replay reproduces the identical
+        placement maps, moves and interconnect charges.  Each moved
+        slice's bytes are charged on the ici channel."""
+        pol = self.placement_policy
+        if pol is None or not pol.migrates or self._n_shards() <= 1:
+            return
+        self._decode_steps += 1
+        period = max(int(self.ecfg.placement_period), 1)
+        if self._decode_steps % period:
+            return
+        new_map = pol.replace(self.tracker.hotness())
+        if new_map == self.placement:
+            return
+        moves = self.cache.apply_placement(new_map)
+        self.placement = new_map
+        for _key, nb, _frm, _to in moves:
+            self.ledger.migrate(nb)
+        self.migration_events.append({
+            "step": self._decode_steps,
+            "moved": len(moves),
+            "bytes": float(sum(m[1] for m in moves)),
+        })
 
     # -------------------------------------------------- shared replay bits
     def _slice_nbytes(self, key: SliceKey) -> float:
@@ -600,13 +920,27 @@ class PersistentEngine:
         flat_gates = tr.gates[period, pidx][act2d]
         msb_demand = np.unique(flat_ids)
         crit2d = act2d & tr.critical[period, pidx]
+        demoted = None if tr.slot_bit_level is None \
+            else tr.slot_bit_level > 0                            # [T]
         if mode == "highbit":
             lsb_wanted = set(int(e) for e in msb_demand)
         elif mode in ("lowbit", "amat_static"):
             lsb_wanted = set()
-        else:   # dbsc
+        else:   # dbsc: a controller-demoted slot stops demanding LSBs;
+            # an expert critically selected by any kept slot keeps its LSB
+            kept2d = crit2d if demoted is None \
+                else crit2d & ~demoted[:, None]
             lsb_wanted = set(int(e) for e in np.unique(
-                tr.ids[period, pidx][crit2d]))
+                tr.ids[period, pidx][kept2d]))
+        if tr.slot_critical is not None:
+            # Accuracy proxy, plan-level: a demoted slot's critical
+            # selections all count as served-low.
+            tr.slot_critical += crit2d.sum(axis=1)
+            if mode in ("lowbit", "amat_static"):
+                tr.slot_critical_low += crit2d.sum(axis=1)
+            elif mode == "dbsc" and demoted is not None:
+                tr.slot_critical_low += \
+                    (crit2d & demoted[:, None]).sum(axis=1)
         tok_per_e = np.bincount(flat_ids, minlength=self.n_experts)
         return flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e
 
@@ -634,13 +968,17 @@ class PersistentEngine:
             keys.update(m)
         return keys
 
-    def _lsb_prefetch_allowed(self) -> bool:
-        """Whether LSB slices are worth prefetching: DBSC mode only (other
-        modes never demand LSBs separately).  The reference also refuses
-        when an SLO controller has demoted every active slot; the
-        controller is not ported."""
-        return self.ecfg.policy.slice_mode == "dbsc" \
-            and not self.ecfg.fused_slices
+    def _lsb_prefetch_allowed(self, tr: _StepTrace) -> bool:
+        """Whether LSB slices are worth prefetching this step: DBSC mode
+        only (other modes never demand LSBs separately), and not when the
+        controller has demoted every active slot to MSB-only."""
+        if self.ecfg.policy.slice_mode != "dbsc" or self.ecfg.fused_slices:
+            return False
+        demoted = tr.slot_bit_level
+        if demoted is not None and tr.slot_mask.any() \
+                and bool((demoted[tr.slot_mask] > 0).all()):
+            return False
+        return True
 
     def _prefetch_judge(self, lidx: int, msb_demand: np.ndarray,
                         lsb_wanted: set, t_route: float) -> None:
@@ -691,20 +1029,23 @@ class PersistentEngine:
         self._pf_pending.clear()
 
     def _prefetch_issue(self, lidx: int, flat_ids: np.ndarray,
-                        t_issue: float, *, timeline: bool) -> None:
+                        t_issue: float, tr: _StepTrace, *,
+                        timeline: bool) -> None:
         """Plan + enqueue request-predictor fills after ``lidx`` routed.
 
-        Fills ride the Flash background lane behind the layer's demand
-        fills (``timeline=True``) or charge the serialized accounting
-        (``timeline=False``).  Capacity-skipped candidates never count as
-        issued — they moved no bytes."""
+        Fills ride the owning shard's Flash background lane behind the
+        layer's demand fills (``timeline=True``) or charge the serialized
+        accounting (``timeline=False``).  Capacity-skipped candidates
+        never count as issued — they moved no bytes."""
         pf = self.prefetcher
+        if self._partitioned:    # speculative fills: shared segment
+            self.cache.set_active_tenant(None)
         cands = pf.plan(
             lidx, flat_ids,
             is_resident=lambda k: k in self.cache,
             slice_bytes=self._slice_nbytes,
             pending=self._pf_pending_keys(),
-            lsb_allowed=self._lsb_prefetch_allowed())
+            lsb_allowed=self._lsb_prefetch_allowed(tr))
         for key, d in cands:
             nb = self._slice_nbytes(key)
             if key in self.cache or nb > self._segment_capacity(key):
@@ -733,6 +1074,8 @@ class PersistentEngine:
         pf = self.prefetcher
         if pf is None or pf.kind != "request" or not pf.top_m:
             return
+        if self._partitioned:    # speculative fills: shared segment
+            self.cache.set_active_tenant(None)
         cands = pf.plan_prefill(
             is_resident=lambda k: k in self.cache,
             slice_bytes=self._slice_nbytes,
@@ -751,27 +1094,43 @@ class PersistentEngine:
             pf.mark_issued(distance=d)
 
     def _attribute_slot_misses(self, tr: _StepTrace, period: int, pidx: int,
-                               missed_expert: np.ndarray) -> None:
+                               missed_expert: np.ndarray,
+                               missed_rep: Optional[dict] = None) -> None:
         """Charge each slot for every selection that landed on an expert
-        whose slice(s) missed this layer-step."""
+        whose slice(s) missed this layer-step.  ``missed_rep`` (``{expert:
+        {shards that missed}}``) scopes a replicated expert's miss to the
+        slots homed on the shards whose replica missed."""
+        n = self._n_shards()
         for b in np.nonzero(tr.slot_mask)[0]:
             sel = tr.ids[period, pidx][b][tr.active[period, pidx][b]]
             tr.slot_accesses[b] += sel.size
-            tr.slot_misses[b] += int(missed_expert[sel].sum())
+            miss = int(missed_expert[sel].sum())
+            if missed_rep:
+                home = home_shard_of_token(int(b), n)
+                miss += sum(1 for e in sel
+                            if home in missed_rep.get(int(e), ()))
+            tr.slot_misses[b] += miss
 
     def _per_tenant_counts(self, tr: _StepTrace) -> Optional[dict]:
-        """Per-slot replay counters aggregated by tenant."""
-        if tr.slot_tenants is None:
+        """Per-slot replay counters aggregated by tenant (slots with no
+        tenant fall under "default")."""
+        if tr.slot_tenants is None and self.slo_controller is None:
             return None
         out: dict = {}
         for b in np.nonzero(tr.slot_mask)[0]:
-            t = tr.slot_tenants[b] if tr.slot_tenants[b] is not None \
-                else "default"
+            t = "default"
+            if tr.slot_tenants is not None \
+                    and tr.slot_tenants[b] is not None:
+                t = tr.slot_tenants[b]
             row = out.setdefault(t, {"tokens": 0, "accesses": 0,
-                                     "misses": 0})
+                                     "misses": 0, "critical": 0,
+                                     "critical_low": 0})
             row["tokens"] += 1
             row["accesses"] += int(tr.slot_accesses[b])
             row["misses"] += int(tr.slot_misses[b])
+            if tr.slot_critical is not None:
+                row["critical"] += int(tr.slot_critical[b])
+                row["critical_low"] += int(tr.slot_critical_low[b])
         return out
 
     def _step_charge(self, tr: _StepTrace, base: dict) -> StepCharge:
@@ -904,6 +1263,8 @@ class PersistentEngine:
                 issued = None
                 if pf is not None and not pf_req \
                         and prev_used is not None:
+                    if self._partitioned:   # speculative: shared segment
+                        self.cache.set_active_tenant(None)
                     predicted = pf.predict(
                         lidx - 1, prev_used,
                         resident=self._msb_resident_row(lidx))
@@ -921,6 +1282,10 @@ class PersistentEngine:
                 flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e = \
                     self._layer_demand(tr, period, pidx)
                 self.tracker.observe(lidx, flat_ids, flat_gates)
+                # All-to-all token dispatch to remote experts (EP only).
+                nb_a2a, _ = self._layer_a2a_demand(tr, period, pidx, lidx)
+                if nb_a2a > 0:
+                    self.ledger.ici_transfer(nb_a2a)
                 if pf_req:
                     # Serialized fills land instantly, so a correct
                     # prediction that survived until its target layer is
@@ -937,10 +1302,26 @@ class PersistentEngine:
                                 self._slice_nbytes(SliceKey(lidx, e, "msb")))
                     prev_used = flat_ids
 
+                owner = self._expert_owner(tr, period, pidx)
+                rep = self._replica_targets(
+                    lidx, tr.active[period, pidx] & tr.slot_mask[:, None],
+                    tr.ids[period, pidx])
                 missed_expert = np.zeros(self.n_experts, bool)
+                missed_rep: dict = {}
                 for e in msb_demand:
                     e = int(e)
-                    if self._charge_expert_sync(
+                    if owner is not None:
+                        self.cache.set_active_tenant(owner.get(e))
+                    if e in rep:
+                        # Replicated expert: each shard with tokens for
+                        # it runs against its own replica + channels.
+                        for sid, ntok in rep[e]:
+                            if self._charge_expert_sync(
+                                    tr, lidx, e, self.cache.shards[sid],
+                                    self.ledger.shards[sid], ntok,
+                                    lsb_wanted):
+                                missed_rep.setdefault(e, set()).add(sid)
+                    elif self._charge_expert_sync(
                             tr, lidx, e, self.cache,
                             self._ledger_for(lidx, e),
                             int(tok_per_e[e]), lsb_wanted):
@@ -951,18 +1332,42 @@ class PersistentEngine:
                 if pf_req:
                     pf.observe(lidx, flat_ids, flat_gates,
                                crit_ids=lsb_wanted)
-                    self._prefetch_issue(lidx, flat_ids, 0.0,
+                    self._prefetch_issue(lidx, flat_ids, 0.0, tr,
                                          timeline=False)
-                self._attribute_slot_misses(tr, period, pidx, missed_expert)
+                self._attribute_slot_misses(tr, period, pidx, missed_expert,
+                                            missed_rep or None)
         self._charge_resident_sync(tr)
         return self._step_charge(tr, base)
 
+    def _resident_token_share(self, tr: _StepTrace, sid: int) -> int:
+        """Active tokens shard ``sid`` runs the dense (non-expert) layers
+        for: slots are data-parallel round-robin across shards."""
+        n = self._n_shards()
+        if n == 1:
+            return int(tr.slot_mask.sum())
+        active_slots = np.nonzero(tr.slot_mask)[0]
+        return int(np.count_nonzero(
+            home_shard_of_token(active_slots, n) == sid))
+
+    def _resident_shares(self, tr: _StepTrace):
+        """``(ledger, token share)`` of each shard that runs a dense pass
+        this step (one per shard, replicated dense weights)."""
+        n = self._n_shards()
+        for sid, led in enumerate(self._shard_ledgers()):
+            share = self._resident_token_share(tr, sid)
+            if n == 1:
+                share = max(share, 1)   # single-device floor
+            elif share == 0:
+                continue    # no tokens homed here: no dense pass to run
+            yield led, share
+
     def _charge_resident_sync(self, tr: _StepTrace) -> None:
-        """Non-expert resident weights: one pass per decode step."""
-        share = max(int(tr.slot_mask.sum()), 1)
-        self.ledger.dram_read(self.resident_bytes)
-        self.ledger.matmul(share, self.cfg.d_model,
-                           int(self.resident_bytes / self.cfg.d_model) + 1, 8)
+        """Non-expert resident weights: one pass per decode step per
+        shard."""
+        for led, share in self._resident_shares(tr):
+            led.dram_read(self.resident_bytes)
+            led.matmul(share, self.cfg.d_model,
+                       int(self.resident_bytes / self.cfg.d_model) + 1, 8)
 
     # ------------------------------------------- pipelined (async) replay
     def _charge_async(self, tr: _StepTrace) -> StepCharge:
@@ -987,6 +1392,11 @@ class PersistentEngine:
 
         The resident (non-expert) weight stream for the step is issued
         once behind the expert reads and overlaps expert compute.
+
+        Under expert parallelism every per-expert chain issues on the
+        owning shard's channel clocks, so the step's latency is the max
+        over shard timelines plus the all-to-all dispatch, which each
+        remote expert's matmul waits for.
         """
         base = self.ledger.snapshot()
         t_step = self._compute_frontier()
@@ -1006,12 +1416,14 @@ class PersistentEngine:
                 flat_ids, flat_gates, msb_demand, lsb_wanted, tok_per_e = \
                     self._layer_demand(tr, period, pidx)
                 self.tracker.observe(lidx, flat_ids, flat_gates)
-                # All-to-all dispatch: the reference charges the layer's
-                # dispatch bytes here and remote experts' matmuls wait
-                # for them; on one device there are none.
-                _, remote_experts = self._layer_a2a_demand(
+                # All-to-all token dispatch, issued the moment routing is
+                # known; only experts that receive remote tokens wait for
+                # it (t_disp).
+                nb_a2a, remote_experts = self._layer_a2a_demand(
                     tr, period, pidx, lidx)
                 t_disp = t_route
+                if nb_a2a > 0:
+                    _, t_disp = self.ledger.ici_transfer_at(t_route, nb_a2a)
 
                 # --- prefetch usefulness for THIS layer, judged before
                 # demand charging mutates the cache.  The bar is t_route
@@ -1039,27 +1451,46 @@ class PersistentEngine:
                                 key.layer,
                                 key.expert).mark_prefetch_wasted(p_nb)
 
+                owner = self._expert_owner(tr, period, pidx)
+                rep = self._replica_targets(
+                    lidx, tr.active[period, pidx] & tr.slot_mask[:, None],
+                    tr.ids[period, pidx])
                 missed_expert = np.zeros(self.n_experts, bool)
+                missed_rep: dict = {}
                 for e in msb_demand:
                     e = int(e)
-                    if self._charge_expert_async(
+                    if owner is not None:
+                        self.cache.set_active_tenant(owner.get(e))
+                    if e in rep:
+                        # Replicated expert: each shard with tokens for it
+                        # chains against its own replica + channels and
+                        # never waits on the dispatch.
+                        for sid, ntok in rep[e]:
+                            if self._charge_expert_async(
+                                    tr, lidx, e, self.cache.shards[sid],
+                                    self.ledger.shards[sid], ntok,
+                                    lsb_wanted, t_route):
+                                missed_rep.setdefault(e, set()).add(sid)
+                    elif self._charge_expert_async(
                             tr, lidx, e, self.cache,
                             self._ledger_for(lidx, e), int(tok_per_e[e]),
                             lsb_wanted, t_route,
                             t_disp if e in remote_experts else None):
                         missed_expert[e] = True
                 # --- learn + issue prefetch for future layers, behind
-                # this layer's demand fills on the Flash channel.
+                # this layer's demand fills on each shard's Flash channel.
                 if pf_req:
                     pf.observe(lidx, flat_ids, flat_gates,
                                crit_ids=lsb_wanted)
-                    self._prefetch_issue(lidx, flat_ids, t_route,
+                    self._prefetch_issue(lidx, flat_ids, t_route, tr,
                                          timeline=True)
                 elif pf is not None:
                     if prev_used is not None:
                         pf.observe(lidx, prev_used, flat_ids)
                     prev_used = flat_ids
                     if lidx + 1 < self.n_moe_layers:
+                        if self._partitioned:   # speculative: shared seg
+                            self.cache.set_active_tenant(None)
                         predicted = pf.predict(
                             lidx, flat_ids,
                             resident=self._msb_resident_row(lidx + 1))
@@ -1078,19 +1509,19 @@ class PersistentEngine:
                             pending.setdefault(lidx + 1, {})[key] = (end, nb)
                             n_issued += 1
                         pf.mark_issued(n_issued)
-                self._attribute_slot_misses(tr, period, pidx, missed_expert)
+                self._attribute_slot_misses(tr, period, pidx, missed_expert,
+                                            missed_rep or None)
         # Transition-kind prefetch targets lidx+1 (< n_moe_layers), which
         # always runs later in the same step and pops its pending entries
         # — so issued == useful + late + wasted holds per step.
         assert not pending, f"unconsumed prefetch bookkeeping: {pending}"
         # Resident (non-expert) weights stream behind the expert reads
         # and overlap expert compute; the dense step compute waits on
-        # them.
-        share = max(int(tr.slot_mask.sum()), 1)
-        _, res_ready = self.ledger.dram_read_at(t_step, self.resident_bytes)
-        self.ledger.matmul_at(res_ready, share, self.cfg.d_model,
-                              int(self.resident_bytes / self.cfg.d_model)
-                              + 1, 8)
+        # them (per shard, tokens split data-parallel).
+        for led, share in self._resident_shares(tr):
+            _, res_ready = led.dram_read_at(t_step, self.resident_bytes)
+            led.matmul_at(res_ready, share, self.cfg.d_model,
+                          int(self.resident_bytes / self.cfg.d_model) + 1, 8)
         self.cache.settle(self.ledger.now)
         return self._step_charge(tr, base)
 

@@ -20,12 +20,13 @@ the timeline:
   Flash lane.
 
 Energy is time-independent, so both disciplines charge the same energy
-for the same events.  The ledger here is the single-device one with its
-prefetch lane; the interconnect and migration charges, ``reset``, the
-tracer hook and ``ShardedCostLedger`` are ROADMAP.md queue 1, 'EP,
-placement, control' and 'Observability'.  Their accumulators stay in
-:meth:`CostLedger.snapshot` at zero so a snapshot compares key for key
-with the reference's.
+for the same events.  Expert parallelism is simulated in the charge path:
+:class:`ShardedCostLedger` holds one :class:`CostLedger` per shard plus a
+shared interconnect sub-ledger, whose channel carries the all-to-all
+dispatch (:meth:`CostLedger.ici_transfer`) and the placement migrations
+(:meth:`CostLedger.migrate`).  The timeline tracer that the reference
+hangs off every charge is ROADMAP.md queue 1, 'Observability'; the hook
+here accepts only ``None``.
 """
 
 from __future__ import annotations
@@ -70,6 +71,10 @@ class ChannelTimeline:
         self.busy_s += duration
         return start, end
 
+    def reset(self) -> None:
+        self.busy_until = 0.0
+        self.busy_s = 0.0
+
 
 @dataclasses.dataclass
 class CostLedger:
@@ -109,14 +114,17 @@ class CostLedger:
     prefetch_flash_bytes: float = 0.0
     prefetch_wasted_energy_j: float = 0.0
 
-    # Interconnect and migration charges (ROADMAP.md queue 1, 'EP,
-    # placement, control'): zero on one device, kept so snapshots share
-    # the reference's keys.
+    # interconnect (all-to-all token dispatch under expert parallelism;
+    # zero on every single-device run)
     ici_bytes: float = 0.0
     ici_latency_s: float = 0.0
     ici_energy_j: float = 0.0
     n_ici_transfers: int = 0
-    ici_busy_s: float = 0.0
+    ici_ch: ChannelTimeline = dataclasses.field(
+        default_factory=lambda: ChannelTimeline("ici"))
+
+    # expert-migration traffic (placement re-packing moving resident
+    # slices shard-to-shard; a tagged subset of the ici accumulators)
     migration_bytes: float = 0.0
     n_migrations: int = 0
 
@@ -125,7 +133,7 @@ class CostLedger:
     def now(self) -> float:
         """The timeline frontier: completion time of the latest event."""
         return max(self.flash_ch.busy_until, self.dram_ch.busy_until,
-                   self.compute_ch.busy_until)
+                   self.compute_ch.busy_until, self.ici_ch.busy_until)
 
     # ------------------------------------------------- event API (timed)
     def fill_at(self, t_ready: float, nbytes: float, *,
@@ -210,6 +218,38 @@ class CostLedger:
         self.io_stall_s += max(0.0, t_ready - self.compute_ch.busy_until)
         return self.compute_ch.issue(t_ready, dur)
 
+    def _ici_issue(self, t_ready: float, nbytes: float) -> Tuple[float, float]:
+        tier = self.system.interconnect or self.system.dram
+        self.ici_bytes += nbytes
+        self.n_ici_transfers += 1
+        dur = tier.transfer_latency_s(nbytes)
+        self.ici_latency_s += dur
+        self.ici_energy_j += tier.transfer_energy_j(nbytes)
+        return self.ici_ch.issue(t_ready, dur)
+
+    def ici_transfer_at(self, t_ready: float,
+                        nbytes: float) -> Tuple[float, float]:
+        """Shard-to-shard transfer (all-to-all token dispatch + combine)
+        on the interconnect channel, at the system's ``interconnect``
+        tier's rates (the DRAM tier's when the profile defines none)."""
+        return self._ici_issue(t_ready, nbytes)
+
+    def ici_transfer(self, nbytes: float) -> None:
+        """Serialized-issue interconnect transfer (blocking)."""
+        self.ici_transfer_at(self.now, nbytes)
+
+    def migrate_at(self, t_ready: float, nbytes: float) -> Tuple[float, float]:
+        """One expert slice moved shard-to-shard by placement
+        re-packing: interconnect latency + energy for its bytes, tagged in
+        ``migration_bytes`` / ``n_migrations``."""
+        self.migration_bytes += nbytes
+        self.n_migrations += 1
+        return self._ici_issue(t_ready, nbytes)
+
+    def migrate(self, nbytes: float) -> None:
+        """Serialized-issue migration transfer (blocking)."""
+        self.migrate_at(self.now, nbytes)
+
     def mark_prefetch_wasted(self, nbytes: float) -> None:
         """Attribute an already-charged prefetch fill as wasted (never
         demanded, or evicted before use).  Informational: the Flash read
@@ -283,7 +323,7 @@ class CostLedger:
             "flash_busy_s": self.flash_ch.busy_s,
             "dram_busy_s": self.dram_ch.busy_s,
             "compute_busy_s": self.compute_ch.busy_s,
-            "ici_busy_s": self.ici_busy_s,
+            "ici_busy_s": self.ici_ch.busy_s,
             "flash_energy_j": self.flash_energy_j,
             "dram_energy_j": self.dram_energy_j,
             "compute_energy_j": self.compute_energy_j,
@@ -312,3 +352,168 @@ class CostLedger:
         if prev is None:
             return cur
         return {k: cur[k] - prev.get(k, 0.0) for k in cur}
+
+    def reset(self) -> None:
+        for f in (
+            "flash_bytes", "dram_bytes", "compute_ops",
+            "flash_latency_s", "dram_latency_s", "compute_latency_s",
+            "flash_energy_j", "dram_energy_j", "compute_energy_j",
+            "io_stall_s", "prefetch_flash_bytes",
+            "prefetch_wasted_energy_j",
+            "ici_bytes", "ici_latency_s", "ici_energy_j",
+            "migration_bytes",
+        ):
+            setattr(self, f, 0.0)
+        self.n_flash_transfers = 0
+        self.n_dram_transfers = 0
+        self.n_matmuls = 0
+        self.n_prefetch_fills = 0
+        self.n_ici_transfers = 0
+        self.n_migrations = 0
+        for ch in (self.flash_ch, self.dram_ch, self.compute_ch,
+                   self.flash_bg_ch, self.ici_ch):
+            ch.reset()
+
+
+class ShardedCostLedger:
+    """Expert-parallel cost ledger: one :class:`CostLedger` per shard
+    plus a shared interconnect sub-ledger for all-to-all token dispatch.
+
+    Each shard carries its own Flash/DRAM/XPU channel clocks, so the
+    per-step latency of an expert-parallel decode is the *max* over the
+    shard timelines rather than the sum a single-device timeline would
+    charge.  Energy and traffic accumulators sum across shards, and the
+    all-to-all bytes/energy live on the interconnect sub-ledger's
+    ``ici_*`` accumulators.  The aggregate exposes the read API of a
+    plain :class:`CostLedger` (``snapshot`` / ``delta_since`` /
+    ``total_latency_s`` / ``total_energy_j`` / ...); the engine routes
+    each expert's events to its owning shard via :attr:`shards`.  With
+    one shard and no interconnect events every aggregate equals the
+    single ledger's value exactly.
+    """
+
+    def __init__(self, system: SystemSpec, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.system = system
+        self.n_shards = int(n_shards)
+        self.shards = [CostLedger(system=system)
+                       for _ in range(self.n_shards)]
+        # Dedicated sub-ledger for the shared interconnect channel; its
+        # flash/dram/compute channels never see an event.
+        self.ici = CostLedger(system=system)
+
+    # ------------------------------------------------------------ routing
+    def shard_for(self, shard: int) -> CostLedger:
+        return self.shards[shard]
+
+    def ici_transfer_at(self, t_ready: float, nbytes: float):
+        return self.ici.ici_transfer_at(t_ready, nbytes)
+
+    def ici_transfer(self, nbytes: float) -> None:
+        self.ici.ici_transfer(nbytes)
+
+    def migrate_at(self, t_ready: float, nbytes: float):
+        return self.ici.migrate_at(t_ready, nbytes)
+
+    def migrate(self, nbytes: float) -> None:
+        self.ici.migrate(nbytes)
+
+    # ------------------------------------------------------ observability
+    @property
+    def tracer(self):
+        """The attached timeline tracer: always ``None`` until the
+        tracer is ported (ROADMAP.md queue 1, 'Observability')."""
+        return None
+
+    def attach_tracer(self, tracer) -> None:
+        """``None`` detaches (there is nothing to detach); any tracer
+        raises ``NotImplementedError`` naming its ROADMAP.md item."""
+        if tracer is not None:
+            raise NotImplementedError(
+                "timeline tracer: not ported yet, see ROADMAP.md (queue 1, "
+                "'Observability')")
+
+    # ----------------------------------------------------------- timeline
+    @property
+    def now(self) -> float:
+        """Makespan frontier: the latest completion over every shard's
+        channels and the interconnect."""
+        return max([led.now for led in self.shards] + [self.ici.now])
+
+    def compute_frontier(self) -> float:
+        """Latest compute-channel completion across shards: the instant
+        a step's (globally synchronized) routing can be derived."""
+        return max(led.compute_ch.busy_until for led in self.shards)
+
+    # ------------------------------------------------------------ summary
+    @property
+    def total_latency_s(self) -> float:
+        return self.now
+
+    @property
+    def serial_latency_s(self) -> float:
+        """What a fully serialized single-device replay of every shard's
+        events (plus the dispatch traffic) would take."""
+        return sum(led.serial_latency_s for led in self.shards) \
+            + self.ici.ici_latency_s
+
+    @property
+    def overlap_saved_s(self) -> float:
+        return max(0.0, self.serial_latency_s - self.total_latency_s)
+
+    @property
+    def total_energy_j(self) -> float:
+        return sum(led.total_energy_j for led in self.shards) \
+            + self.ici.total_energy_j
+
+    @property
+    def prefetch_wasted_energy_j(self) -> float:
+        return sum(led.prefetch_wasted_energy_j for led in self.shards)
+
+    @property
+    def migration_bytes(self) -> float:
+        return self.ici.migration_bytes \
+            + sum(led.migration_bytes for led in self.shards)
+
+    @property
+    def n_migrations(self) -> int:
+        return self.ici.n_migrations \
+            + sum(led.n_migrations for led in self.shards)
+
+    @property
+    def io_stall_s(self) -> float:
+        return sum(led.io_stall_s for led in self.shards)
+
+    def snapshot(self) -> dict:
+        """Aggregate snapshot: accumulators summed across shards (and the
+        interconnect), makespan-derived fields recomputed from the
+        aggregate timelines."""
+        out = self.shards[0].snapshot()
+        # The ici sub-ledger's flash/dram/compute accumulators are always
+        # zero, so folding its full snapshot in adds only the ici_* keys.
+        for led in self.shards[1:] + [self.ici]:
+            snap = led.snapshot()
+            for k in out:
+                out[k] += snap[k]
+        out["total_latency_s"] = self.total_latency_s
+        out["serial_latency_s"] = self.serial_latency_s
+        out["overlap_saved_s"] = self.overlap_saved_s
+        return out
+
+    def per_shard_snapshots(self) -> list:
+        return [led.snapshot() for led in self.shards]
+
+    def delta_since(self, prev: Optional[dict]) -> dict:
+        cur = self.snapshot()
+        if prev is None:
+            return cur
+        return {k: cur[k] - prev.get(k, 0.0) for k in cur}
+
+    def clone(self) -> "ShardedCostLedger":
+        return copy.deepcopy(self)
+
+    def reset(self) -> None:
+        for led in self.shards:
+            led.reset()
+        self.ici.reset()

@@ -1,20 +1,25 @@
 """Transformer building blocks (port of the parts of ``repro.models.layers``
 that the ``moe`` architecture runs).
 
-RMSNorm, RoPE, causal GQA attention over a full sequence, single-token
-decode attention against a KV cache, and the SwiGLU MLP.  Attention
-scores, softmax and the value mix run in f32 as in the reference.  Not
-ported yet (ROADMAP.md queue 1): blockwise attention above 8192 keys
-(``BLOCKWISE_THRESHOLD``; longer key sequences raise), sliding windows,
-logit soft-capping and the other MLP types ('remaining architectures').
+RMSNorm, RoPE, causal GQA attention over a full sequence (dense up to
+``BLOCKWISE_THRESHOLD`` keys, online-softmax over ``BLOCK_KV``-key blocks
+above it), single-token decode attention against a KV cache, and the
+SwiGLU MLP.  Attention scores, softmax and the value mix run in f32 as in
+the reference.  Full-sequence attention takes the reference's
+``q_offset``, ``sliding_window`` and ``logit_softcap``; the model passes
+none of them, and the decode attention and the other MLP types wait for
+ROADMAP.md queue 1, 'remaining architectures'.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 BLOCKWISE_THRESHOLD = 8192
+BLOCK_KV = 1024
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -53,31 +58,107 @@ def _expand_kv(k: torch.Tensor, rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, rep, dim=2)
 
 
+def _soft_cap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool) -> torch.Tensor:
-    """Multi-head attention.  q: [B, Sq, H, D]; k/v: [B, Sk, Hkv, D]."""
+              causal: bool, q_offset: Union[int, torch.Tensor] = 0,
+              sliding_window: Optional[int] = None,
+              logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention.  q: [B, Sq, H, D]; k/v: [B, Sk, Hkv, D].
+    Dispatches to :func:`blockwise_attention` above the threshold."""
     if k.shape[1] > BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(
-            "blockwise attention above 8192 keys is not ported yet "
-            "(ROADMAP.md queue 1, 'blockwise_attention')")
+        return blockwise_attention(
+            q, k, v, causal=causal, q_offset=q_offset,
+            sliding_window=sliding_window, logit_softcap=logit_softcap)
+    return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           sliding_window=sliding_window,
+                           logit_softcap=logit_softcap)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: Union[int, torch.Tensor] = 0,
+                    sliding_window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """The dense body of :func:`attention`: the full (Sq x Sk) score
+    matrix per head, masked and softmaxed in f32, at any length."""
     rep = q.shape[2] // k.shape[2]
     k = _expand_kv(k, rep)
     v = _expand_kv(v, rep)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
+    scores = _soft_cap(scores, logit_softcap)
 
     sq, sk = q.shape[1], k.shape[1]
-    qpos = torch.arange(sq, device=q.device)
+    qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= qpos[:, None] >= kpos[None, :]
+    if sliding_window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < sliding_window
     scores = torch.where(mask[None, None], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool,
+                        q_offset: Union[int, torch.Tensor] = 0,
+                        sliding_window: Optional[int] = None,
+                        logit_softcap: Optional[float] = None,
+                        block_kv: int = BLOCK_KV) -> torch.Tensor:
+    """Online-softmax attention over ``block_kv``-key blocks.
+
+    Never materializes the (Sq x Sk) score matrix: peak memory is
+    (Sq x block_kv) per head.  The keys are zero-padded to a multiple of
+    ``block_kv`` and the padding masked; a Python loop over the blocks
+    carries the running max ``m``, normalizer ``l`` and accumulator, as
+    the reference's ``lax.scan`` does.
+    """
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    rep = h // k.shape[2]
+    pad = (-sk) % block_kv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    n_blocks = (sk + pad) // block_kv
+    scale = d ** -0.5
+    qf = q.to(torch.float32)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    m = torch.full((b, h, sq), -torch.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for blk in range(n_blocks):
+        sl = slice(blk * block_kv, (blk + 1) * block_kv)
+        kblk = _expand_kv(k[:, sl], rep).to(torch.float32)
+        vblk = _expand_kv(v[:, sl], rep).to(torch.float32)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kblk) * scale
+        s = _soft_cap(s, logit_softcap)
+        kpos = blk * block_kv + torch.arange(block_kv, device=q.device)
+        mask = (kpos[None, :] < sk).expand(sq, block_kv)
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if sliding_window is not None:
+            mask = mask & (qpos[:, None] - kpos[None, :] < sliding_window)
+        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                   vblk)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)              # [B, Sq, H, D]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -10,7 +10,10 @@ Public entry points: ``param_shapes`` / ``init_params``, ``embed_inputs``,
 ``forward`` (full sequence, differentiable), ``lm_loss`` (chunked
 cross-entropy plus the MoE load-balance loss), ``unembed``,
 ``init_cache``, ``prefill``, ``decode_step`` (scalar and ``[B]``
-positions, ``token_mask``), ``count_params``.  The reference wraps each
+positions, ``token_mask``), ``count_params``.  With ``kv_dtype="int8"``
+the KV cache holds per-(token, head) int8 codes and f32 scales
+(``_quant_kv`` / ``_dequant_kv``), dequantized to the model dtype before
+each decode attention.  The reference wraps each
 period of ``forward`` in ``jax.checkpoint`` (remat); that changes memory,
 not values, and is not ported.
 
@@ -47,9 +50,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only the 'moe' architecture is ported "
             "(ROADMAP.md queue 1, 'remaining architectures')")
-    if cfg.kv_dtype != "bfloat16":
-        raise NotImplementedError(
-            "int8 KV cache is not ported yet (ROADMAP.md queue 1, 'int8 KV')")
     if cfg.ring_kv or cfg.prefix_len or cfg.encoder_layers \
             or cfg.quantized_serve or cfg.pad_vocab_to != 1 \
             or cfg.tie_embeddings or cfg.sliding_window or cfg.always_swa \
@@ -294,18 +294,51 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # ==========================================================================
 # Decode cache
 # ==========================================================================
+KV_SCALE_FLOOR = 1e-8
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _quant_kv(x: torch.Tensor):
+    """Per-(token, head) dynamic int8 quantization of K/V rows.
+
+    x: [..., hd] -> (codes int8 [..., hd], scales f32 [...]).  Rounding
+    is half to even, as ``jnp.round``.  The reference's ``amax / 127.0``
+    compiles to a multiply by the f32 reciprocal (XLA's rewrite, as for
+    the AMAT scale); the port writes that multiply, so the scales match
+    the compiled reference exactly.
+    """
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp_min(amax * _INV_127, KV_SCALE_FLOOR)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _dequant_kv(codes: torch.Tensor, scale: torch.Tensor,
+                dtype) -> torch.Tensor:
+    return (codes.to(torch.float32) * scale[..., None]).to(dtype)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """Decode-state tree, stacked over periods per pattern position."""
+    """Decode-state tree, stacked over periods per pattern position.
+    With ``kv_dtype="int8"`` each entry also holds ``k_scale`` /
+    ``v_scale`` [n_periods, B, S, Hkv] f32."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dt(cfg)
+    int8_kv = cfg.kv_dtype == "int8"
     cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
     kv_shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    kv_dt = torch.int8 if int8_kv else dtype
     for i, spec in enumerate(cfg.block_pattern):
-        cache[f"pos{i}"] = {
-            "k": torch.zeros(kv_shape, dtype=dtype, device=dev),
-            "v": torch.zeros(kv_shape, dtype=dtype, device=dev)}
+        entry = {"k": torch.zeros(kv_shape, dtype=kv_dt, device=dev),
+                 "v": torch.zeros(kv_shape, dtype=kv_dt, device=dev)}
+        if int8_kv:
+            for name in ("k_scale", "v_scale"):
+                entry[name] = torch.zeros(kv_shape[:-1], dtype=torch.float32,
+                                          device=dev)
+        cache[f"pos{i}"] = entry
     return cache
 
 
@@ -335,8 +368,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             p = period_params[f"pos{i}"]
             x, (k, v) = _self_attn_block(p, x, cfg, positions)
             entry = cache[f"pos{i}"]
-            entry["k"][period, :, :s] = k.to(entry["k"].dtype)
-            entry["v"][period, :, :s] = v.to(entry["v"].dtype)
+            if cfg.kv_dtype == "int8":
+                for name, t in (("k", k), ("v", v)):
+                    codes, scale = _quant_kv(t)
+                    entry[name][period, :, :s] = codes
+                    entry[f"{name}_scale"][period, :, :s] = scale
+                    # The reference quantizes the zero-padded rows too;
+                    # their scale is the floor.
+                    entry[f"{name}_scale"][period, :, s:] = KV_SCALE_FLOOR
+            else:
+                entry["k"][period, :, :s] = k.to(entry["k"].dtype)
+                entry["v"][period, :, :s] = v.to(entry["v"].dtype)
             x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
                                 mat=mat, quant_execution=quant_execution,
                                 policy=policy,
@@ -395,15 +437,27 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             q, k, v = _attn_qkv(p, h, cfg)
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
-            kc = cache[key]["k"][period]                      # [B, S, Hkv, D]
-            vc = cache[key]["v"][period]
-            if vector_pos:
-                kc[rows, pos] = k[:, 0].to(kc.dtype)
-                vc[rows, pos] = v[:, 0].to(vc.dtype)
+            entry = cache[key]
+
+            def write_row(name, val):
+                # val: [B, 1, ...], the new token's row per sequence.
+                buf = entry[name][period]                   # [B, S, ...]
+                if vector_pos:
+                    buf[rows, pos] = val[:, 0].to(buf.dtype)
+                else:
+                    buf[:, pos.reshape(1)] = val.to(buf.dtype)
+                return buf
+
+            if cfg.kv_dtype == "int8":
+                (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+                kc = _dequant_kv(write_row("k", kq),
+                                 write_row("k_scale", ks), _dt(cfg))
+                vc = _dequant_kv(write_row("v", vq),
+                                 write_row("v_scale", vs), _dt(cfg))
             else:
-                kc[:, pos.reshape(1)] = k.to(kc.dtype)
-                vc[:, pos.reshape(1)] = v.to(vc.dtype)
-            new_cache[key] = cache[key]
+                kc = write_row("k", k)                      # [B, S, Hkv, D]
+                vc = write_row("v", v)
+            new_cache[key] = entry
             o = L.decode_attention(q[:, 0], kc, vc, pos + 1)
             x = x + (o.reshape(b, -1) @ p["wo"])[:, None, :]
 

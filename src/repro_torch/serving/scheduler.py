@@ -18,9 +18,11 @@ modeled hardware.  Wall seconds (host clock) are reported separately on
 each :class:`Completion`.
 
 ``attach_recorder`` records the run's routing trace for offline replay
-(:mod:`repro_torch.sim`).  Prompt clipping and bucketing, admission
-hooks, metrics sampling and timeline spans wait for ROADMAP.md queue 1,
-'serving extras'.
+(:mod:`repro_torch.sim`).  ``SchedulerConfig.admission_hook`` gates
+admission; an engine's SLO controller is wired into the telemetry and,
+absent a hook, into admission.  Prompt clipping and bucketing, metrics
+sampling and timeline spans wait for ROADMAP.md queue 1, 'serving
+extras'.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Callable, Deque, List, Optional
 
 import numpy as np
 import torch
@@ -62,6 +64,12 @@ class Completion:
 class SchedulerConfig:
     max_batch: int = 4
     max_queue: int = 64
+    # Admission-control hook: called with the Request at submit time;
+    # returning False rejects it (recorded on telemetry like any other
+    # rejection).  When None and the engine carries an SLO controller
+    # (EngineConfig.controller), the controller's admit_request is wired
+    # in automatically.
+    admission_hook: Optional[Callable[["Request"], bool]] = None
 
 
 @dataclasses.dataclass
@@ -105,6 +113,14 @@ class ContinuousBatchingScheduler:
         self.completions: List[Completion] = []
         self.sim_time = 0.0
         self._ledger_mark = engine.ledger.total_latency_s
+        self._admission_hook = self.cfg.admission_hook
+        ctl = engine.slo_controller
+        if ctl is not None:
+            # Close the loop: the controller reads live telemetry (TTFT,
+            # step records) and, absent an explicit hook, gates admission.
+            ctl.attach_telemetry(self.telemetry)
+            if self._admission_hook is None:
+                self._admission_hook = ctl.admit_request
         # Host wall seconds of each prefill and each decode step, measured
         # after the device finished (a synchronize ends each span).
         self.wall_prefill_s: List[float] = []
@@ -132,11 +148,16 @@ class ContinuousBatchingScheduler:
         return len(req.prompt) + req.max_new_tokens + 1 <= max_seq
 
     def submit(self, req: Request) -> bool:
-        """Admission control: reject queue overflow and unservable sizes."""
+        """Admission control: reject queue overflow, unservable sizes and
+        requests the admission hook refuses."""
         record = RequestRecord(
             request_id=req.request_id, tenant=req.tenant,
             prompt_len=len(req.prompt), arrival_t=req.arrival_time)
         if len(self.queue) >= self.cfg.max_queue or not self.servable(req):
+            self.telemetry.on_reject(record)
+            return False
+        if self._admission_hook is not None \
+                and not self._admission_hook(req):
             self.telemetry.on_reject(record)
             return False
         self.telemetry.on_submit(record)
@@ -298,6 +319,8 @@ class ContinuousBatchingScheduler:
         return self.completions
 
     def summary(self, **kw) -> dict:
+        kw.setdefault("per_shard", self.engine.shard_breakdown())
+        kw.setdefault("placement", self.engine.placement_summary())
         if self.engine.prefetcher is not None:
             kw.setdefault("prefetch", self.engine.prefetcher.summary())
         return self.telemetry.summary(

@@ -123,9 +123,8 @@ class FleetTelemetry:
         self.requests: Dict[int, RequestRecord] = {}
         self.steps: List[StepRecord] = []
         self.rejected: List[int] = []
-        # Listeners (the reference's SLO controller, not ported yet)
-        # receive the same
-        # records as they land; each listener method is optional.
+        # Listeners (the SLO controller) receive the same records as
+        # they land; each listener method is optional.
         self.listeners: List[object] = []
 
     def add_listener(self, listener: object) -> object:

@@ -3,11 +3,12 @@ of ``repro.sim.autotune``).
 
 Sweeps engine-policy knobs (cache capacity, AMAT bit plans, slice mode,
 warmup policy, ``lsb_keep_frac``, prefetch, async timeline, controller
-target) by replaying one trace per candidate through
-:class:`~repro_torch.sim.replay.ReplayEngine` — thousands of policy points
-per minute instead of one live run per point.  Outputs the
-energy/latency/miss Pareto frontier and the cheapest configuration
-meeting a miss-rate SLO.
+target, expert placement — ``placement`` / ``placement_period`` /
+``replicate_k`` combined with ``ep_shards``) by replaying one trace per
+candidate through :class:`~repro_torch.sim.replay.ReplayEngine` —
+thousands of policy points per minute instead of one live run per point.
+Outputs the energy/latency/miss Pareto frontier and the cheapest
+configuration meeting a miss-rate SLO.
 
 Two search modes:
 

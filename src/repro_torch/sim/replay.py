@@ -41,10 +41,15 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.control.controller import ControllerConfig, SLOController
 from repro_torch.core.amat import MatConfig, slice_nbytes
 from repro_torch.core.engine import EngineConfig, PersistentEngine, _StepTrace
+from repro_torch.core.placement import build_placement_policy
+from repro_torch.core.shard import ShardedSliceCache
 from repro_torch.core.slices import SliceKey
 from repro_torch.core.warmup import HotnessTracker
+from repro_torch.hw.energy import ShardedCostLedger
+from repro_torch.hw.specs import SYSTEM_PROFILES
 from repro_torch.models.moe import RoutingPolicy
 from repro_torch.sim.trace import Trace, TraceMeta
 
@@ -101,9 +106,9 @@ def engine_config_from_meta(meta: TraceMeta, **overrides) -> EngineConfig:
     (``cache_bytes``, ``high_bits``, ``low_bits``, ``slice_mode``,
     ``warmup``, ``prefetch_top_m``, ``async_io``, ``ep_shards``, ...).
     Unknown keys raise, so a sweep axis typo can't silently evaluate the
-    default.  Knobs of unported parts (``ep_shards > 1``, ``controller``,
-    non-default placement) are accepted here and raise
-    ``NotImplementedError`` when a :class:`ReplayEngine` is built on them.
+    default.  ``ep_shards`` is sweepable on any trace, including one
+    recorded before the knob existed (it defaults to 1), because expert
+    placement is a pure function of the expert ids the trace carries.
     """
     e = dict(meta.engine)
     e.setdefault("ep_shards", 1)    # traces recorded before EP existed
@@ -124,6 +129,9 @@ def engine_config_from_meta(meta: TraceMeta, **overrides) -> EngineConfig:
         raise KeyError(f"unknown engine override(s) {sorted(unknown)}; "
                        f"valid knobs: {sorted(e)}")
     e.update(overrides)
+    ctl = e["controller"]
+    if ctl is not None and not hasattr(ctl, "slos"):
+        ctl = ControllerConfig.from_dict(ctl)
     return EngineConfig(
         mat=MatConfig(int(e["high_bits"]), int(e["low_bits"]),
                       meta.group_size),
@@ -145,7 +153,7 @@ def engine_config_from_meta(meta: TraceMeta, **overrides) -> EngineConfig:
         prefetch_kind=str(e["prefetch_kind"]),
         prefetch_lookahead=int(e["prefetch_lookahead"]),
         prefetch_min_score=float(e["prefetch_min_score"]),
-        controller=e["controller"],
+        controller=ctl,
         placement=str(e["placement"]),
         placement_period=int(e["placement_period"]),
         replicate_k=int(e["replicate_k"]),
@@ -169,11 +177,19 @@ class ReplayReport:
     alpha_curve: List[float]
     wall_s: float                      # host time, all events
     decode_wall_s: float               # host time, decode events only
-    # Tenant-attributed replays only: one ``StepCharge.per_tenant`` dict
-    # per decode step (None otherwise).  The reference's per-shard,
-    # controller and placement fields arrive with ROADMAP.md queue 1,
-    # 'EP, placement, control'.
+    # Expert-parallel replays only: per-shard [(label, accesses, misses)]
+    # epoch windows (None on single-device replays).
+    per_shard_epoch_counts: Optional[list] = None
+    # Controller / tenant-attributed replays only: one
+    # ``StepCharge.per_tenant`` dict per decode step (None otherwise),
+    # plus the final controller summary.
     per_tenant_rows: Optional[List[dict]] = None
+    controller_summary: Optional[dict] = None
+    # Placement-policy replays only: the migration event sequence
+    # ([{step, moved, bytes}]) and the final placement summary, which a
+    # replay must reproduce exactly.
+    migration_events: Optional[List[dict]] = None
+    placement: Optional[dict] = None
 
     @property
     def decode_miss_rate(self) -> float:
@@ -205,6 +221,8 @@ class ReplayReport:
             "alpha_final": self.alpha_curve[-1] if self.alpha_curve
             else 0.0,
             **({"prefetch": self.prefetch} if self.prefetch else {}),
+            **({"controller": self.controller_summary}
+               if self.controller_summary else {}),
         }
 
 
@@ -239,7 +257,15 @@ class ReplayEngine(PersistentEngine):
         self.resident_bytes = meta.resident_bytes
         self.expert_macs_per_token = meta.expert_macs_per_token
 
-        self.cache = ecfg.cache()
+        # Placement must exist before the cache: the sharded cache keys
+        # slice ownership off the map.
+        self.placement_policy = ecfg.build_placement_policy(
+            self.n_moe_layers, self.n_experts)
+        self.placement = (self.placement_policy.initial()
+                          if self.placement_policy is not None else None)
+        self._decode_steps = 0
+        self.migration_events: List[dict] = []
+        self.cache = ecfg.cache(placement=self.placement)
         self.ledger = ecfg.ledger()
         self.tracker = HotnessTracker(self.n_moe_layers, self.n_experts)
         self.requests_served = 0
@@ -248,6 +274,14 @@ class ReplayEngine(PersistentEngine):
         self.prefetcher = ecfg.build_prefetcher(
             self.n_moe_layers, self.n_experts)
         self._pf_pending = {}
+
+        # Closed-loop SLO controller: its bit/partition decisions consume
+        # only charge-path counters, so the replayed decision sequence is
+        # the live one.
+        self.slo_controller = None
+        if ecfg.controller is not None:
+            self.slo_controller = SLOController(
+                ecfg.controller, cache_bytes=ecfg.cache_bytes)
 
         # Open-loop controller (see module docstring): tracks what alpha
         # the live controller would command given the replayed miss
@@ -268,11 +302,33 @@ class ReplayEngine(PersistentEngine):
 
     # --------------------------------------------------------- test hook
     def force_sharded(self, n_shards: int = 1) -> "ReplayEngine":
-        """The reference swaps in its expert-parallel cache and ledger
-        here; they are not ported."""
-        raise NotImplementedError(
-            "force_sharded: not ported yet, see ROADMAP.md (queue 1, "
-            "'EP, placement, control')")
+        """Swap in the expert-parallel cache/ledger machinery at an
+        arbitrary shard count without touching the config.
+
+        The charge path dispatches on the component types, so forcing
+        ``n_shards=1`` runs the full sharded code over a single shard.
+        Must be called before any event is consumed (it rebuilds cache
+        and ledger empty).
+        """
+        if self.requests_served or self._miss_curve:
+            raise RuntimeError("force_sharded must precede consumption")
+        slice_aware = self.ecfg.policy.slice_mode == "dbsc" \
+            and not self.ecfg.fused_slices
+        if n_shards > 1:
+            self.placement_policy = build_placement_policy(
+                self.ecfg.placement, self.n_moe_layers, self.n_experts,
+                n_shards,
+                replicate_k=self.ecfg.replicate_k or None)
+            self.placement = self.placement_policy.initial()
+        else:
+            self.placement_policy = None
+            self.placement = None
+        self.cache = ShardedSliceCache(self.ecfg.cache_bytes, n_shards,
+                                       slice_aware=slice_aware,
+                                       placement=self.placement)
+        self.ledger = ShardedCostLedger(
+            SYSTEM_PROFILES[self.ecfg.system], n_shards)
+        return self
 
     # ------------------------------------------------- disabled live API
     def run_prefill(self, *a, **k):          # pragma: no cover - guard
@@ -356,8 +412,17 @@ class ReplayEngine(PersistentEngine):
             alpha_curve=list(self._alpha_curve),
             wall_s=self.wall_s,
             decode_wall_s=self.decode_wall_s,
+            per_shard_epoch_counts=(
+                self.cache.per_shard_epoch_counts()
+                if isinstance(self.cache, ShardedSliceCache) else None),
             per_tenant_rows=(list(self._per_tenant_rows)
-                             if self._per_tenant_rows else None))
+                             if self._per_tenant_rows else None),
+            controller_summary=(self.slo_controller.summary()
+                                if self.slo_controller is not None
+                                else None),
+            migration_events=(list(self.migration_events)
+                              if self.migration_events else None),
+            placement=self.placement_summary())
 
     # --------------------------------------------------------------- fork
     def clone(self) -> "ReplayEngine":
@@ -377,9 +442,11 @@ class ReplayEngine(PersistentEngine):
         new._pf_pending = {l: dict(m)
                            for l, m in self._pf_pending.items()}
         new.controller = copy.deepcopy(self.controller)
+        new.slo_controller = copy.deepcopy(self.slo_controller)
         new.recorder = None
         for f in ("_miss_curve", "_energy_curve", "_alpha_curve",
-                  "_per_tenant_rows", "moe_positions"):
+                  "_per_tenant_rows", "migration_events",
+                  "moe_positions"):
             setattr(new, f, list(getattr(self, f)))
         return new
 

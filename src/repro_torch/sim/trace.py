@@ -343,8 +343,8 @@ def engine_meta(engine) -> TraceMeta:
             "prefetch_kind": ecfg.prefetch_kind,
             "prefetch_lookahead": ecfg.prefetch_lookahead,
             "prefetch_min_score": ecfg.prefetch_min_score,
-            # The SLO controller is not ported (check_ported refuses one).
-            "controller": None,
+            "controller": (None if ecfg.controller is None
+                           else ecfg.controller.to_dict()),
             "placement": ecfg.placement,
             "placement_period": ecfg.placement_period,
             "replicate_k": ecfg.replicate_k,

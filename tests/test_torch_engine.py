@@ -206,12 +206,7 @@ def test_aux_to_host_restores_dtypes_in_one_buffer():
 
 
 @pytest.mark.parametrize("over, item", [
-    (dict(ep_shards=2), "EP, placement, control"),
-    (dict(placement="hotness"), "EP, placement, control"),
-    (dict(replicate_k=2), "EP, placement, control"),
-    (dict(controller=object()), "EP, placement, control"),
     (dict(system="tpu_offload"), "tpu_offload profile"),
-    (dict(placement_period=32), "EP, placement, control"),
 ])
 def test_unported_engine_settings_name_their_queue_item(model, over, item):
     _, tcfg, _, tparams = model

@@ -212,9 +212,6 @@ def test_batched_decode_vector_positions_and_token_mask(model):
 
 def test_unported_model_features_raise(model):
     _, tcfg, _, _ = model
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        TM.init_cache(dataclasses.replace(tcfg, kv_dtype="int8"), 1, 8,
-                      device="cpu")
     with pytest.raises(NotImplementedError, match="architecture"):
         TM.param_shapes(dataclasses.replace(tcfg, arch_type="dense",
                                             moe=None))

@@ -1,6 +1,7 @@
 """Shared infrastructure of the port's benchmarks (the counterpart of
 ``benchmarks/common.py``): the trained-model cache, held-out batches,
-synthetic perplexity and the CSV sink.  Imports no JAX.
+synthetic perplexity, the CSV sink, the call timer and the JSON record.
+Imports no JAX.
 
 The trained-weights cache is ``results/trained_torch/``, apart from the
 reference's ``results/trained/``: the two packages draw different inits,
@@ -9,7 +10,10 @@ so one name would serve one package's weights as the other's.
 
 from __future__ import annotations
 
+import json
 import os
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -22,8 +26,9 @@ from repro_torch.launch.train import train_loop
 from repro_torch.models.model import lm_loss
 from repro_torch.optim import adamw as OPT
 
-# REPRO_RESULTS_DIR redirects the CSV sinks, as for the reference's
-# benchmarks; the trained-model cache stays at the repo default.
+# REPRO_RESULTS_DIR redirects the CSV sinks and the JSON records, as for
+# the reference's benchmarks; the trained-model cache stays at the repo
+# default.
 _REPO_RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "..", "results")
 RESULTS = os.environ.get("REPRO_RESULTS_DIR", _REPO_RESULTS)
@@ -101,3 +106,67 @@ class CsvSink:
 def report(name: str, us_per_call: float, derived: str) -> None:
     """The ``name,us_per_call,derived`` CSV line to stdout."""
     print(f"{name},{us_per_call:.1f},{derived}")
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def time_call(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
+    """Median wall time per call in microseconds, after ``warmup`` calls.
+    Once the card is in use, each timed call runs from a synchronized
+    card to the end of its work (``torch.cuda.synchronize()`` before and
+    after it)."""
+    for _ in range(warmup):
+        fn(*args)
+    ts = []
+    for _ in range(iters):
+        _sync()
+        t0 = time.perf_counter()
+        fn(*args)
+        _sync()
+        ts.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(ts))
+
+
+def device_time_us(fn: Callable, device, *, warmup: int = 3,
+                   iters: int = 20) -> Optional[float]:
+    """Device time per call in microseconds on the card, ``None`` on any
+    other device: after ``warmup`` calls on a side stream, ``iters``
+    calls are captured once in a CUDA graph and replayed between CUDA
+    events, so that the host's launch gaps drop out."""
+    if torch.device(device).type != "cuda":
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / iters
+
+
+def json_record(name: str, payload: dict) -> str:
+    """Write a port benchmark's structured results to
+    ``RESULTS/BENCH_torch_<name>.json`` (the ``torch_`` prefix keeps it
+    apart from the reference's baselines, which it never writes)."""
+    os.makedirs(RESULTS, exist_ok=True)
+    path = os.path.join(RESULTS, f"BENCH_torch_{name}.json")
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return path

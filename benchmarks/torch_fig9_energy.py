@@ -34,6 +34,7 @@ for _p in (_os.path.join(_root, "src"), _root):
         _sys.path.insert(0, _p)
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -71,9 +72,16 @@ SCHEMES = {
 }
 
 
-def run_one(cfg, params, toks, cache_bytes, scheme_kw, device=None):
+def run_one(cfg, params, toks, cache_bytes, scheme_kw, device=None, *,
+            quant_execution: bool = False):
     """(decode energy J, decode latency s, MSB misses) of one scheme:
-    prefill ``toks`` [1, S], then ``DECODE_STEPS`` greedy steps."""
+    prefill ``toks`` [1, S], then ``DECODE_STEPS`` greedy steps.
+    ``quant_execution`` runs the experts on their packed codes (the
+    batched AMAT kernels on the card); the default dequantizes them in
+    plain torch, as the reference does."""
+    if quant_execution:
+        scheme_kw = dict(scheme_kw, policy=dataclasses.replace(
+            scheme_kw["policy"], quant_execution=True))
     ecfg = EngineConfig(mat=MatConfig(8, 4), cache_bytes=cache_bytes,
                         miss_rate_target=0.05, max_seq=96, **scheme_kw)
     eng = SliceMoEEngine(cfg, params, ecfg, device=device)

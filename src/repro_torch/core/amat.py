@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.quant.groupquant import QuantizedTensor, quantize
+from repro_torch.quant.groupquant import QuantizedTensor, dequantize, quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +39,10 @@ class MatConfig:
         return f"MAT{self.high_bits}{self.low_bits}"
 
 
+MAT42 = MatConfig(4, 2)
+MAT63 = MatConfig(6, 3)
 MAT84 = MatConfig(8, 4)
+PAPER_CONFIGS = (MAT42, MAT63, MAT84)
 
 
 def amat_quantize(w: torch.Tensor, cfg: MatConfig) -> QuantizedTensor:
@@ -86,6 +89,16 @@ def reconstruct(msb: torch.Tensor, lsb: torch.Tensor,
                 shift: int) -> torch.Tensor:
     """Lossless high-bit code from its two slices."""
     return (msb << shift) | lsb
+
+
+def dequant_high(qt: QuantizedTensor) -> torch.Tensor:
+    """Full-precision path (MSB+LSB both resident)."""
+    return dequantize(qt)
+
+
+def dequant_low(qt: QuantizedTensor, cfg: MatConfig) -> torch.Tensor:
+    """MSB-only path (AMAT truncation)."""
+    return dequantize(truncate(qt, low_bits=cfg.low_bits))
 
 
 def dequant_mixed(qt: QuantizedTensor, use_lsb: torch.Tensor,

@@ -1547,14 +1547,17 @@ class SliceMoEEngine(PersistentEngine):
     def decode(self, first_token: torch.Tensor, n_steps: int):
         """Greedy decode ``n_steps`` tokens with full offload simulation.
 
-        Returns (tokens [B, n_steps], metrics dict).
+        Returns (tokens [B, n_steps], metrics dict); ``logits_finite``
+        says whether every logit of every step was finite.
         """
         token = torch.as_tensor(first_token, device=self.device)
         tokens_out = []
         step_metrics = []
+        finite = torch.ones((), dtype=torch.bool, device=self.device)
         for _ in range(n_steps):
             logits, self.kv_cache, aux = self._decode(
                 token, self.kv_cache, self.alpha, None)
+            finite &= torch.isfinite(logits).all()
             token = torch.argmax(logits, dim=-1)
             tokens_out.append(token)
             charge = self.charge_decode_step(aux)
@@ -1570,5 +1573,6 @@ class SliceMoEEngine(PersistentEngine):
             "per_step": step_metrics,
             "cache_stats": self.cache.stats.snapshot(),
             "decode_totals": self.ledger.delta_since(self.prefill_snapshot),
+            "logits_finite": bool(finite),
         }
         return torch.stack(tokens_out, dim=1), metrics

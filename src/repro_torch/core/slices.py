@@ -51,6 +51,22 @@ class ExpertSliceStore:
     msb_bytes_per_expert: float = 0.0
     lsb_bytes_per_expert: float = 0.0
 
+    @classmethod
+    def from_float(cls, expert_weights: Dict[int, dict],
+                   mat: MatConfig) -> "ExpertSliceStore":
+        """expert_weights: {layer: {'wi': [E,d,F], 'wo': [E,F,d]}} floats."""
+        layers = {}
+        msb_b = lsb_b = 0.0
+        for lidx, w in expert_weights.items():
+            le = LayerExperts(wi_q=amat_quantize(w["wi"], mat),
+                              wo_q=amat_quantize(w["wo"], mat))
+            layers[lidx] = le
+            msb_b = _slice_bytes(le, mat, "msb")
+            lsb_b = _slice_bytes(le, mat, "lsb")
+        return cls(mat=mat, layers=layers,
+                   msb_bytes_per_expert=msb_b, lsb_bytes_per_expert=lsb_b)
+
+    # ------------------------------------------------------------ metadata
     @property
     def n_layers(self) -> int:
         return len(self.layers)
@@ -74,6 +90,16 @@ class ExpertSliceStore:
             for e in range(self.n_experts):
                 yield SliceKey(lidx, e, "msb")
                 yield SliceKey(lidx, e, "lsb")
+
+    # ------------------------------------------------------- compute views
+    def layer_weights(self, layer: int) -> LayerExperts:
+        return self.layers[layer]
+
+    def use_lsb_mask(self, layer: int, resident_lsb) -> torch.Tensor:
+        """The model's per-expert mask from the cache's LSB residency
+        row: a bool tensor on the store's device."""
+        dev = next(iter(self.layers.values())).wi_q.codes.device
+        return torch.as_tensor(resident_lsb, dtype=torch.bool, device=dev)
 
 
 @torch.no_grad()

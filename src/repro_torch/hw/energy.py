@@ -12,7 +12,8 @@ the timeline:
   (:meth:`CostLedger.miss_fill`, :meth:`~CostLedger.flash_stream`,
   :meth:`~CostLedger.dram_read`, :meth:`~CostLedger.matmul`) issue every
   event at the global frontier, so the makespan is the sum of all
-  durations;
+  durations (with ``overlap_io_compute``, IO waits only on the IO
+  channels and compute only on the compute channel);
 * the event methods the async charge path uses (:meth:`~CostLedger.fill_at`,
   :meth:`~CostLedger.dram_read_at`, :meth:`~CostLedger.matmul_at`,
   :meth:`~CostLedger.prefetch_fill_at`) take an explicit data-dependency
@@ -81,6 +82,10 @@ class CostLedger:
     """Event-timeline latency + energy ledger over a simulated run."""
 
     system: SystemSpec = dataclasses.field(default_factory=lambda: MOBILE_SOC)
+    # The serialized methods issue IO at the IO channels' frontier and
+    # compute at the compute channel's, so a miss fill can overlap an
+    # expert matmul; off, every serialized event waits on :attr:`now`.
+    overlap_io_compute: bool = False
 
     # energy / traffic accumulators (time-independent)
     flash_bytes: float = 0.0
@@ -135,6 +140,16 @@ class CostLedger:
         return max(self.flash_ch.busy_until, self.dram_ch.busy_until,
                    self.compute_ch.busy_until, self.ici_ch.busy_until)
 
+    def _io_ready(self) -> float:
+        if self.overlap_io_compute:
+            return max(self.flash_ch.busy_until, self.dram_ch.busy_until)
+        return self.now
+
+    def _compute_ready(self) -> float:
+        if self.overlap_io_compute:
+            return self.compute_ch.busy_until
+        return self.now
+
     # ------------------------------------------------- event API (timed)
     def fill_at(self, t_ready: float, nbytes: float, *,
                 prefetch: bool = False,
@@ -165,12 +180,13 @@ class CostLedger:
         whose completion does not extend the makespan.  Energy and
         traffic are charged in full.  The returned ``end`` is the
         earliest the slice is usable.  ``t_ready=None`` issues at the
-        ledger's frontier (:attr:`now`).  Only the request-level predictor's fills
-        ride this lane; the transition baseline's go through
-        :meth:`fill_at` / :meth:`miss_fill` in FIFO order with demand.
+        serialized IO frontier (:meth:`_io_ready`).  Only the
+        request-level predictor's fills ride this lane; the transition
+        baseline's go through :meth:`fill_at` / :meth:`miss_fill` in FIFO
+        order with demand.
         """
         if t_ready is None:
-            t_ready = self.now
+            t_ready = self._io_ready()
         sysspec = self.system
         self.flash_bytes += nbytes
         self.n_flash_transfers += 1
@@ -236,7 +252,7 @@ class CostLedger:
 
     def ici_transfer(self, nbytes: float) -> None:
         """Serialized-issue interconnect transfer (blocking)."""
-        self.ici_transfer_at(self.now, nbytes)
+        self.ici_transfer_at(self._io_ready(), nbytes)
 
     def migrate_at(self, t_ready: float, nbytes: float) -> Tuple[float, float]:
         """One expert slice moved shard-to-shard by placement
@@ -248,7 +264,7 @@ class CostLedger:
 
     def migrate(self, nbytes: float) -> None:
         """Serialized-issue migration transfer (blocking)."""
-        self.migrate_at(self.now, nbytes)
+        self.migrate_at(self._io_ready(), nbytes)
 
     def mark_prefetch_wasted(self, nbytes: float) -> None:
         """Attribute an already-charged prefetch fill as wasted (never
@@ -263,19 +279,19 @@ class CostLedger:
     def miss_fill(self, nbytes: float, *, prefetch: bool = False) -> None:
         """Flash -> DRAM fill caused by a slice miss (blocking issue);
         ``prefetch`` tags speculative fills in the traffic counters."""
-        self.fill_at(self.now, nbytes, prefetch=prefetch)
+        self.fill_at(self._io_ready(), nbytes, prefetch=prefetch)
 
     def flash_stream(self, nbytes: float) -> None:
         """Direct Flash -> XPU stream for a dropped fill (blocking)."""
-        self.flash_stream_at(self.now, nbytes)
+        self.flash_stream_at(self._io_ready(), nbytes)
 
     def dram_read(self, nbytes: float) -> None:
         """DRAM -> XPU weight fetch (hit path or post-fill use)."""
-        self.dram_read_at(self.now, nbytes)
+        self.dram_read_at(self._io_ready(), nbytes)
 
     def matmul(self, tokens: int, d_in: int, d_out: int, bits: int) -> None:
         """Expert (or dense) matmul at the given weight precision."""
-        t_ready = self.now
+        t_ready = self._compute_ready()
         # Serialized issue is a modeling choice, not a data dependency —
         # don't let it masquerade as IO stall.
         stall0 = self.io_stall_s

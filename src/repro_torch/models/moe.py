@@ -80,6 +80,14 @@ def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits, dim=-1)
 
 
+def topk_select(probs: torch.Tensor, k: int, *, renormalize: bool = True):
+    """Top-k routing: returns (gates [T,k], ids [T,k]); ties go to the
+    lower expert index (:func:`repro_torch.core.routing.top_k`)."""
+    if renormalize:
+        return R.topk_routing(probs, k)
+    return R.top_k(probs, k)
+
+
 def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
     """Switch-style auxiliary loss: E * <f_e> . <p_e>.  A masked token's
@@ -283,9 +291,7 @@ def moe_apply(
         if force_high_bit:
             use_lsb = None
     else:
-        # The reference's topk_select with renormalization: the same
-        # computation as routing.topk_routing.
-        gates, ids = R.topk_routing(probs, cfg.top_k)
+        gates, ids = topk_select(probs, cfg.top_k)
         gates, ids, active = mask_routing(gates, ids, active)
         gates = gates.to(x.dtype)
         k_eff = cfg.top_k

@@ -26,6 +26,13 @@ import dataclasses
 import torch
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantMeta:
+    bits: int
+    group_size: int
+    asymmetric: bool
+
+
 @dataclasses.dataclass
 class QuantizedTensor:
     """Group-quantized tensor.
@@ -122,3 +129,11 @@ def dequantize(qt: QuantizedTensor) -> torch.Tensor:
     else:
         w = cg * scales
     return w.reshape(*lead, K, N)
+
+
+def quantization_error(w: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Relative RMS error of a quantized tensor vs the original (a 0-d
+    f32 tensor)."""
+    d = dequantize(qt) - w.to(torch.float32)
+    return torch.sqrt(torch.mean(d * d)) / (torch.sqrt(torch.mean(w * w))
+                                            + 1e-12)

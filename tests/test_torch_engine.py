@@ -213,3 +213,16 @@ def test_unported_engine_settings_name_their_queue_item(model, over, item):
     with pytest.raises(NotImplementedError, match=item):
         TE.PersistentEngine(tcfg, tparams, TE.EngineConfig(**over),
                             device="cpu")
+
+
+@pytest.mark.parametrize("poison", [False, True], ids=["finite", "nan"])
+def test_decode_reports_whether_every_logit_was_finite(model, poison):
+    _, tcfg, _, tparams = model
+    if poison:
+        tparams = dict(tparams, final_norm=torch.full_like(
+            tparams["final_norm"], float("nan")))
+    te = TE.SliceMoEEngine(tcfg, tparams, TE.EngineConfig(
+        mat=TMat(8, 4), **KW), device="cpu")
+    te.prefill(np.arange(8)[None])
+    _, metrics = te.decode(torch.tensor([1]), 2)
+    assert metrics["logits_finite"] is (not poison)

@@ -69,3 +69,22 @@ def test_run_one_matches_reference(model, scheme):
     assert tm == jm
     np.testing.assert_allclose(te, je, rtol=1e-6)
     np.testing.assert_allclose(tl, jl, rtol=1e-6)
+
+
+def test_run_one_with_quantized_execution_matches_reference(model):
+    """``quant_execution=True`` sets the scheme's policy to quantized
+    execution, on the CPU the batched kernels' plain versions; the
+    reference gets the same policy (its Pallas kernel in interpret
+    mode)."""
+    cfg, tcfg, params, tparams, toks, cache_bytes = model
+    jkw = dict(JF.SCHEMES["dbsc_pcw"])
+    jkw["policy"] = dataclasses.replace(jkw["policy"], quant_execution=True)
+    je, jl, jm = JF.run_one(cfg, params, jnp.asarray(toks, jnp.int32),
+                            cache_bytes, jkw)
+    te, tl, tm = TF.run_one(tcfg, tparams, toks, cache_bytes,
+                            TF.SCHEMES["dbsc_pcw"], device="cpu",
+                            quant_execution=True)
+    assert not TF.SCHEMES["dbsc_pcw"]["policy"].quant_execution
+    assert tm == jm
+    np.testing.assert_allclose(te, je, rtol=1e-6)
+    np.testing.assert_allclose(tl, jl, rtol=1e-6)

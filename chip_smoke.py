@@ -164,10 +164,28 @@ it goes, any failure exiting non-zero:
        vocabulary size for every scheme, so Table 1 needs trained weights.
    ``[phase8]`` gives the seconds phase 8 adds.
 
+9. traced serving, after 7c and before 8a, over phase 5's params: phase
+   5's traffic through one engine with phase 5's settings plus 5b's
+   ``async_io`` and request prefetch and 7a's ``ep_shards=4``, hotness
+   placement every 4 steps and 2 replicas (all six event kinds on the
+   timeline), a ``repro_torch.obs.TimelineTracer`` attached to the
+   engine and a ``MetricsRegistry`` to the scheduler, K1 and K2 once per
+   MoE layer per forward.  Checks: events conserve the ledger by kind;
+   every (shard, channel) makespan equals its ``busy_until`` and the
+   makespan ``total_latency_s`` (rtol 1e-6); the recorded trace,
+   replayed through a file with a tracer, gives the live event stream
+   and the same Chrome export outside the requests process; an untraced
+   replay gives the traced replay's ledger exactly; the exported file's
+   ``trace_report`` totals equal the tracer's; the metrics JSONL has one
+   row per decode step, non-decreasing counters and the ledger's traffic
+   in its last row (rtol 1e-6).  ``[trace]`` lines: events by kind,
+   spans, the Chrome file's size, the report's stall and overlap figures
+   (cost model), the tracer's host seconds and the wall per step.
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 8.
+busy share).  Without arguments the script runs phases 1 to 9.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -210,6 +228,10 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _close(a: float, b: float, rtol: float) -> bool:
+    return a == b or abs(a - b) <= rtol * max(abs(a), abs(b))
 
 
 def smi_name_power() -> str:
@@ -1107,12 +1129,13 @@ SERVE_PROMPT, SERVE_NEW, SERVE_REQ = 128, 16, 4
 
 
 def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
-           new: int = SERVE_NEW, tenants=None):
+           new: int = SERVE_NEW, tenants=None, prepare=None):
     """Serve ``prompts`` (``new`` new tokens each, request ``i`` from
     tenant ``tenants[i]`` when given) through the continuous-batching
     scheduler (one slot per prompt, at most ``SERVE_REQ``) with a trace
     recorder attached, the launch counts set to 0 just before the run and
-    read just after.  Fails unless every request is served in full, every
+    read just after.  ``prepare(engine, sched)``, when given, runs after
+    the recorder is attached and before the counts are reset.  Fails unless every request is served in full, every
     logit is finite and (on the card) K1 and K2 launched once per MoE
     layer per forward.  Returns the run's engine, scheduler, trace and
     figures."""
@@ -1178,6 +1201,8 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
             self.seconds += time.perf_counter() - t0
 
     recorder = sched.attach_recorder(TimedRecorder())
+    if prepare is not None:
+        prepare(engine, sched)
 
     sync()
     ops.LAUNCHES.reset()
@@ -1220,9 +1245,7 @@ def _check_replay(run, tag: str, path: str):
     rep = replay_trace(loaded)
     wall = time.perf_counter() - t0
     live = engine.ledger.snapshot()
-    off = [k for k in live if not (rep.ledger[k] == live[k] or abs(
-        rep.ledger[k] - live[k]) <= 1e-6 * max(abs(rep.ledger[k]),
-                                               abs(live[k])))]
+    off = [k for k in live if not _close(rep.ledger[k], live[k], 1e-6)]
     pf_live = (engine.prefetcher.summary()
                if engine.prefetcher is not None else None)
     say(f"[replay] {tag}: {loaded.n_prefills} prefills, "
@@ -1558,7 +1581,7 @@ def phase_controller_int8(cfg, params, prompts, p5, device: str = "cuda"):
                         os.path.join(HERE, "build", "ctl_int8_trace.npz"))
     live_e = sched.telemetry.energy_curve()
     e_off = [i for i, (a, b) in enumerate(zip(rep.energy_curve, live_e))
-             if abs(a - b) > 1e-6 * max(abs(a), abs(b))]
+             if not _close(a, b, 1e-6)]
     say(f"[replay] ctl-int8: energy curve equal at rtol 1e-6 "
         f"{not e_off and len(rep.energy_curve) == len(live_e)}, controller "
         f"summary equal {rep.controller_summary == summary}")
@@ -1645,6 +1668,247 @@ def phase_long_prefill(cfg, params, p5, device: str = "cuda",
         f"kernel launches {run['launches']}")
     if on_card:
         say(f"[long] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return run["launches"]
+
+
+CH_ATTR = {"flash": "flash_ch", "flash_bg": "flash_bg_ch",
+           "dram": "dram_ch", "compute": "compute_ch", "ici": "ici_ch"}
+
+
+def phase_traced_serving(cfg, params, prompts, p5, device: str = "cuda"):
+    """Phase 9: phase 5's traffic over phase 5's params with one engine
+    that puts every event kind on the timeline (phase 5's settings plus
+    5b's ``async_io`` and request prefetch and 7a's ``ep_shards=4``,
+    hotness placement every 4 steps and 2 replicas), a timeline tracer
+    attached to the engine and a metrics registry to the scheduler, the
+    trace recorded as phase 5 records it.  Checks, each failing the run:
+    K1/K2 once per MoE layer per forward (``_serve``); every kind's event
+    count and bytes against the ledger; every ``(shard, channel)``
+    makespan against that channel's ``busy_until`` and the makespan
+    against ``total_latency_s`` (rtol 1e-6); the recorded trace replayed
+    through a file with a tracer gives the live event stream and the
+    same Chrome export outside the requests process; a replay without a
+    tracer gives the traced replay's ledger exactly; the exported file's
+    ``trace_report`` totals equal the tracer's; the metrics JSONL has one
+    row per decode step, non-decreasing counters and, in its last row,
+    the ledger's traffic at rtol 1e-6.  Prints the events by kind, the
+    spans, the Chrome file's size, the report's stall and overlap figures
+    (cost model), the tracer's host seconds and the wall per step
+    (``[trace]`` lines)."""
+    from repro_torch.obs import (MetricsRegistry, TimelineTracer,
+                                 chrome_trace, events_equal,
+                                 export_chrome_trace, first_divergence,
+                                 load_trace, trace_report)
+    from repro_torch.obs.timeline import EVENT_KINDS, REQUESTS_PID
+    from repro_torch.sim import ReplayEngine, Trace
+
+    on_card = device == "cuda"
+    if on_card:
+        say(f"[trace] card: {smi_name_power()}")
+        torch.cuda.reset_peak_memory_stats()
+
+    class TimedTracer(TimelineTracer):
+        """Adds up its own host time: the run's walls include it."""
+        seconds = 0.0
+
+        def emit(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().emit(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def span(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().span(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def set_attr(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().set_attr(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def begin_step(self):
+            t0 = time.perf_counter()
+            step = super().begin_step()
+            self.seconds += time.perf_counter() - t0
+            return step
+
+        def begin_prefill(self):
+            t0 = time.perf_counter()
+            super().begin_prefill()
+            self.seconds += time.perf_counter() - t0
+
+    tracer, registry = TimedTracer(), MetricsRegistry()
+
+    def prepare(engine, sched):
+        engine.attach_tracer(tracer)
+        sched.attach_metrics(registry)
+
+    ecfg = _phase7_engine_config(
+        p5, async_io=True, prefetch_top_m=4, prefetch_kind="request",
+        prefetch_lookahead=2, prefetch_min_score=0.02, ep_shards=EP_SHARDS,
+        placement="hotness", placement_period=EP_PERIOD,
+        replicate_k=EP_REPLICAS)
+    run = _serve(cfg, params, ecfg, prompts, "trace", device,
+                 prepare=prepare)
+    engine, sched = run["engine"], run["sched"]
+    snap = engine.ledger.snapshot()
+    events = tracer.events
+
+    # Event conservation: one event per ledger charge, by kind.
+    kinds = {k: sum(1 for e in events if e.kind == k) for k in EVENT_KINDS}
+    spans = {}
+    for sp in tracer.spans:
+        spans[sp["name"]] = spans.get(sp["name"], 0) + 1
+    say(f"[trace] events by kind {kinds}, {len(events)} in all; "
+        f"{len(tracer.spans)} spans {spans}")
+    if not all(kinds.values()):
+        fail(f"trace: an event kind is missing from the timeline: {kinds}")
+
+    def nbytes(*ks):
+        return sum(e.nbytes for e in events if e.kind in ks)
+
+    counts = {
+        "n_flash_transfers": kinds["fill"] + kinds["prefetch_fill"],
+        "n_dram_transfers": kinds["dram_read"],
+        "n_matmuls": kinds["matmul"],
+        "n_ici_transfers": kinds["a2a"] + kinds["migrate"],
+        "n_migrations": kinds["migrate"],
+        "n_prefetch_fills": kinds["prefetch_fill"]}
+    sums = {
+        "flash_bytes": nbytes("fill", "prefetch_fill"),
+        "prefetch_flash_bytes": nbytes("prefetch_fill"),
+        "dram_bytes": nbytes("dram_read"),
+        "ici_bytes": nbytes("a2a", "migrate"),
+        "migration_bytes": nbytes("migrate"),
+        "compute_ops": sum(e.ops for e in events if e.kind == "matmul")}
+    off = [k for k, v in counts.items() if v != snap[k]] + [
+        k for k, v in sums.items() if not _close(v, snap[k], 1e-9)]
+    if off:
+        fail(f"trace: events do not conserve the ledger's {off}")
+
+    # Makespans: each channel's last event ends at its busy_until clock.
+    led = engine.ledger
+    ledgers = dict(enumerate(led.shards))
+    ledgers[-1] = led.ici
+    bad = [(sh, ch) for (sh, ch), end in tracer.channel_makespans().items()
+           if not _close(end, getattr(ledgers[sh], CH_ATTR[ch]).busy_until,
+                         1e-6)]
+    say(f"[trace] makespan {tracer.makespan()!r} s, ledger "
+        f"total_latency_s {snap['total_latency_s']!r} s; "
+        f"{len(tracer.channel_makespans())} (shard, channel) tracks, "
+        f"{len(bad)} off their busy_until (cost model)")
+    if bad or not _close(tracer.makespan(), snap["total_latency_s"], 1e-6):
+        fail(f"trace: makespans differ from the ledger's clocks at {bad}")
+
+    # The recorded trace through a file: replayed untraced it must equal
+    # the live run (_check_replay), replayed traced the live event stream,
+    # and the two replays' ledgers must be equal exactly.
+    path = os.path.join(HERE, "build", "trace_trace.npz")
+    bare = _check_replay(run, "trace", path)
+    loaded = Trace.load(path)
+    t0 = time.perf_counter()
+    rep_eng = ReplayEngine(loaded.meta)
+    rep_trc = rep_eng.attach_tracer(TimelineTracer())
+    rep_eng.consume_all(loaded.events)
+    traced = rep_eng.finish()
+    t_rep = time.perf_counter() - t0
+    div = first_divergence(events, rep_trc.events)
+    live_hw = [e for e in chrome_trace(tracer)["traceEvents"]
+               if e.get("pid") != REQUESTS_PID]
+    rep_hw = [e for e in chrome_trace(rep_trc)["traceEvents"]
+              if e.get("pid") != REQUESTS_PID]
+    say(f"[trace] traced replay in {t_rep:.2f} s (host): "
+        f"{len(rep_trc.events)} events, first divergence from the live "
+        f"stream {div}, hardware export equal {live_hw == rep_hw}, ledger "
+        f"equal to the untraced replay's {traced.ledger == bare.ledger}")
+    if div is not None or not events_equal(events, rep_trc.events):
+        fail(f"trace: the replayed event stream diverges at event {div}")
+    if live_hw != rep_hw:
+        fail("trace: the replay's Chrome export differs from the live one")
+    if traced.ledger != bare.ledger:
+        fail("trace: attaching a tracer changed the replay's ledger")
+
+    # The exported file, read back, reports the tracer's own totals.
+    chrome_path = os.path.join(HERE, "build", "trace_chrome.json")
+    t0 = time.perf_counter()
+    export_chrome_trace(tracer, chrome_path)
+    t_export = time.perf_counter() - t0
+    report = trace_report(load_trace(chrome_path))
+    per_track = {}
+    for e in events:
+        proc = "interconnect" if e.shard < 0 else f"shard {e.shard}"
+        per_track[(proc, e.channel)] = per_track.get((proc, e.channel),
+                                                     0) + 1
+    got_tracks = {(r["process"], r["channel"]): r["events"]
+                  for r in report["channels"]}
+    totals = {
+        "makespan_us": (report["makespan_us"], tracer.makespan() * 1e6),
+        "bytes": (sum(r["bytes"] for r in report["channels"]),
+                  sum(e.nbytes for e in events)),
+        "ops": (sum(r["ops"] for r in report["channels"]),
+                sum(e.ops for e in events))}
+    off = [k for k, (a, b) in totals.items() if not _close(a, b, 1e-9)]
+    say(f"[trace] Chrome export {os.path.getsize(chrome_path)} bytes, "
+        f"written in {t_export:.2f} s (host); report: makespan "
+        f"{report['makespan_us']!r} us, {len(report['channels'])} channel "
+        f"tracks (cost model)")
+    if got_tracks != per_track or off:
+        fail(f"trace: the report of the exported file differs from the "
+             f"tracer's totals ({off or 'events per track'})")
+    for row in report["processes"]:
+        stall = sum(r["stall_us"] for r in report["channels"]
+                    if r["process"] == row["process"])
+        say(f"[trace] {row['process']}: serial {row['serial_us']!r} us, "
+            f"makespan {row['makespan_us']!r} us, overlap saved "
+            f"{row['overlap_saved_us']!r} us, stall {stall!r} us summed "
+            f"over its channels, speculative {row['speculative_bytes']!r} "
+            f"B in {row['speculative_events']} fills (cost model)")
+    for ch in ("flash", "flash_bg", "dram", "compute", "ici"):
+        rows = [r for r in report["channels"] if r["channel"] == ch]
+        if rows:
+            say(f"[trace] {ch}: busy {sum(r['busy_us'] for r in rows)!r} "
+                f"us, stall {sum(r['stall_us'] for r in rows)!r} us, "
+                f"utilization against the makespan "
+                f"{[round(r['util_vs_makespan'], 4) for r in rows]} "
+                "(cost model)")
+
+    # The metrics series: one row per decode step, counters that never go
+    # back, and the ledger's traffic in the last row.
+    metrics_path = os.path.join(HERE, "build", "trace_metrics.jsonl")
+    n_rows = registry.to_jsonl(metrics_path)
+    with open(metrics_path) as fh:
+        rows = [json.loads(line) for line in fh]
+    counters = sorted(k for k in rows[-1] if k.endswith("_total"))
+    back = [k for k in counters if any(
+        b.get(k, 0.0) < a.get(k, 0.0) for a, b in zip(rows, rows[1:]))]
+    ledger_keys = ("flash_bytes", "dram_bytes", "ici_bytes",
+                   "migration_bytes", "prefetch_flash_bytes")
+    off = [k for k in ledger_keys
+           if not _close(rows[-1][f"{k}_total"], snap[k], 1e-6)]
+    say(f"[trace] metrics: {n_rows} rows for {len(sched.wall_step_s)} "
+        f"decode steps, {len(rows[-1])} keys ({len(counters)} counters), "
+        f"{os.path.getsize(metrics_path)} bytes of JSONL, "
+        f"{len(registry.prometheus_text().splitlines())} lines of "
+        f"Prometheus text; last row: tokens {rows[-1]['tokens_total']}, "
+        f"prefetch useful/issued {rows[-1]['prefetch_useful_total']}/"
+        f"{rows[-1]['prefetch_issued_total']}, shard imbalance "
+        f"{rows[-1].get('shard_imbalance')!r}")
+    if n_rows != len(sched.wall_step_s) or len(rows) != n_rows:
+        fail("trace: the metrics series is not one row per decode step")
+    if back:
+        fail(f"trace: metrics counters went back: {back}")
+    if off:
+        fail(f"trace: the metrics' ledger counters differ from the ledger "
+             f"at {off}")
+
+    say(f"[trace] the walls include the tracer's host time (emit, span, "
+        f"set_attr, begin_step, begin_prefill): {tracer.seconds:.6f} s, "
+        f"{tracer.seconds / run['wall']:.3%} of the run's wall "
+        f"{run['wall']:.2f} s; the recorder's {run['record_s']:.6f} s")
+    _say_walls("trace", run)
+    if on_card:
+        say(f"[trace] max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return run["launches"]
 
@@ -2214,6 +2478,8 @@ def main() -> None:
         phase(cfg, params, prompts, p5)
     _release()
     phase_long_prefill(cfg, params, p5)
+    _release()
+    phase_traced_serving(cfg, params, prompts, p5)
     _release()
     t_8a = phase_paper_full_width(cfg, params)
     # Phase 6 trains and serves a model of its own: release the params.

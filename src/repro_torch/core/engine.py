@@ -75,6 +75,7 @@ from repro_torch.hw.energy import (CostLedger, ShardedCostLedger,
 from repro_torch.hw.specs import SYSTEM_PROFILES
 from repro_torch.models import model as MDL
 from repro_torch.models.moe import RoutingPolicy
+from repro_torch.obs.timeline import export_chrome_trace
 
 
 @dataclasses.dataclass
@@ -362,8 +363,9 @@ class PersistentEngine:
         # TraceRecorder): when attached, every prefill's and decode
         # step's routing arrays are captured for offline replay.
         self.recorder = None
-        # Timeline tracer hook (ROADMAP.md queue 1, 'Observability'):
-        # nothing attaches one yet.
+        # Optional timeline tracer (repro_torch.obs.timeline.
+        # TimelineTracer): when attached via attach_tracer, every ledger
+        # charge emits one attributed event.
         self.tracer = None
         self.prefetcher = ecfg.build_prefetcher(
             self.n_moe_layers, self.n_experts)
@@ -553,9 +555,14 @@ class PersistentEngine:
         """
         if active is None:
             active = np.ones(ids.shape, bool)
+        trc = self.tracer
+        if trc is not None:
+            trc.begin_prefill()
         for period in range(ids.shape[0]):
             for pidx, pos in enumerate(self.moe_positions):
                 lidx = self.layer_map[(pos, period)]
+                if trc is not None:
+                    trc.set_attr(layer=lidx)
                 a2d = active[period, pidx]                       # [T, k]
                 sel_ids = ids[period, pidx][a2d]
                 sel_gates = gates[period, pidx][a2d]
@@ -588,6 +595,10 @@ class PersistentEngine:
                         segs = [(self.cache, self._ledger_for(lidx, e))]
                     for cache_seg, led in segs:
                         for kind in ("msb", "lsb"):   # prefill is high-bit
+                            if trc is not None:
+                                trc.set_attr(layer=lidx, expert=e,
+                                             slice_kind=kind,
+                                             bits=self._slice_bits(kind))
                             key = SliceKey(lidx, e, kind)
                             nb = self.store.slice_bytes(key)
                             hit = cache_seg.access(key, nb)
@@ -603,6 +614,8 @@ class PersistentEngine:
                 # replicated expert).
                 exec_sh = None if self._n_shards() == 1 else \
                     self._selection_exec_shards(lidx, a2d, ids[period, pidx])
+                if trc is not None:
+                    trc.set_attr(layer=lidx)
                 for sid, led in enumerate(self._shard_ledgers()):
                     t_s = sel_ids.size if exec_sh is None else \
                         int(np.count_nonzero(exec_sh == sid))
@@ -714,6 +727,10 @@ class PersistentEngine:
         """
         if self.recorder is not None:
             self.recorder.on_decode(tr)
+        if self.tracer is not None:
+            # One trace step per charge call, live or replay: the step
+            # index correlates channel events with scheduler spans.
+            self.tracer.begin_step()
         # Placement re-packing runs after the recorder and before any
         # charging; it consumes only charge-path state (the hotness
         # tracker and the decode-step counter), so a replay recomputes
@@ -737,6 +754,36 @@ class PersistentEngine:
             if budgets and self._partitioned:
                 self.cache.set_budgets(budgets)
         return charge
+
+    # ---------------------------------------------------- observability
+    def attach_tracer(self, tracer):
+        """Attach a :class:`repro_torch.obs.timeline.TimelineTracer` (or
+        ``None`` to detach): every later ledger charge emits one
+        attributed timeline event.  The events hang off the shared charge
+        path, so a replay of a recorded trace through
+        :class:`repro_torch.sim.replay.ReplayEngine` emits the identical
+        stream.  Returns the tracer."""
+        self.tracer = tracer
+        led = self.ledger
+        if isinstance(led, ShardedCostLedger):
+            led.attach_tracer(tracer)
+        else:
+            led.tracer = tracer
+        return tracer
+
+    def export_trace(self, path: str) -> dict:
+        """Write the attached tracer's capture as Chrome-trace JSON
+        (loadable in Perfetto); returns the exported dict."""
+        if self.tracer is None:
+            raise ValueError(
+                "no tracer attached; call attach_tracer() before the run")
+        return export_chrome_trace(self.tracer, path)
+
+    def _slice_bits(self, kind: str) -> int:
+        """Nominal bit-width a slice contributes (trace attribution)."""
+        mat = self.ecfg.mat
+        return mat.low_bits if kind == "msb" \
+            else mat.high_bits - mat.low_bits
 
     # -------------------------------------------------- shard routing bits
     # The helpers dispatch on the ledger and cache objects, not on the
@@ -898,8 +945,14 @@ class PersistentEngine:
             return
         moves = self.cache.apply_placement(new_map)
         self.placement = new_map
-        for _key, nb, _frm, _to in moves:
+        trc = self.tracer
+        for key, nb, _frm, _to in moves:
+            if trc is not None:
+                trc.set_attr(layer=key.layer, expert=key.expert,
+                             slice_kind=key.kind)
             self.ledger.migrate(nb)
+        if trc is not None and moves:
+            trc.set_attr()
         self.migration_events.append({
             "step": self._decode_steps,
             "moved": len(moves),
@@ -1050,6 +1103,10 @@ class PersistentEngine:
             nb = self._slice_nbytes(key)
             if key in self.cache or nb > self._segment_capacity(key):
                 continue
+            if self.tracer is not None:
+                self.tracer.set_attr(layer=key.layer, expert=key.expert,
+                                     slice_kind=key.kind,
+                                     bits=self._slice_bits(key.kind))
             led = self._ledger_for(key.layer, key.expert)
             if timeline:
                 # Background-priority lane: speculative fills never
@@ -1084,6 +1141,10 @@ class PersistentEngine:
             nb = self._slice_nbytes(key)
             if key in self.cache or nb > self._segment_capacity(key):
                 continue
+            if self.tracer is not None:
+                self.tracer.set_attr(layer=key.layer, expert=key.expert,
+                                     slice_kind=key.kind,
+                                     bits=self._slice_bits(key.kind))
             _, end = self._ledger_for(key.layer,
                                       key.expert).prefetch_fill_at(None, nb)
             self.cache.insert(key, nb)
@@ -1152,6 +1213,10 @@ class PersistentEngine:
         """Serialized-issue slice demand + matmul for one expert.
         Returns whether any of its slices missed."""
         missed = False
+        trc = self.tracer
+        if trc is not None:
+            trc.set_attr(layer=lidx, expert=e, slice_kind="msb",
+                         bits=self._slice_bits("msb"))
         key = SliceKey(lidx, e, "msb")
         nb = self._slice_nbytes(key)
         hit = cache_seg.access(key, nb)
@@ -1167,6 +1232,9 @@ class PersistentEngine:
             led.dram_read(nb)
         lsb_available = False
         if e in lsb_wanted and not self.ecfg.fused_slices:
+            if trc is not None:
+                trc.set_attr(layer=lidx, expert=e, slice_kind="lsb",
+                             bits=self._slice_bits("lsb"))
             fetch = self.ecfg.policy.fetch_lsb_on_miss
             lkey = SliceKey(lidx, e, "lsb")
             lnb = self.store.slice_bytes(lkey)
@@ -1184,6 +1252,8 @@ class PersistentEngine:
                 if lhit or lkey in cache_seg:
                     led.dram_read(lnb)
                 lsb_available = True
+        if trc is not None:
+            trc.set_attr(layer=lidx, expert=e)
         led.matmul(ntok, self.cfg.d_model,
                    self.expert_macs_per_token // self.cfg.d_model,
                    self._expert_bits(lsb_available))
@@ -1198,6 +1268,10 @@ class PersistentEngine:
         wait for (remote experts only).  Returns whether any of its
         slices missed."""
         missed = False
+        trc = self.tracer
+        if trc is not None:
+            trc.set_attr(layer=lidx, expert=e, slice_kind="msb",
+                         bits=self._slice_bits("msb"))
         key = SliceKey(lidx, e, "msb")
         nb = self._slice_nbytes(key)
         hit = cache_seg.access(key, nb)
@@ -1217,6 +1291,9 @@ class PersistentEngine:
                 _, t_data = led.flash_stream_at(t_route, nb)
         lsb_available = False
         if e in lsb_wanted and not self.ecfg.fused_slices:
+            if trc is not None:
+                trc.set_attr(layer=lidx, expert=e, slice_kind="lsb",
+                             bits=self._slice_bits("lsb"))
             fetch = self.ecfg.policy.fetch_lsb_on_miss
             lkey = SliceKey(lidx, e, "lsb")
             lnb = self.store.slice_bytes(lkey)
@@ -1239,6 +1316,8 @@ class PersistentEngine:
                         _, t_lsb = led.flash_stream_at(t_route, lnb)
                     t_data = max(t_data, t_lsb)
                     lsb_available = True
+        if trc is not None:
+            trc.set_attr(layer=lidx, expert=e)
         led.matmul_at(
             t_data if t_disp is None else max(t_data, t_disp),
             ntok, self.cfg.d_model,
@@ -1249,6 +1328,7 @@ class PersistentEngine:
     # -------------------------------------------- serialized (sync) replay
     def _charge_sync(self, tr: _StepTrace) -> StepCharge:
         base = self.ledger.snapshot()
+        trc = self.tracer
         pf = self.prefetcher
         pf_req = pf is not None and pf.kind == "request"
         prev_used = None
@@ -1274,6 +1354,10 @@ class PersistentEngine:
                         nb = self._slice_nbytes(key)
                         if key not in self.cache \
                                 and nb <= self._segment_capacity(key):
+                            if trc is not None:
+                                trc.set_attr(layer=lidx, expert=int(e),
+                                             slice_kind="msb",
+                                             bits=self._slice_bits("msb"))
                             self._ledger_for(lidx, int(e)).miss_fill(
                                 nb, prefetch=True)
                             self.cache.insert(key, nb)
@@ -1285,6 +1369,8 @@ class PersistentEngine:
                 # All-to-all token dispatch to remote experts (EP only).
                 nb_a2a, _ = self._layer_a2a_demand(tr, period, pidx, lidx)
                 if nb_a2a > 0:
+                    if trc is not None:
+                        trc.set_attr(layer=lidx)
                     self.ledger.ici_transfer(nb_a2a)
                 if pf_req:
                     # Serialized fills land instantly, so a correct
@@ -1364,6 +1450,8 @@ class PersistentEngine:
     def _charge_resident_sync(self, tr: _StepTrace) -> None:
         """Non-expert resident weights: one pass per decode step per
         shard."""
+        if self.tracer is not None:
+            self.tracer.set_attr(bits=8)   # shared (non-expert) weights
         for led, share in self._resident_shares(tr):
             led.dram_read(self.resident_bytes)
             led.matmul(share, self.cfg.d_model,
@@ -1399,6 +1487,7 @@ class PersistentEngine:
         remote expert's matmul waits for.
         """
         base = self.ledger.snapshot()
+        trc = self.tracer
         t_step = self._compute_frontier()
         pf = self.prefetcher
         pf_req = pf is not None and pf.kind == "request"
@@ -1423,6 +1512,8 @@ class PersistentEngine:
                     tr, period, pidx, lidx)
                 t_disp = t_route
                 if nb_a2a > 0:
+                    if trc is not None:
+                        trc.set_attr(layer=lidx)
                     _, t_disp = self.ledger.ici_transfer_at(t_route, nb_a2a)
 
                 # --- prefetch usefulness for THIS layer, judged before
@@ -1501,6 +1592,10 @@ class PersistentEngine:
                             if key in self.cache \
                                     or nb > self._segment_capacity(key):
                                 continue
+                            if trc is not None:
+                                trc.set_attr(layer=lidx + 1, expert=int(e),
+                                             slice_kind="msb",
+                                             bits=self._slice_bits("msb"))
                             _, end = self._ledger_for(
                                 lidx + 1, int(e)).fill_at(
                                     t_route, nb, prefetch=True)
@@ -1518,6 +1613,8 @@ class PersistentEngine:
         # Resident (non-expert) weights stream behind the expert reads
         # and overlap expert compute; the dense step compute waits on
         # them (per shard, tokens split data-parallel).
+        if trc is not None:
+            trc.set_attr(bits=8)   # shared (non-expert) weights
         for led, share in self._resident_shares(tr):
             _, res_ready = led.dram_read_at(t_step, self.resident_bytes)
             led.matmul_at(res_ready, share, self.cfg.d_model,

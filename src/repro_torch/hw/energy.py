@@ -25,9 +25,9 @@ for the same events.  Expert parallelism is simulated in the charge path:
 :class:`ShardedCostLedger` holds one :class:`CostLedger` per shard plus a
 shared interconnect sub-ledger, whose channel carries the all-to-all
 dispatch (:meth:`CostLedger.ici_transfer`) and the placement migrations
-(:meth:`CostLedger.migrate`).  The timeline tracer that the reference
-hangs off every charge is ROADMAP.md queue 1, 'Observability'; the hook
-here accepts only ``None``.
+(:meth:`CostLedger.migrate`).  An attached
+:class:`~repro_torch.obs.timeline.TimelineTracer` receives one event per
+charge.
 """
 
 from __future__ import annotations
@@ -133,6 +133,14 @@ class CostLedger:
     migration_bytes: float = 0.0
     n_migrations: int = 0
 
+    # optional observability sink (repro_torch.obs.timeline.TimelineTracer):
+    # when attached, every charge emits exactly one TraceEvent after its
+    # channel span is issued.  shard_id stamps which shard's channels
+    # these are (-1 = the shared interconnect sub-ledger).  Detached on
+    # clone(): forked hypothetical timelines are untraced.
+    tracer: Optional[object] = None
+    shard_id: int = 0
+
     # ------------------------------------------------------------ timeline
     @property
     def now(self) -> float:
@@ -169,7 +177,12 @@ class CostLedger:
         if prefetch:
             self.n_prefetch_fills += 1
             self.prefetch_flash_bytes += nbytes
-        return self.flash_ch.issue(t_ready, dur)
+        span = self.flash_ch.issue(t_ready, dur)
+        if self.tracer is not None:
+            self.tracer.emit("prefetch_fill" if prefetch else "fill",
+                             "flash", self.shard_id, span[0], span[1],
+                             nbytes=nbytes)
+        return span
 
     def prefetch_fill_at(self, t_ready: Optional[float],
                          nbytes: float) -> Tuple[float, float]:
@@ -196,8 +209,12 @@ class CostLedger:
         self.dram_energy_j += sysspec.dram.transfer_energy_j(nbytes)
         self.n_prefetch_fills += 1
         self.prefetch_flash_bytes += nbytes
-        return self.flash_bg_ch.issue(
+        span = self.flash_bg_ch.issue(
             max(t_ready, self.flash_ch.busy_until), dur)
+        if self.tracer is not None:
+            self.tracer.emit("prefetch_fill", "flash_bg", self.shard_id,
+                             span[0], span[1], nbytes=nbytes)
+        return span
 
     def flash_stream_at(self, t_ready: float,
                         nbytes: float) -> Tuple[float, float]:
@@ -213,7 +230,11 @@ class CostLedger:
         dur = sysspec.dram.transfer_latency_s(nbytes)
         self.dram_latency_s += dur
         self.dram_energy_j += sysspec.dram.transfer_energy_j(nbytes)
-        return self.dram_ch.issue(t_ready, dur)
+        span = self.dram_ch.issue(t_ready, dur)
+        if self.tracer is not None:
+            self.tracer.emit("dram_read", "dram", self.shard_id,
+                             span[0], span[1], nbytes=nbytes)
+        return span
 
     def matmul_at(self, t_ready: float, tokens: int, d_in: int, d_out: int,
                   bits: int) -> Tuple[float, float]:
@@ -232,23 +253,32 @@ class CostLedger:
             sysspec.compute.energy_j_per_op * ops * (min(bits, native) / native)
         )
         self.io_stall_s += max(0.0, t_ready - self.compute_ch.busy_until)
-        return self.compute_ch.issue(t_ready, dur)
+        span = self.compute_ch.issue(t_ready, dur)
+        if self.tracer is not None:
+            self.tracer.emit("matmul", "compute", self.shard_id,
+                             span[0], span[1], ops=ops, bits=bits)
+        return span
 
-    def _ici_issue(self, t_ready: float, nbytes: float) -> Tuple[float, float]:
+    def _ici_issue(self, t_ready: float, nbytes: float,
+                   kind: str) -> Tuple[float, float]:
         tier = self.system.interconnect or self.system.dram
         self.ici_bytes += nbytes
         self.n_ici_transfers += 1
         dur = tier.transfer_latency_s(nbytes)
         self.ici_latency_s += dur
         self.ici_energy_j += tier.transfer_energy_j(nbytes)
-        return self.ici_ch.issue(t_ready, dur)
+        span = self.ici_ch.issue(t_ready, dur)
+        if self.tracer is not None:
+            self.tracer.emit(kind, "ici", self.shard_id,
+                             span[0], span[1], nbytes=nbytes)
+        return span
 
     def ici_transfer_at(self, t_ready: float,
                         nbytes: float) -> Tuple[float, float]:
         """Shard-to-shard transfer (all-to-all token dispatch + combine)
         on the interconnect channel, at the system's ``interconnect``
         tier's rates (the DRAM tier's when the profile defines none)."""
-        return self._ici_issue(t_ready, nbytes)
+        return self._ici_issue(t_ready, nbytes, "a2a")
 
     def ici_transfer(self, nbytes: float) -> None:
         """Serialized-issue interconnect transfer (blocking)."""
@@ -260,7 +290,7 @@ class CostLedger:
         ``migration_bytes`` / ``n_migrations``."""
         self.migration_bytes += nbytes
         self.n_migrations += 1
-        return self._ici_issue(t_ready, nbytes)
+        return self._ici_issue(t_ready, nbytes, "migrate")
 
     def migrate(self, nbytes: float) -> None:
         """Serialized-issue migration transfer (blocking)."""
@@ -360,8 +390,14 @@ class CostLedger:
 
     def clone(self) -> "CostLedger":
         """Deep copy of the full ledger (accumulators + channel clocks):
-        the replay simulator forks a timeline mid-trace with it."""
-        return copy.deepcopy(self)
+        the replay simulator forks a timeline mid-trace with it.  An
+        attached tracer stays with the original: forked hypothetical
+        timelines must not interleave events into a real capture."""
+        tracer, self.tracer = self.tracer, None
+        try:
+            return copy.deepcopy(self)
+        finally:
+            self.tracer = tracer
 
     def delta_since(self, prev: Optional[dict]) -> dict:
         cur = self.snapshot()
@@ -413,11 +449,11 @@ class ShardedCostLedger:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.system = system
         self.n_shards = int(n_shards)
-        self.shards = [CostLedger(system=system)
-                       for _ in range(self.n_shards)]
+        self.shards = [CostLedger(system=system, shard_id=sid)
+                       for sid in range(self.n_shards)]
         # Dedicated sub-ledger for the shared interconnect channel; its
         # flash/dram/compute channels never see an event.
-        self.ici = CostLedger(system=system)
+        self.ici = CostLedger(system=system, shard_id=-1)
 
     # ------------------------------------------------------------ routing
     def shard_for(self, shard: int) -> CostLedger:
@@ -438,17 +474,17 @@ class ShardedCostLedger:
     # ------------------------------------------------------ observability
     @property
     def tracer(self):
-        """The attached timeline tracer: always ``None`` until the
-        tracer is ported (ROADMAP.md queue 1, 'Observability')."""
-        return None
+        return self.shards[0].tracer
 
     def attach_tracer(self, tracer) -> None:
-        """``None`` detaches (there is nothing to detach); any tracer
-        raises ``NotImplementedError`` naming its ROADMAP.md item."""
-        if tracer is not None:
-            raise NotImplementedError(
-                "timeline tracer: not ported yet, see ROADMAP.md (queue 1, "
-                "'Observability')")
+        """Point every shard ledger (and the interconnect sub-ledger) at
+        one shared event sink; shard ids stamp the per-shard channel
+        tracks, the interconnect gets shard id -1.  ``None`` detaches."""
+        for sid, led in enumerate(self.shards):
+            led.tracer = tracer
+            led.shard_id = sid
+        self.ici.tracer = tracer
+        self.ici.shard_id = -1
 
     # ----------------------------------------------------------- timeline
     @property
@@ -527,7 +563,14 @@ class ShardedCostLedger:
         return {k: cur[k] - prev.get(k, 0.0) for k in cur}
 
     def clone(self) -> "ShardedCostLedger":
-        return copy.deepcopy(self)
+        tracer = self.tracer
+        self.attach_tracer(None)
+        try:
+            new = copy.deepcopy(self)
+        finally:
+            if tracer is not None:
+                self.attach_tracer(tracer)
+        return new
 
     def reset(self) -> None:
         for led in self.shards:

@@ -20,8 +20,10 @@ each :class:`Completion`.
 ``attach_recorder`` records the run's routing trace for offline replay
 (:mod:`repro_torch.sim`).  ``SchedulerConfig.admission_hook`` gates
 admission; an engine's SLO controller is wired into the telemetry and,
-absent a hook, into admission.  Prompt clipping and bucketing, metrics
-sampling and timeline spans wait for ROADMAP.md queue 1, 'serving
+absent a hook, into admission.  ``attach_metrics`` samples a
+:class:`~repro_torch.obs.metrics.MetricsRegistry` per decode step, and an
+engine with a timeline tracer attached gets the request and step spans.
+Prompt clipping and bucketing wait for ROADMAP.md queue 1, 'serving
 extras'.
 """
 
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch.core.engine import PersistentEngine
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import MetricsSampler
 from repro_torch.serving.telemetry import (FleetTelemetry, RequestRecord,
                                            StepRecord)
 
@@ -134,6 +137,16 @@ class ContinuousBatchingScheduler:
         recorder for chaining."""
         return recorder.attach(self.engine)
 
+    def attach_metrics(self, registry):
+        """Sample a :class:`repro_torch.obs.metrics.MetricsRegistry` per
+        decode step: registers a :class:`~repro_torch.obs.metrics.
+        MetricsSampler` as a telemetry listener (the mechanism the SLO
+        controller rides), folding each StepRecord plus engine-side state
+        (cache occupancy, ledger traffic, prefetch outcomes, controller
+        actuation) into one catalog.  Returns the registry."""
+        self.telemetry.add_listener(MetricsSampler(registry, self.engine))
+        return registry
+
     def _sync(self) -> None:
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
@@ -199,6 +212,17 @@ class ContinuousBatchingScheduler:
         wall = time.perf_counter() - t0
         self.wall_prefill_s.append(wall)
         self._advance_clock()
+        trc = self.engine.tracer
+        if trc is not None:
+            # Admission spans on the request's own track, in the same
+            # sim-clock coordinates as the channel events.
+            track = f"req{req.request_id}"
+            trc.span("queue", track, record.arrival_t, record.admit_t,
+                     request=req.request_id, tenant=req.tenant,
+                     queue_delay_s=record.admit_t - record.arrival_t)
+            trc.span("prefill", track, record.admit_t, self.sim_time,
+                     request=req.request_id, slot=slot,
+                     prompt_len=len(prompt))
         seq = ActiveSeq(
             slot=slot, request=req, record=record,
             controller=self.engine.new_controller(),
@@ -241,6 +265,7 @@ class ContinuousBatchingScheduler:
             slot_tenants[seq.slot] = seq.request.tenant
         alpha = float(np.mean([seq.alpha for seq in active]))
 
+        step_t0 = self.sim_time
         logits, self.batch_cache, charge = self.engine.decode_batch(
             torch.as_tensor(tokens, device=self.engine.device),
             self.batch_cache, alpha=alpha, slot_active=slot_mask,
@@ -249,6 +274,14 @@ class ContinuousBatchingScheduler:
         self._sync()
         self.wall_step_s.append(time.perf_counter() - t0)
         step_latency = self._advance_clock()
+        trc = self.engine.tracer
+        if trc is not None:
+            # One span per batched decode step on the shared steps
+            # track; trc.step is the engine's step index, the id every
+            # channel event of this step carries.
+            trc.span("decode_step", "steps", step_t0, self.sim_time,
+                     step=trc.step, n_active=len(active),
+                     miss_rate=charge.miss_rate)
         self.telemetry.on_step(StepRecord(
             t=self.sim_time, n_active=len(active),
             miss_rate=charge.miss_rate, latency_s=step_latency,
@@ -279,6 +312,16 @@ class ContinuousBatchingScheduler:
 
     def _retire(self, seq: ActiveSeq) -> None:
         seq.record.finish_t = self.sim_time
+        trc = self.engine.tracer
+        if trc is not None:
+            rid = seq.request.request_id
+            track = f"req{rid}"
+            trc.span("decode", track, seq.prefill_end_t, self.sim_time,
+                     request=rid, n_tokens=len(seq.generated),
+                     ttft_s=seq.record.ttft,
+                     queue_delay_s=seq.record.queue_delay)
+            trc.span("retire", track, self.sim_time, self.sim_time,
+                     request=rid)
         self.completions.append(Completion(
             request_id=seq.request.request_id,
             tokens=np.asarray(seq.generated, np.int32),

@@ -270,6 +270,9 @@ class ReplayEngine(PersistentEngine):
         self.tracker = HotnessTracker(self.n_moe_layers, self.n_experts)
         self.requests_served = 0
         self.recorder = None
+        # attach_tracer (inherited) wires a TimelineTracer through the
+        # same ledgers the live engine uses, so a replay emits the
+        # identical event stream.
         self.tracer = None
         self.prefetcher = ecfg.build_prefetcher(
             self.n_moe_layers, self.n_experts)
@@ -328,6 +331,8 @@ class ReplayEngine(PersistentEngine):
                                        placement=self.placement)
         self.ledger = ShardedCostLedger(
             SYSTEM_PROFILES[self.ecfg.system], n_shards)
+        if self.tracer is not None:   # re-wire the sink onto the new ledger
+            self.attach_tracer(self.tracer)
         return self
 
     # ------------------------------------------------- disabled live API
@@ -444,6 +449,7 @@ class ReplayEngine(PersistentEngine):
         new.controller = copy.deepcopy(self.controller)
         new.slo_controller = copy.deepcopy(self.slo_controller)
         new.recorder = None
+        new.tracer = None   # ledger.clone() already detached its sink
         for f in ("_miss_curve", "_energy_curve", "_alpha_curve",
                   "_per_tenant_rows", "migration_events",
                   "moe_positions"):

@@ -1,5 +1,5 @@
 """Shared helpers of the port's model-free parity tests (shard, placement,
-control): one namespace per package, so a scenario written once runs on
+control, observability): one namespace per package, so a scenario written once runs on
 the reference and on the port, and a comparison that holds ids, counts and
 decisions exactly and floats at rtol 1e-6."""
 
@@ -8,6 +8,7 @@ from types import SimpleNamespace
 import numpy as np
 
 from repro import control as JC
+from repro import obs as JO
 from repro import sim as JS
 from repro.control import signals as JSIG
 from repro.core import cache as JCA
@@ -17,9 +18,11 @@ from repro.core import slices as JSL
 from repro.core import warmup as JWU
 from repro.hw import energy as JE
 from repro.hw import specs as JSP
+from repro.serving import telemetry as JTEL
 from repro.sim import autotune as JAT
 from repro.sim import trace as JT
 from repro_torch import control as TC
+from repro_torch import obs as TO
 from repro_torch import sim as TS
 from repro_torch.control import signals as TSIG
 from repro_torch.core import cache as TCA
@@ -29,21 +32,22 @@ from repro_torch.core import slices as TSL
 from repro_torch.core import warmup as TWU
 from repro_torch.hw import energy as TE
 from repro_torch.hw import specs as TSP
+from repro_torch.serving import telemetry as TTEL
 from repro_torch.sim import autotune as TAT
 from repro_torch.sim import trace as TT
 
 
 def _ns(control, signals, cache, placement, shard, slices, warmup, energy,
-        specs, sim, autotune, trace):
+        specs, sim, autotune, trace, obs, telemetry):
     return SimpleNamespace(
         control=control, signals=signals, cache=cache, placement=placement,
         shard=shard, SliceKey=slices.SliceKey, warmup=warmup,
         energy=energy, SYSTEM_PROFILES=specs.SYSTEM_PROFILES, sim=sim,
-        autotune=autotune, trace=trace)
+        autotune=autotune, trace=trace, obs=obs, telemetry=telemetry)
 
 
-REF = _ns(JC, JSIG, JCA, JP, JSH, JSL, JWU, JE, JSP, JS, JAT, JT)
-PORT = _ns(TC, TSIG, TCA, TP, TSH, TSL, TWU, TE, TSP, TS, TAT, TT)
+REF = _ns(JC, JSIG, JCA, JP, JSH, JSL, JWU, JE, JSP, JS, JAT, JT, JO, JTEL)
+PORT = _ns(TC, TSIG, TCA, TP, TSH, TSL, TWU, TE, TSP, TS, TAT, TT, TO, TTEL)
 
 
 def plain(x):

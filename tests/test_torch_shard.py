@@ -327,9 +327,15 @@ def test_shard_scenario_matches_reference(name):
 
 
 def test_sharded_ledger_tracer_hook_accepts_only_none():
+    """The hook once accepted only ``None``; it now takes a tracer too,
+    fans it out to every shard and the interconnect, and ``None`` still
+    detaches."""
     led = PORT.energy.ShardedCostLedger(PORT.SYSTEM_PROFILES["mobile_soc"],
                                         2)
     led.attach_tracer(None)
     assert led.tracer is None
-    with pytest.raises(NotImplementedError, match="Observability"):
-        led.attach_tracer(object())
+    trc = PORT.obs.TimelineTracer()
+    led.attach_tracer(trc)
+    assert all(s.tracer is trc for s in led.shards) and led.ici.tracer is trc
+    led.attach_tracer(None)
+    assert led.tracer is None and led.ici.tracer is None

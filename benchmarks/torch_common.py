@@ -1,7 +1,8 @@
 """Shared infrastructure of the port's benchmarks (the counterpart of
 ``benchmarks/common.py``): the trained-model cache, held-out batches,
-synthetic perplexity, the CSV sink, the call timer and the JSON record.
-Imports no JAX.
+synthetic perplexity, the CSV sink, the call timer, the JSON record and
+the readers of the records a benchmark is held against (the reference's
+and its own).  Imports no JAX.
 
 The trained-weights cache is ``results/trained_torch/``, apart from the
 reference's ``results/trained/``: the two packages draw different inits,
@@ -158,6 +159,26 @@ def device_time_us(fn: Callable, device, *, warmup: int = 3,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) * 1e3 / iters
+
+
+def _load(path: str) -> Optional[dict]:
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def reference_record(name: str) -> Optional[dict]:
+    """The reference's persisted ``results/BENCH_<name>.json`` (in the
+    repo, whatever ``REPRO_RESULTS_DIR`` says), or ``None``.  Its
+    model-free numbers are targets the port must equal."""
+    return _load(os.path.join(_REPO_RESULTS, f"BENCH_{name}.json"))
+
+
+def own_record(name: str) -> Optional[dict]:
+    """This port benchmark's last record, ``RESULTS/BENCH_torch_<name>
+    .json``, or ``None``."""
+    return _load(os.path.join(RESULTS, f"BENCH_torch_{name}.json"))
 
 
 def json_record(name: str, payload: dict) -> str:

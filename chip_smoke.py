@@ -182,10 +182,32 @@ it goes, any failure exiting non-zero:
    spans, the Chrome file's size, the report's stall and overlap figures
    (cost model), the tracer's host seconds and the wall per step.
 
+10. the three serving benchmarks at full width, after 9 and before 8a,
+   over phase 5's params: every section of ``benchmarks/torch_{
+   controller_soak,sim_fidelity,serving_load}.py`` through their own
+   functions, one engine at a time, K1 and K2 once per MoE layer per
+   forward (neither in the dense-dequant row), every logit finite.  Each
+   cache is the reference's as a share of the 2-layer
+   ``qwen15-moe-repro`` store, applied to the full store; the traffic is
+   the reference's (24-token prompts, 12 new tokens) over the full
+   vocabulary, the request counts cut to fit 90 s (``[phase10] reduced``).
+   Hard checks: the launch counts; sim_fidelity's replay gates (a),
+   cumsum, ep2, ep=1 and its file round trip; the controller's
+   live-vs-replay fidelity (b), determinism (c), the soak grid equal to
+   the reference's ``results/BENCH_controller_soak.json`` and gate (a);
+   async energy equal to serialized; all-to-all bytes 0 at ep 1 and above
+   0 beyond; the traced twin's energy exact and makespan equal to the
+   ledger's latency; placement's live-vs-replay equalities.  The claims
+   calibrated on the 2-layer model are printed ``held`` / ``not held``
+   with their numbers; also the traced and untraced twins' host wall per
+   forward (the untraced one is the ep section's ep=1 run, right after),
+   the tracer's share of its twin's wall, the peak memory and the phase's
+   seconds (``[phase10]`` lines).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 9.
+busy share).  Without arguments the script runs phases 1 to 10.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -198,6 +220,7 @@ phase 4's bf16-KV run for the f32 rows of K1 and K2; ``graph_ms`` and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -1676,6 +1699,44 @@ CH_ATTR = {"flash": "flash_ch", "flash_bg": "flash_bg_ch",
            "dram": "dram_ch", "compute": "compute_ch", "ici": "ici_ch"}
 
 
+def _timed_tracer():
+    """A ``TimelineTracer`` that adds up its own host time in
+    ``seconds`` (emit, span, set_attr, begin_step, begin_prefill): the
+    walls of the run it traces include it."""
+    from repro_torch.obs import TimelineTracer
+
+    class TimedTracer(TimelineTracer):
+        seconds = 0.0
+
+        def emit(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().emit(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def span(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().span(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def set_attr(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().set_attr(*a, **kw)
+            self.seconds += time.perf_counter() - t0
+
+        def begin_step(self):
+            t0 = time.perf_counter()
+            step = super().begin_step()
+            self.seconds += time.perf_counter() - t0
+            return step
+
+        def begin_prefill(self):
+            t0 = time.perf_counter()
+            super().begin_prefill()
+            self.seconds += time.perf_counter() - t0
+
+    return TimedTracer()
+
+
 def phase_traced_serving(cfg, params, prompts, p5, device: str = "cuda"):
     """Phase 9: phase 5's traffic over phase 5's params with one engine
     that puts every event kind on the timeline (phase 5's settings plus
@@ -1708,37 +1769,7 @@ def phase_traced_serving(cfg, params, prompts, p5, device: str = "cuda"):
         say(f"[trace] card: {smi_name_power()}")
         torch.cuda.reset_peak_memory_stats()
 
-    class TimedTracer(TimelineTracer):
-        """Adds up its own host time: the run's walls include it."""
-        seconds = 0.0
-
-        def emit(self, *a, **kw):
-            t0 = time.perf_counter()
-            super().emit(*a, **kw)
-            self.seconds += time.perf_counter() - t0
-
-        def span(self, *a, **kw):
-            t0 = time.perf_counter()
-            super().span(*a, **kw)
-            self.seconds += time.perf_counter() - t0
-
-        def set_attr(self, *a, **kw):
-            t0 = time.perf_counter()
-            super().set_attr(*a, **kw)
-            self.seconds += time.perf_counter() - t0
-
-        def begin_step(self):
-            t0 = time.perf_counter()
-            step = super().begin_step()
-            self.seconds += time.perf_counter() - t0
-            return step
-
-        def begin_prefill(self):
-            t0 = time.perf_counter()
-            super().begin_prefill()
-            self.seconds += time.perf_counter() - t0
-
-    tracer, registry = TimedTracer(), MetricsRegistry()
+    tracer, registry = _timed_tracer(), MetricsRegistry()
 
     def prepare(engine, sched):
         engine.attach_tracer(tracer)
@@ -1911,6 +1942,361 @@ def phase_traced_serving(cfg, params, prompts, p5, device: str = "cuda"):
         say(f"[trace] max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return run["launches"]
+
+
+# Phase 10's request counts, cut so that the phase fits P10_BUDGET_S
+# (a forward at full width takes 0.09-0.12 s, an engine build 0.4 s):
+# per serving_load cell and sim_fidelity's live run (the reference: 12
+# and 8), sim_fidelity's cumsum and ep2 runs (3), the request
+# predictor's pair and placement's three policies (24: at 2 the
+# predictor issued no fill), the placement live-vs-replay run (8).
+P10_CELL, P10_SMALL, P10_PAIR, P10_PLACE_FID = 2, 1, 4, 2
+P10_BUDGET_S = 90.0
+
+
+@contextlib.contextmanager
+def _persistent_engines(*modules):
+    """Within the block, each of ``modules``' ``PersistentEngine`` is a
+    subclass that first collects unreachable engines (their blocks go
+    back to the allocator's cache, where the next engine's same-sized
+    tensors find them), then records its build seconds, counts its
+    forwards (prefills and decode steps) and records on the card whether
+    every logit was finite; yields one record per engine built (the
+    records hold no engine, so the engines are freed as they go)."""
+    from repro_torch.core.engine import PersistentEngine
+
+    records = []
+
+    class CountedEngine(PersistentEngine):
+        def __init__(self, *a, **kw):
+            t0 = time.perf_counter()
+            gc.collect()
+            super().__init__(*a, **kw)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.record = {"forwards": 0, "decode_steps": 0,
+                           "build_s": time.perf_counter() - t0,
+                           "serve_s": 0.0,
+                           "finite": torch.ones((), dtype=torch.bool,
+                                                device=self.device)}
+            records.append(self.record)
+
+        # Each forward's charge path reads its routing back to the host,
+        # so the host clock around the call covers the device's work.
+        def run_prefill(self, tokens, **kw):
+            t0 = time.perf_counter()
+            logits, kv, info = super().run_prefill(tokens, **kw)
+            self.record["serve_s"] += time.perf_counter() - t0
+            self.record["forwards"] += 1
+            self.record["finite"] &= torch.isfinite(logits).all()
+            return logits, kv, info
+
+        def decode_batch(self, token, kv_cache, **kw):
+            t0 = time.perf_counter()
+            logits, kv, charge = super().decode_batch(token, kv_cache, **kw)
+            self.record["serve_s"] += time.perf_counter() - t0
+            self.record["forwards"] += 1
+            self.record["decode_steps"] += 1
+            self.record["finite"] &= torch.isfinite(logits).all()
+            return logits, kv, charge
+
+    saved = [(m, m.PersistentEngine) for m in modules]
+    for m, _ in saved:
+        m.PersistentEngine = CountedEngine
+    try:
+        yield records
+    finally:
+        for m, cls in saved:
+            m.PersistentEngine = cls
+
+
+def _hard(tag: str, fn):
+    """``fn()``, a benchmark's check that holds by construction at any
+    width; its ``AssertionError`` fails the run."""
+    try:
+        return fn()
+    except AssertionError as e:
+        fail(f"{tag}: {e!r}"[:2000])
+
+
+def _claim(what: str, held: bool, numbers: str) -> None:
+    say(f"[phase10] claim: {what}: {'held' if held else 'not held'} "
+        f"({numbers}) (calibrated on the 2-layer model; printed, not "
+        "asserted)")
+
+
+def phase_serving_benchmarks(cfg, params, device: str = "cuda"):
+    """Phase 10: the three serving benchmarks at full width, over phase
+    5's params, through ``benchmarks/torch_{controller_soak,sim_fidelity,
+    serving_load}``'s own functions, every engine with quantized
+    execution but the dense-dequant row, one engine at a time.  Each
+    cache is the reference's cache as a share of the 2-layer
+    ``qwen15-moe-repro`` store, applied to the full store; the traffic is
+    the reference's (24-token prompts, 12 new tokens, 24 for the request
+    predictor) over the full vocabulary, with the request counts cut
+    (``[phase10] reduced`` lines).  Hard checks, each failing the run:
+    K1 and K2 once per MoE layer per forward (neither in the dense row);
+    sim_fidelity's (a), cumsum, ep2 and ep=1 replays and its file round
+    trip; the controller's live-vs-replay fidelity (b), determinism (c),
+    the soak grid equal to the reference's ``BENCH_controller_soak.json``
+    and gate (a); async energy equal to serialized; all-to-all bytes 0 at
+    ep 1 and above 0 beyond; the traced twin's energy exact and makespan
+    equal to the ledger's latency; placement's live-vs-replay equalities;
+    every logit finite.  The claims calibrated on the 2-layer model are
+    printed as held or not held.  Also printed: the host wall per forward
+    of the traced twin and of its untraced twin (the ep section's ep=1
+    run, which follows it), the tracer's share of its twin's wall, the
+    peak device memory and the phase's seconds.  Returns the seconds."""
+    sys.path.insert(0, HERE)
+    from benchmarks import torch_controller_soak as CS
+    from benchmarks import torch_serving_load as SL
+    from benchmarks import torch_sim_fidelity as SF
+    from benchmarks.torch_common import reference_record
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.amat import MAT84
+    from repro_torch.models.moe import RoutingPolicy
+    from repro_torch.sim import replay_trace
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    if on_card:
+        say(f"[phase10] card: {smi_name_power()}")
+        torch.cuda.reset_peak_memory_stats()
+    store = _store_bytes(cfg, MAT84)
+    repro_store = _store_bytes(
+        dataclasses.replace(get_config(SL.ARCH), n_layers=2), MAT84)
+    scale = store / repro_store
+
+    def cache(ref_bytes):
+        return ref_bytes * scale
+
+    say(f"[phase10] {cfg.name}, {cfg.n_layers} layers, vocab "
+        f"{cfg.vocab_size}: each cache is the reference's share of the "
+        f"2-layer {SL.ARCH} store ({repro_store / 1e6:.3f} MB) applied to "
+        f"the {store / 1e9:.3f} GB store (x{scale:.1f}): 2.5e6 B -> "
+        f"{cache(2.5e6) / 1e9:.3f} GB, 1e6 B -> {cache(1e6) / 1e9:.3f} GB, "
+        f"0.8e6 B -> {cache(0.8e6) / 1e9:.3f} GB; autotune's 2, 4 and 6.5 "
+        f"MB -> {cache(2e6) / 1e9:.3f}, {cache(4e6) / 1e9:.3f} and "
+        f"{cache(6.5e6) / 1e9:.3f} GB")
+    say(f"[phase10] reduced: requests per serving_load cell {P10_CELL} "
+        f"(reference 12, --quick 6); sim_fidelity's live run {P10_CELL} "
+        f"(8, 4) and its cumsum and ep2 runs {P10_SMALL} (3, 2); the "
+        f"controller's live run 4 (its --quick size); the request "
+        f"predictor's pair {P10_PAIR} (24) and placement's policies "
+        f"{P10_PAIR} (24); the placement live-vs-replay run "
+        f"{P10_PLACE_FID} (8)")
+    say("[phase10] reduced: the sweep at rate 2 and batches 1 and 4, ep "
+        "in {1, 2, 4} (the reference's --quick sweep; its full ep list)")
+
+    def section(tag, run, *, quant=True):
+        """``run()`` with the launch counts reset and read, each engine
+        counted; checks K1/K2 and finiteness.  Returns run's result and
+        its engines' records."""
+        with _persistent_engines(CS, SF, SL) as records:
+            t0 = time.perf_counter()
+            out, launches = _counted(run)
+            wall = time.perf_counter() - t0
+        forwards = sum(r["forwards"] for r in records)
+        steps = sum(r["decode_steps"] for r in records)
+        build = sum(r["build_s"] for r in records)
+        say(f"[phase10] {tag}: {len(records)} engines built in {build:.2f} "
+            f"s, {forwards} forwards ({steps} decode steps), wall "
+            f"{wall:.2f} s")
+        _check_paper_launches(f"phase10 {tag}", launches,
+                              cfg.n_layers * forwards if quant else 0,
+                              device)
+        if not all(bool(r["finite"]) for r in records):
+            fail(f"phase10 {tag}: non-finite logits")
+        return out, records, wall
+
+    kw = dict(device=device, quant_execution=True)
+
+    # ---- controller soak: the model-free grid, then the live run.
+    t0 = time.perf_counter()
+    trace, results, ctl_rep = _hard("soak (c)", lambda: CS.soak(False))
+    best = CS.best_static(results)
+    ctl = results["controller"]
+    say(f"[phase10] soak: {trace.n_prefills} requests, "
+        f"{trace.n_decode_steps} decode steps, replayed under 4 configs in "
+        f"{time.perf_counter() - t0:.2f} s (host); controller attainment "
+        f"{ctl['attainment']!r}, best static {best} "
+        f"{results[best]['attainment']!r}; energy {ctl['energy_j']!r} J "
+        f"against {results[best]['energy_j']!r} J (cost model)")
+    if not (all(ctl["attainment"] > results[n]["attainment"]
+                for n in CS.STATICS)
+            and ctl["energy_j"] <= results[best]["energy_j"]):
+        fail("phase10: soak gate (a) does not hold")
+    if reference_record("controller_soak") is None:
+        fail("phase10: results/BENCH_controller_soak.json is missing")
+    _hard("soak grid", lambda: CS._check_against_baseline(
+        {"n_decode_steps": trace.n_decode_steps, "configs": results},
+        quick=False))
+    fid, _, _ = section("controller live", lambda: _hard(
+        "controller (b)", lambda: CS._live_fidelity(
+            True, cfg=cfg, params=params, cache_bytes=cache(1e6), **kw)))
+    say(f"[phase10] controller live run: {fid['n_steps']} steps, "
+        f"{fid['n_actions']} actions, levels {fid['levels']}")
+
+    # ---- sim fidelity.
+    (tr, live), _, _ = section("sim_fidelity live", lambda: SF._record_live(
+        cfg, params, P10_CELL, cache_bytes=cache(1e6), **kw))
+    t_npz, _ = _hard("sim round trip", lambda: SF.round_trip(
+        tr, os.path.join(HERE, "build", "phase10")))
+    rep = replay_trace(t_npz)
+    _hard("sim_fidelity (a)", lambda: SF.check_fidelity(rep, live))
+    replay_sps = max([rep.steps_per_s]
+                     + [replay_trace(t_npz).steps_per_s for _ in range(2)])
+    ratio = replay_sps / live["steps_per_s"]
+    _claim("replay >= 100x live decode steps/s", ratio >= 100.0,
+           f"replay {replay_sps!r} steps/s, live {live['steps_per_s']!r} "
+           f"steps/s on the card, {ratio!r}x")
+    (ctr, clive), _, _ = section("sim_fidelity cumsum", lambda: (
+        SF._record_live(cfg, params, P10_SMALL, cache_bytes=cache(1e6),
+                        policy=RoutingPolicy(kind="cumsum",
+                                             slice_mode="dbsc",
+                                             cumsum_tau=0.05,
+                                             cumsum_kmax=8), **kw)))
+    pf, _ = _hard("sim_fidelity cumsum", lambda: SF.check_cumsum(ctr, clive))
+    (etr, elive), _, _ = section("sim_fidelity ep2", lambda: (
+        SF._record_live(cfg, params, P10_SMALL, cache_bytes=cache(1e6),
+                        ep_shards=2,
+                        async_io=True, **kw)))
+    _hard("sim_fidelity ep2", lambda: SF.check_ep2(etr, elive))
+    _hard("sim_fidelity ep=1", lambda: SF.check_forced_ep1(t_npz, live))
+    say(f"[phase10] sim_fidelity: replay == live over {tr.n_prefills} "
+        f"prefills and {tr.n_decode_steps} decode steps; cumsum prefill "
+        f"active frac {float(np.asarray(pf.active).mean())!r}; ep2 a2a "
+        f"{elive['ledger']['ici_bytes']!r} B; ep=1 forced sharded exact")
+    t0 = time.perf_counter()
+    rows, default, frontier, winner, _ = SF.autotune(
+        t_npz, SF.autotune_policies(scale))
+    say(f"[phase10] autotune: {len(rows)} configs replayed in "
+        f"{time.perf_counter() - t0:.2f} s (host), frontier "
+        f"{[r.name for r in frontier]}")
+    _claim("autotune finds a config under the 5% miss SLO below 0.999 of "
+           "the default's energy",
+           winner is not None and winner.energy_j < 0.999 * default.energy_j,
+           f"winner {None if winner is None else winner.name}, miss "
+           f"{None if winner is None else winner.miss_rate!r}, energy "
+           f"{None if winner is None else winner.energy_j!r} J against "
+           f"{default.energy_j!r} J")
+
+    # ---- serving load.
+    sl = dict(kw, cache_bytes=cache(SL.CACHE_BYTES))
+    by_batch, _, _ = section("load sweep", lambda: SL.load_sweep(
+        cfg, params, n_requests=P10_CELL, rates=[2.0], batches=[1, 4], **sl))
+    tp = {mb: by_batch["saturated"][mb]["throughput_tok_per_s"]
+          for mb in (1, 4)}
+    _claim("batching pays", tp[4] > tp[1], f"saturated {tp!r} tok/s")
+    (cold, warm_s, warm_miss), _, _ = section(
+        "warm vs cold", lambda: SL.warm_vs_cold(
+            cfg, params, n_requests=P10_CELL, **sl))
+    _claim("warm below cold",
+           warm_miss < cold["steady_state_miss_rate"]
+           and warm_s["energy_per_token_j"] < cold["energy_per_token_j"],
+           f"miss {warm_miss!r} against {cold['steady_state_miss_rate']!r}, "
+           f"energy/token {warm_s['energy_per_token_j']!r} against "
+           f"{cold['energy_per_token_j']!r} J")
+    tl, tl_records, _ = section("timeline", lambda: SL.timeline(
+        cfg, params, max_batch=4, n_requests=P10_CELL, **sl))
+    _hard("async energy", lambda: SL.check_async_energy(tl))
+    t_sync, t_async = tl["serialized"], tl["async"]
+    _claim("async faster",
+           t_async["throughput_tok_per_s"] > t_sync["throughput_tok_per_s"]
+           and t_async["per_token_p50_s"] < t_sync["per_token_p50_s"],
+           f"p50 {t_async['per_token_p50_s']!r} against "
+           f"{t_sync['per_token_p50_s']!r} s")
+    mk = tl["async+prefetch(markov)"]["prefetch"]
+    _claim("markov mostly wasted", mk["wasted"] > mk["useful"],
+           f"wasted {mk['wasted']}, useful {mk['useful']} of {mk['issued']}")
+
+    # The traced twin, then the ep section, whose ep=1 run (the async
+    # cell again, untraced) is its untraced twin, one after the other.
+    tracer = _timed_tracer()
+    (obs_row, p50_rel, _), (tr,), _ = section(
+        "traced twin", lambda: _hard("traced twin", lambda: (
+            SL.observability(cfg, params, t_async, max_batch=4,
+                             n_requests=P10_CELL, tracer=tracer, **sl))))
+    ep_rows, ep_records, _ = section("ep scaling", lambda: SL.ep_scaling(
+        cfg, params, max_batch=4, n_requests=P10_CELL, ep_values=[1, 2, 4],
+        **sl))
+    un = ep_records[0]
+    say(f"[phase10] traced twin: {obs_row['n_trace_events']} events, "
+        f"{obs_row['n_spans']} spans, p50 rel diff {p50_rel!r}, energy "
+        f"identical, makespan == ledger latency; host wall per forward "
+        f"traced {tr['serve_s'] / tr['forwards']:.4f} s, untraced (ep=1) "
+        f"{un['serve_s'] / un['forwards']:.4f} s ({tr['forwards']} and "
+        f"{un['forwards']} forwards), ratio "
+        f"{tr['serve_s'] / un['serve_s']:.4f}; the tracer's own host time "
+        f"{tracer.seconds:.6f} s, {tracer.seconds / tr['serve_s']:.3%} of "
+        f"the traced twin's {tr['serve_s']:.2f} s in its forwards")
+    _hard("ici", lambda: SL.check_ici(ep_rows))
+    p50 = {ep: r["per_token_p50_s"] for ep, r in ep_rows.items()}
+    _claim("p50 falls with ep", p50[2] < p50[1] and p50[4] < p50[1],
+           f"p50 {p50!r} s, a2a {[ep_rows[e]['ici_bytes'] for e in (2, 4)]}"
+           " B")
+    _claim("ep=4 p50 at or below 280 us", p50[4] <= 280e-6, f"{p50[4]!r} s")
+
+    pf_rows, _, _ = section("request predictor", lambda: SL.request_prefetch(
+        cfg, params, n_requests=P10_PAIR, **sl))
+    pa, pr = pf_rows["plain-async"], pf_rows["async+prefetch(request)"]
+    rpf = pr["prefetch"]
+    _claim("request predictor: useful > wasted, lower p50, energy/token "
+           "not above plain async",
+           rpf["useful"] > rpf["wasted"]
+           and pr["per_token_p50_s"] < pa["per_token_p50_s"]
+           and pr["energy_per_token_j"] <= pa["energy_per_token_j"],
+           f"useful/late/wasted {rpf['useful']}/{rpf['late']}/"
+           f"{rpf['wasted']} of {rpf['issued']}, p50 "
+           f"{pr['per_token_p50_s']!r} against {pa['per_token_p50_s']!r} s, "
+           f"energy/token {pr['energy_per_token_j']!r} against "
+           f"{pa['energy_per_token_j']!r} J")
+
+    pl, _, _ = section("placement", lambda: SL.placement(
+        cfg, params, max_batch=4, n_requests=P10_PAIR,
+        cache_bytes=cache(SL.PLACE_CACHE), **kw))
+    rr, hot, repl = (pl["round_robin"], pl["hotness"],
+                     pl["hotness+replicate:2"])
+    _claim("hotness narrows the shard miss spread at no p50 cost",
+           hot["shard_miss_spread"] < rr["shard_miss_spread"]
+           and hot["per_token_p50_s"] <= rr["per_token_p50_s"],
+           f"spread {hot['shard_miss_spread']!r} against "
+           f"{rr['shard_miss_spread']!r}, p50 {hot['per_token_p50_s']!r} "
+           f"against {rr['per_token_p50_s']!r} s")
+    _claim("replication cuts a2a within 3% of p50",
+           repl["a2a_bytes"] < rr["a2a_bytes"]
+           and repl["per_token_p50_s"] <= 1.03 * rr["per_token_p50_s"],
+           f"a2a {repl['a2a_bytes']!r} against {rr['a2a_bytes']!r} B, p50 "
+           f"{repl['per_token_p50_s']!r} against {rr['per_token_p50_s']!r} s")
+    n_mig, _, _ = section("placement live vs replay", lambda: _hard(
+        "placement fidelity", lambda: SL.placement_fidelity(
+            cfg, params, n_requests=P10_PLACE_FID,
+            cache_bytes=cache(SL.PLACE_CACHE), **kw)))
+    say(f"[phase10] placement live == replay: per-shard epoch counts, "
+        f"shard counters and {n_mig} migrations exact")
+
+    def ffn_row(label, run):
+        out, _, _ = section(f"expert_ffn {label}", run,
+                            quant=label == "quant_execution")
+        return out
+
+    qe_rows, reduction = SL.expert_ffn(
+        cfg, params, max_batch=4, n_requests=P10_CELL, device=device,
+        cache_bytes=cache(SL.CACHE_BYTES), on_row=ffn_row)
+    say(f"[phase10] expert_ffn: weight bytes per step "
+        f"{qe_rows['dense_dequant']['expert_weight_bytes_per_step']!r} "
+        f"dense, {qe_rows['quant_execution']['expert_weight_bytes_per_step']!r}"
+        f" quantized ({reduction:.2f}x); per-token p50 "
+        f"{qe_rows['dense_dequant']['per_token_p50_s']!r} and "
+        f"{qe_rows['quant_execution']['per_token_p50_s']!r} s (cost model)")
+
+    seconds = time.perf_counter() - t_phase
+    if on_card:
+        say(f"[phase10] max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"[phase10] {seconds:.1f} s (host clock; budget {P10_BUDGET_S:.0f} "
+        "s)")
+    return seconds
 
 
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 40, 8, 64, 2e-3
@@ -2480,6 +2866,8 @@ def main() -> None:
     phase_long_prefill(cfg, params, p5)
     _release()
     phase_traced_serving(cfg, params, prompts, p5)
+    _release()
+    phase_serving_benchmarks(cfg, params)
     _release()
     t_8a = phase_paper_full_width(cfg, params)
     # Phase 6 trains and serves a model of its own: release the params.

@@ -443,7 +443,14 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 # val: [B, 1, ...], the new token's row per sequence.
                 buf = entry[name][period]                   # [B, S, ...]
                 if vector_pos:
-                    buf[rows, pos] = val[:, 0].to(buf.dtype)
+                    # A row at or past the cache's end (an idle slot's
+                    # position keeps counting) is dropped, as the
+                    # reference's scatter drops it; no host sync.
+                    at = pos.clamp(max=buf.shape[1] - 1)
+                    keep = (pos < buf.shape[1]).reshape(
+                        (b,) + (1,) * (buf.ndim - 2))
+                    buf[rows, at] = torch.where(
+                        keep, val[:, 0].to(buf.dtype), buf[rows, at])
                 else:
                     buf[:, pos.reshape(1)] = val.to(buf.dtype)
                 return buf

@@ -204,10 +204,36 @@ it goes, any failure exiting non-zero:
    the tracer's share of its twin's wall, the peak memory and the phase's
    seconds (``[phase10]`` lines).
 
+11. serving extras, at full width:
+   11a. after 10 and before 8a, over phase 5's params with phase 5's
+       engine settings, one engine at a time: the server's cold path
+       (``persistent=False``, a fresh engine per request) on 2 of phase
+       5's prompts, its plain-engine path (``engine_cfg=None``: the float
+       model, no kernel) on 1, and the batching scheduler with
+       ``bucket_prompts=8`` and ``truncate_prompts=True`` on prompts of
+       61, 64, 100 and 200 tokens.  Hard checks: K1 and K2 once per MoE
+       layer per forward on the cold and clipping paths and never on the
+       plain one; every completion its 16 tokens in the vocabulary; the
+       admitted lengths those of the clipping rule, ``truncated`` on
+       exactly the clipped requests; every ledger total finite
+       (``[extras-*]`` lines: wall per token, peak memory);
+   11b. after ``del params`` and before 6: the serving CLI,
+       ``repro_torch.launch.serve.main``, in this process at full width
+       (its own init from seed 0; 2 requests, 64 prompt tokens, 16 new,
+       phase 5's cache through ``--cache-mb``), recording its trace and
+       writing its Chrome, metrics and Prometheus files, then a bare
+       ``--replay-trace`` of that trace.  Hard checks:
+       no K1/K2 launch (the CLI keeps the reference's dense-dequant
+       default); the replay's energy and latency equal the live ledger's
+       (rtol 1e-6) and its epoch miss rates the live cache's, each
+       request's decode MSB miss rate the live line's ``miss_rate``; the
+       two exports' channel events equal; one metrics sample per decode
+       step; a non-empty Prometheus file (``[cli]`` lines).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 10.
+busy share).  Without arguments the script runs phases 1 to 11.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -1152,10 +1178,11 @@ SERVE_PROMPT, SERVE_NEW, SERVE_REQ = 128, 16, 4
 
 
 def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
-           new: int = SERVE_NEW, tenants=None, prepare=None):
+           new: int = SERVE_NEW, tenants=None, prepare=None, sched_kw=None):
     """Serve ``prompts`` (``new`` new tokens each, request ``i`` from
     tenant ``tenants[i]`` when given) through the continuous-batching
-    scheduler (one slot per prompt, at most ``SERVE_REQ``) with a trace
+    scheduler (one slot per prompt, at most ``SERVE_REQ``; ``sched_kw``
+    adds ``SchedulerConfig`` fields) with a trace
     recorder attached, the launch counts set to 0 just before the run and
     read just after.  ``prepare(engine, sched)``, when given, runs after
     the recorder is attached and before the counts are reset.  Fails unless every request is served in full, every
@@ -1201,7 +1228,8 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
     sync()
     t_quant = time.perf_counter() - t0
     sched = ContinuousBatchingScheduler(
-        engine, SchedulerConfig(max_batch=min(len(prompts), SERVE_REQ)),
+        engine, SchedulerConfig(max_batch=min(len(prompts), SERVE_REQ),
+                                **(sched_kw or {})),
         device=device)
     for i, prompt in enumerate(prompts):
         if not sched.submit(Request(
@@ -2299,6 +2327,300 @@ def phase_serving_benchmarks(cfg, params, device: str = "cuda"):
     return seconds
 
 
+CLIP_LENGTHS = (61, 64, 100, 200)      # the last is over 11a (iii)'s budget
+CLIP_BUCKET = 8
+P11_COLD_REQ = 2
+
+
+def _peak_reset(on_card: bool) -> None:
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(on_card: bool) -> str:
+    if not on_card:
+        return "not measured (CPU)"
+    return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+
+
+def _check_tokens(tag: str, completions, new: int, vocab: int) -> None:
+    for c in completions:
+        toks = np.asarray(c.tokens)
+        if len(toks) != new or toks.min() < 0 or toks.max() >= vocab:
+            fail(f"{tag}: request {c.request_id} gave {toks.tolist()}, not "
+                 f"{new} tokens in the vocabulary")
+
+
+def _want_k1_k2(tag: str, launches: dict, want: int, on_card: bool) -> None:
+    got = {k: launches.get(k, 0) for k in ("k_major", "output_major")}
+    say(f"[{tag}] kernel launches {got} (want {want} each)")
+    if on_card and got != {"k_major": want, "output_major": want}:
+        fail(f"{tag}: K1/K2 launched {got}, not {want} each")
+
+
+def phase_serving_extras(cfg, params, prompts, p5, device: str = "cuda"):
+    """Phase 11a: the server's cold and plain-engine paths and the
+    scheduler's prompt clipping and bucketing at full width, over phase
+    5's params with phase 5's engine settings, one engine at a time.
+    (i) ``SliceMoEServer(persistent=False)`` serves 2 of phase 5's prompts,
+    a fresh engine each; (ii) ``SliceMoEServer(engine_cfg=None)`` serves 1
+    through ``PlainEngine`` (the float model, no kernel); (iii) the
+    continuous-batching scheduler at ``max_batch=4`` with
+    ``bucket_prompts=8`` and ``truncate_prompts=True`` serves prompts of
+    61, 64, 100 and 200 tokens (the last over the budget of ``max_seq -
+    max_new - 1`` = 128).  Hard checks: K1 and K2 once per MoE layer per
+    forward in (i) and (iii), never in (ii); every completion its
+    ``max_new`` tokens, all in the vocabulary; the clipped lengths those
+    of the clipping rule (the tail kept, then rounded down to the
+    bucket), read from the recorded prefill events, with ``truncated``
+    set on exactly the clipped requests; every ledger total finite.
+    Printed: each path's wall per generated token and its peak memory.
+    Returns the seconds."""
+    from repro_torch.serving.server import Request, SliceMoEServer
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    ecfg = _phase7_engine_config(p5)
+    max_seq = SERVE_PROMPT + SERVE_NEW + 1
+
+    def serve_server(engine_cfg, reqs, persistent):
+        server = SliceMoEServer(cfg, params, engine_cfg=engine_cfg,
+                                max_seq=max_seq, persistent=persistent,
+                                device=device)
+        for i, prompt in enumerate(reqs):
+            server.submit(Request(request_id=i, prompt=prompt,
+                                  max_new_tokens=SERVE_NEW))
+        return server.run()
+
+    # (i) the cold path: a fresh SliceMoEEngine per request.
+    _peak_reset(on_card)
+    cold, launches = _counted(
+        lambda: serve_server(ecfg, prompts[:P11_COLD_REQ], False))
+    _check_tokens("extras-cold", cold, SERVE_NEW, cfg.vocab_size)
+    _want_k1_k2("extras-cold", launches,
+                cfg.n_layers * sum(1 + len(c.tokens) for c in cold), on_card)
+    for c in cold:
+        totals = c.metrics["decode_totals"]
+        if not c.metrics["logits_finite"] or not all(
+                np.isfinite(v) for v in totals.values()):
+            fail(f"extras-cold: request {c.request_id} gave non-finite "
+                 "logits or ledger totals")
+        say(f"[extras-cold] request {c.request_id}: prefill wall "
+            f"{c.prefill_s:.4f} s, decode wall {c.decode_s:.4f} s, "
+            f"{c.decode_s / len(c.tokens):.4f} s per token; decode energy "
+            f"{totals['total_energy_j']!r} J, latency "
+            f"{totals['total_latency_s']!r} s (cost model)")
+    say(f"[extras-cold] {len(cold)} fresh engines; max_memory_allocated "
+        f"{_peak_gb(on_card)}")
+    del cold
+    _release_any(on_card)
+
+    # (ii) the plain engine: the float model, no offload simulation.
+    _peak_reset(on_card)
+    plain, launches = _counted(
+        lambda: serve_server(None, prompts[:1], True))
+    _check_tokens("extras-plain", plain, SERVE_NEW, cfg.vocab_size)
+    _want_k1_k2("extras-plain", launches, 0, on_card)
+    if plain[0].metrics is not None:
+        fail("extras-plain: the plain engine returned engine metrics")
+    c = plain[0]
+    # As in the reference, the plain engine's generate() holds the
+    # prefill, so the completion's decode wall includes it.
+    say(f"[extras-plain] PlainEngine: prefill and decode wall "
+        f"{c.decode_s:.4f} s, {c.decode_s / len(c.tokens):.4f} s per token; "
+        f"max_memory_allocated {_peak_gb(on_card)}")
+    del plain
+    _release_any(on_card)
+
+    # (iii) clipping and bucketing through the batching scheduler.
+    _peak_reset(on_card)
+    rng = np.random.default_rng(11)
+    clip_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                    for n in CLIP_LENGTHS]
+    run = _serve(cfg, params, ecfg, clip_prompts, "extras-clip", device,
+                 sched_kw=dict(bucket_prompts=CLIP_BUCKET,
+                               truncate_prompts=True))
+    budget = max_seq - SERVE_NEW - 1
+    want = {}
+    for rid, n in enumerate(CLIP_LENGTHS):
+        m = min(n, budget)
+        want[rid] = (m // CLIP_BUCKET) * CLIP_BUCKET if m > CLIP_BUCKET \
+            else m
+    got = {e.request_id: int(e.ids.shape[2]) for e in run["trace"].events
+           if e.kind == "prefill"}
+    flags = {rid: r.truncated
+             for rid, r in run["sched"].telemetry.requests.items()}
+    flagged = {c.request_id: c.metrics["prompt_truncated"]
+               for c in run["completions"]}
+    clipped = {rid: want[rid] != n for rid, n in enumerate(CLIP_LENGTHS)}
+    say(f"[extras-clip] prompt lengths {list(CLIP_LENGTHS)} -> admitted "
+        f"{[got.get(r) for r in range(len(CLIP_LENGTHS))]} (want "
+        f"{[want[r] for r in range(len(CLIP_LENGTHS))]}); truncated "
+        f"{[flags.get(r) for r in range(len(CLIP_LENGTHS))]}")
+    if got != want:
+        fail(f"extras-clip: admitted prompt lengths {got}, not {want}")
+    if flags != clipped or flagged != clipped:
+        fail(f"extras-clip: truncated flags {flags} / {flagged}, not "
+             f"{clipped}")
+    _check_tokens("extras-clip", run["completions"], SERVE_NEW,
+                  cfg.vocab_size)
+    snap = run["engine"].ledger.snapshot()
+    if not all(np.isfinite(v) for v in snap.values()):
+        fail("extras-clip: a ledger total is not finite")
+    n_tok = sum(len(c.tokens) for c in run["completions"])
+    sched = run["sched"]
+    say(f"[extras-clip] {len(sched.wall_prefill_s)} prefills, "
+        f"{len(sched.wall_step_s)} decode steps of up to 4 sequences, wall "
+        f"{run['wall']:.2f} s, {run['wall'] / n_tok:.4f} s per generated "
+        f"token; energy {snap['total_energy_j']!r} J, latency "
+        f"{snap['total_latency_s']!r} s (cost model); max_memory_allocated "
+        f"{_peak_gb(on_card)}")
+    del run, sched
+    _release_any(on_card)
+    seconds = time.perf_counter() - t_phase
+    say(f"[phase11] 11a {seconds:.1f} s (host clock)")
+    return seconds
+
+
+def _release_any(on_card: bool) -> None:
+    if on_card:
+        _release()
+    else:
+        gc.collect()
+
+
+CLI_MODEL = ["--arch", "qwen15-moe-a2.7b"]
+CLI_REQ, CLI_PROMPT, CLI_NEW = 2, 64, 16
+
+
+def phase_serve_cli(device: str = "cuda", model_argv=CLI_MODEL,
+                    cache_mb=None):
+    """Phase 11b: the port's serving CLI, ``repro_torch.launch.serve.main``
+    called in this process as a user would call it: ``model_argv``
+    (full width by default, its own init from seed 0), 2 requests of 64
+    prompt tokens and 16 new tokens, ``--cache-mb cache_mb`` when given
+    (the CLI's default of 4 MB holds no expert of the full-width model,
+    so every access would miss), recording its trace and writing the
+    Chrome export, the metrics JSONL and the Prometheus text; then a bare
+    ``--replay-trace`` of that trace with its own export.  The CLI keeps
+    the reference's dense-dequant default, so K1/K2 launch 0 times.  Hard
+    checks: the launch count; the replay's energy and latency equal the
+    live ledger's (rtol 1e-6), its epoch miss rates the live cache's, and
+    each request's decode window's MSB miss rate the live line's
+    ``miss_rate``; the two exports hold the same channel events; the
+    metrics JSONL one sample per decode step; the Prometheus file
+    non-empty; every request its 16 tokens.  Returns the seconds."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.obs.timeline import REQUESTS_PID
+    from repro_torch.sim import ReplayEngine, Trace
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    path = {k: os.path.join(build, f"cli_{k}") for k in (
+        "trace.npz", "chrome.json", "metrics.jsonl", "metrics.prom",
+        "replay.json")}
+    servers = []
+
+    class CapturedServer(SERVE.SliceMoEServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            SERVE.main(argv)
+        return buf.getvalue()
+
+    _peak_reset(on_card)
+    saved, SERVE.SliceMoEServer = SERVE.SliceMoEServer, CapturedServer
+    try:
+        t0 = time.perf_counter()
+        cache = [] if cache_mb is None else ["--cache-mb", repr(cache_mb)]
+        out, launches = _counted(lambda: cli(model_argv + cache + [
+            "--device", device, "--n-requests", str(CLI_REQ),
+            "--prompt-len", str(CLI_PROMPT), "--max-new", str(CLI_NEW),
+            "--seed", "0", "--record-trace", path["trace.npz"],
+            "--trace-out", path["chrome.json"],
+            "--metrics-out", path["metrics.jsonl"],
+            "--prom-out", path["metrics.prom"]]))
+        t_live = time.perf_counter() - t0
+    finally:
+        SERVE.SliceMoEServer = saved
+    for line in out.splitlines():
+        say(f"[cli] {line}")
+    server = servers[0]
+    engine = server._engine
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    requests = [x for x in lines if "request" in x]
+    _want_k1_k2("cli", launches, 0, on_card)
+    _check_tokens("cli", server.completions, CLI_NEW, engine.cfg.vocab_size)
+    n_tok = sum(len(c.tokens) for c in server.completions)
+    wall_dec = sum(c.decode_s for c in server.completions)
+    say(f"[cli] live run {t_live:.2f} s (init, engine, serving, exports); "
+        f"decode wall {wall_dec:.2f} s for {n_tok} tokens, "
+        f"{wall_dec / n_tok:.4f} s per token on the dense-dequant path; "
+        f"prefill walls {[round(c.prefill_s, 4) for c in server.completions]}"
+        f" s; max_memory_allocated {_peak_gb(on_card)}")
+
+    replay_out = cli(["--replay-trace", path["trace.npz"],
+                      "--trace-out", path["replay.json"]])
+    report = json.loads(replay_out)
+    say(f"[cli] --replay-trace: {json.dumps(report)}")
+    live = engine.ledger.snapshot()
+    for key in ("total_energy_j", "total_latency_s"):
+        if not _close(report[key], live[key], 1e-6):
+            fail(f"cli: the bare replay's {key} {report[key]!r} differs from "
+                 f"the live {live[key]!r}")
+    live_epochs = [{"epoch": label, "miss_rate": round(m, 6)}
+                   for label, m in engine.cache.epoch_miss_rates()]
+    if report["epoch_miss"] != live_epochs:
+        fail(f"cli: replayed epoch miss rates {report['epoch_miss']} differ "
+             f"from the live {live_epochs}")
+    trace = Trace.load(path["trace.npz"])
+    rep = ReplayEngine(trace.meta)
+    rep.consume_all(trace.events)
+    rep.finish()
+    decode_msb = [round(st["msb_misses"] / max(
+        st["msb_hits"] + st["msb_misses"], 1), 4)
+        for label, st in rep.cache.epochs if label.endswith("/decode")]
+    if decode_msb != [x["miss_rate"] for x in requests]:
+        fail(f"cli: replayed decode MSB miss rates {decode_msb} differ from "
+             f"the live lines' {[x['miss_rate'] for x in requests]}")
+    with open(path["chrome.json"]) as f:
+        live_events = [e for e in json.load(f)["traceEvents"]
+                       if e.get("pid") != REQUESTS_PID]
+    with open(path["replay.json"]) as f:
+        replay_events = json.load(f)["traceEvents"]
+    if live_events != replay_events:
+        fail(f"cli: the live export's {len(live_events)} channel events "
+             f"differ from the replay's {len(replay_events)}")
+    with open(path["metrics.jsonl"]) as f:
+        n_samples = len(f.read().splitlines())
+    if n_samples != trace.n_decode_steps:
+        fail(f"cli: {n_samples} metrics samples for "
+             f"{trace.n_decode_steps} decode steps")
+    with open(path["metrics.prom"]) as f:
+        if not f.read().strip():
+            fail("cli: the Prometheus file is empty")
+    say(f"[cli] bare replay == live: energy {report['total_energy_j']!r} J, "
+        f"latency {report['total_latency_s']!r} s (cost model, rtol 1e-6); "
+        f"{len(live_epochs)} epochs; decode MSB miss rates {decode_msb}; "
+        f"{len(replay_events)} channel events in both exports; "
+        f"{n_samples} metrics samples")
+    del server, engine, servers
+    _release_any(on_card)
+    seconds = time.perf_counter() - t_phase
+    say(f"[phase11] 11b {seconds:.1f} s (host clock)")
+    return seconds
+
+
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 40, 8, 64, 2e-3
 
 
@@ -2869,10 +3191,15 @@ def main() -> None:
     _release()
     phase_serving_benchmarks(cfg, params)
     _release()
+    t_11a = phase_serving_extras(cfg, params, prompts, p5)
     t_8a = phase_paper_full_width(cfg, params)
     # Phase 6 trains and serves a model of its own: release the params.
     del params, prompts
     _release()
+    # Phase 5's cache, a quarter of the store (p5 holds only numbers).
+    t_11b = phase_serve_cli(cache_mb=p5["cache_bytes"] / 1e6)
+    say(f"[phase11] 11a {t_11a:.1f} s, 11b {t_11b:.1f} s: phase 11 adds "
+        f"{t_11a + t_11b:.1f} s to the run (host clock)")
     small, trained = phase_train_serve(cfg)
     _release()
     t_8b = phase_paper_trained(small, trained)

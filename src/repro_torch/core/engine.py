@@ -35,10 +35,10 @@ tenant segments of a partitioned cache from charge-path counters only.
 The charge path consumes only routing arrays, so
 :class:`repro_torch.sim.replay.ReplayEngine` drives the same methods from
 a recorded or synthetic trace (``recorder`` captures one from a live run)
-and reproduces every placement and controller decision.  The
-``tpu_offload`` profile raises ``NotImplementedError`` naming its
-ROADMAP.md item.  BuddyMoE routing (``policy.kind="buddy"``) calibrates
-its expert pairs from the dense weights when the engine is built.
+and reproduces every placement and controller decision.  ``system``
+names a cost-model profile of :mod:`repro_torch.hw.specs`.  BuddyMoE
+routing (``policy.kind="buddy"``) calibrates its expert pairs from the
+dense weights when the engine is built.
 
 ``run_prefill`` and ``decode_batch`` mark their model forward and their
 charge path as ``torch.profiler`` ranges (``slicemoe.prefill_forward``,
@@ -149,13 +149,6 @@ class EngineConfig:
     # Replication count for the hotness policy (scalar alternative to the
     # '+replicate:K' spec suffix; the explicit knob wins).
     replicate_k: int = 0
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for settings of unported parts."""
-        if self.system not in SYSTEM_PROFILES:
-            raise NotImplementedError(
-                f"not ported yet, see ROADMAP.md: system={self.system!r} "
-                "(queue 1, 'tpu_offload profile')")
 
     def cache(self, *, placement=None):
         slice_aware = self.policy.slice_mode == "dbsc" and not self.fused_slices
@@ -318,7 +311,6 @@ class PersistentEngine:
         if not cfg.has_moe:
             raise ValueError(f"{cfg.name} has no MoE layers; SliceMoE "
                              "expert caching is inapplicable")
-        ecfg.check_ported()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg

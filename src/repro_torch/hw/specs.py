@@ -1,9 +1,11 @@
 """Hardware specifications (port of ``repro.hw.specs``).
 
-One profile: ``MOBILE_SOC``, the paper's Fig. 7 system (systolic XPU +
-LPDDR4 DRAM + UFS 3.1 Flash) that the cost model charges expert-slice
-traffic against.  It is a simulated device, not the card the port runs
-on; the reference's TPU profiles are deliberately absent.
+Two cost-model profiles that the ledger charges expert-slice traffic
+against: ``MOBILE_SOC``, the paper's Fig. 7 system (systolic XPU +
+LPDDR4 DRAM + UFS 3.1 Flash), and ``TPU_OFFLOAD``, the reference's
+``tpu_offload`` profile, whose constants are copied so that a trace
+recorded under it replays to the same totals here.  Both are simulated
+devices, not the card the port runs on.
 """
 
 from __future__ import annotations
@@ -124,6 +126,39 @@ MOBILE_SOC = SystemSpec(
     ),
 )
 
+# The reference's ``tpu_offload`` cost-model constants
+# (``repro/hw/specs.py:162-193``), copied field for field for replay
+# parity: the ledger reads them as a simulated system's rates, and they
+# describe no device this package runs on.
+TPU_OFFLOAD = SystemSpec(
+    name="tpu_offload",
+    compute=ComputeSpec(
+        name="tpu_v5e_chip",
+        peak_ops_per_s=197e12 * 2,
+        ops_per_watt=197e12 / 170,
+        native_precision_bits=8,
+    ),
+    dram=MemoryTier(
+        name="hbm",
+        bandwidth_bytes_per_s=819e9,
+        energy_pj_per_bit=0.5,
+        capacity_bytes=16 * 2**30,
+    ),
+    flash=MemoryTier(
+        name="host_dram_dma",
+        bandwidth_bytes_per_s=32e9,
+        energy_pj_per_bit=15.0,
+        capacity_bytes=512 * 2**30,
+    ),
+    interconnect=MemoryTier(
+        name="ici",
+        bandwidth_bytes_per_s=50e9,
+        energy_pj_per_bit=0.5,
+        capacity_bytes=float("inf"),
+    ),
+)
+
 SYSTEM_PROFILES = {
     "mobile_soc": MOBILE_SOC,
+    "tpu_offload": TPU_OFFLOAD,
 }

@@ -23,8 +23,10 @@ admission; an engine's SLO controller is wired into the telemetry and,
 absent a hook, into admission.  ``attach_metrics`` samples a
 :class:`~repro_torch.obs.metrics.MetricsRegistry` per decode step, and an
 engine with a timeline tracer attached gets the request and step spans.
-Prompt clipping and bucketing wait for ROADMAP.md queue 1, 'serving
-extras'.
+``SchedulerConfig.truncate_prompts`` admits over-budget prompts clipped
+to their tail, and ``bucket_prompts`` rounds admitted prompts down to a
+multiple of its length; a clipped request is flagged ``truncated`` on
+telemetry.
 """
 
 from __future__ import annotations
@@ -67,6 +69,20 @@ class Completion:
 class SchedulerConfig:
     max_batch: int = 4
     max_queue: int = 64
+    # Truncate prompts down to a multiple of this many tokens (0 = exact
+    # lengths).  Bounds the number of distinct prefill shapes under
+    # length-diverse workloads.  Setting this is itself explicit consent
+    # to (up to bucket_prompts-1 tokens of) truncation: it applies to
+    # admitted prompts regardless of `truncate_prompts`, and clipped
+    # requests are flagged on telemetry either way.
+    bucket_prompts: int = 0
+    # Admit over-budget prompts by clipping them to the KV budget
+    # (keeping the tail, recorded on telemetry as ``truncated``).  Off by
+    # default: the output for a clipped request is not the output for
+    # the full prompt, so silent truncation must be opted into;
+    # otherwise admission rejects any request whose full token budget
+    # (prompt + max_new_tokens) cannot fit under ``max_seq``.
+    truncate_prompts: bool = False
     # Admission-control hook: called with the Request at submit time;
     # returning False rejects it (recorded on telemetry like any other
     # rejection).  When None and the engine carries an SLO controller
@@ -154,10 +170,16 @@ class ContinuousBatchingScheduler:
     # --------------------------------------------------------------- intake
     def servable(self, req: Request) -> bool:
         """Whether the request's *full* token budget fits the KV budget
-        (``len(prompt) + max_new_tokens + 1 <= max_seq``)."""
+        (``len(prompt) + max_new_tokens + 1 <= max_seq``).  With
+        ``truncate_prompts`` the prompt side is waived: admission clips
+        it to the budget and flags the request.  (``bucket_prompts``
+        rounding is a separate, explicit opt-in and still applies to
+        admitted prompts.)"""
         max_seq = self.engine.ecfg.max_seq
         if not 1 <= req.max_new_tokens < max_seq - 1:
             return False
+        if self.cfg.truncate_prompts:
+            return True
         return len(req.prompt) + req.max_new_tokens + 1 <= max_seq
 
     def submit(self, req: Request) -> bool:
@@ -193,11 +215,36 @@ class ContinuousBatchingScheduler:
     def n_active(self) -> int:
         return sum(1 for s in self.slots if s is not None)
 
+    def _clip_prompt(self, req: Request) -> np.ndarray:
+        """Fit the prompt under the KV budget (keeping its tail).
+
+        Truncation is recorded on the request's telemetry record and in
+        its completion metrics: the output for a clipped request is not
+        the output for the full prompt.
+        """
+        prompt = np.asarray(req.prompt, np.int32)
+        budget = self.engine.ecfg.max_seq - req.max_new_tokens - 1
+        if budget < 1:
+            raise ValueError(
+                f"request {req.request_id}: max_new_tokens="
+                f"{req.max_new_tokens} leaves no room for a prompt under "
+                f"max_seq={self.engine.ecfg.max_seq}")
+        if len(prompt) > budget:
+            prompt = prompt[-budget:]
+        q = self.cfg.bucket_prompts
+        if q > 1 and len(prompt) > q:
+            # Round down to a multiple of q, keeping the most recent
+            # tokens (the same tail-keep rule as the budget clip above).
+            prompt = prompt[-(len(prompt) // q) * q:]
+        if len(prompt) != len(req.prompt):
+            self.telemetry.requests[req.request_id].truncated = True
+        return prompt
+
     def _admit_one(self, req: Request, slot: int) -> None:
         record = self.telemetry.requests[req.request_id]
         record.admit_t = self.sim_time
         t0 = time.perf_counter()
-        prompt = np.asarray(req.prompt, np.int32)   # servable() checked it
+        prompt = self._clip_prompt(req)
         # Per-request stats epochs are only meaningful one request at a
         # time; under batching concurrent sequences would share them.
         label = f"req{req.request_id}" if self.cfg.max_batch == 1 else None

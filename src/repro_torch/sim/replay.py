@@ -244,7 +244,6 @@ class ReplayEngine(PersistentEngine):
             ecfg = engine_config_from_meta(meta, **overrides)
         elif overrides:
             raise ValueError("pass either ecfg or overrides, not both")
-        ecfg.check_ported()
         self.meta = meta
         self.cfg = SimpleNamespace(name=meta.model, d_model=meta.d_model,
                                    n_periods=meta.n_periods)

@@ -209,9 +209,18 @@ def test_aux_to_host_restores_dtypes_in_one_buffer():
     (dict(system="tpu_offload"), "tpu_offload profile"),
 ])
 def test_unported_engine_settings_name_their_queue_item(model, over, item):
+    """Each setting here once raised ``NotImplementedError`` naming its
+    ROADMAP.md queue 1 item (``item``).  Every one is ported now: the
+    engine builds with it and its ledger charges the profile it names,
+    and a name in no profile raises the reference's ``KeyError``."""
+    from repro_torch.hw.specs import SYSTEM_PROFILES
+
     _, tcfg, _, tparams = model
-    with pytest.raises(NotImplementedError, match=item):
-        TE.PersistentEngine(tcfg, tparams, TE.EngineConfig(**over),
+    eng = TE.PersistentEngine(tcfg, tparams, TE.EngineConfig(**over),
+                              device="cpu")
+    assert eng.ledger.system is SYSTEM_PROFILES[over["system"]]
+    with pytest.raises(KeyError):
+        TE.PersistentEngine(tcfg, tparams, TE.EngineConfig(system="nope"),
                             device="cpu")
 
 

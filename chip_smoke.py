@@ -230,10 +230,39 @@ it goes, any failure exiting non-zero:
        two exports' channel events equal; one metrics sample per decode
        step; a non-empty Prometheus file (``[cli]`` lines).
 
+12. the dense architecture, windows, soft-capping and tied vocabularies,
+   and llama4-scout at full width, after 11b and before 6, one model at a
+   time, each released before the next is built (``phase_archs``;
+   ``[phase12]`` lines give each sub-phase's seconds, peak memory, K1/K2
+   launches and measured gaps, each with the card's name and power limit):
+   12a. K1 and K2 with bf16 x at ``llama4-scout-17b-a16e``'s decode shapes
+       (E=16, M=8; ``wi`` K=5120, N=16384; ``wo`` K=8192, N=5120) against
+       their plain versions, timed beside ``torch.bmm`` and the bound, and
+       checked at its prefill capacities (M=11 and 41); then Scout at its
+       published widths with its depth cut to 8 of 48 layers (``[phase12]
+       reduced``; bf16, seed 0) served with phase 5's settings and traffic,
+       recorded and replayed.  Hard checks: K1 and K2 each 8 x 20 times,
+       every logit finite, the replay equal to the live run;
+   12b. ``gemma-7b`` whole (28 layers, GeGLU, head dim 256, tied vocabulary
+       of 256000, attention soft-cap 30; bf16) through
+       ``SliceMoEServer(engine_cfg=None)``, that is ``PlainEngine``, 2
+       requests of 64 + 16 tokens.  Hard checks: no kernel launched; the
+       server's tokens equal a direct greedy ``prefill`` / ``decode_step``
+       loop's exactly; every logit finite;
+   12c. ``starcoder2-3b`` whole in f32 (GELU, ``qkv_bias``, window 4096;
+       TF32 off): a 4608-token ``prefill(use_window=True)``, then 8
+       ``decode_step(use_window=True)`` steps, each reading the last 4096
+       cache rows and held against ``unembed(forward(..., use_window=True))``
+       at the last position within 1e-4 + 1e-4*|oracle| (``[window]``
+       lines); the unwindowed forward must differ by more than that.
+   Rehearse on the CPU with ``phase_archs(device="cpu", scout=...,
+   gemma=..., window=..., window_prompt=80)`` over the ``.reduced()``
+   configs (StarCoder2's in f32; about 4 s).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 11.
+busy share).  Without arguments the script runs phases 1 to 12.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -2624,6 +2653,352 @@ def phase_serve_cli(device: str = "cuda", model_argv=CLI_MODEL,
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 2, 40, 8, 64, 2e-3
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the dense architecture, windows, soft-capping, tied vocabularies
+# and llama4-scout at full width.
+P12_SCOUT = "llama4-scout-17b-a16e"
+P12_SCOUT_LAYERS = 8                    # of 48: the depth one card holds
+P12_GEMMA_REQ, P12_GEMMA_PROMPT, P12_GEMMA_NEW = 2, 64, 16
+P12_WINDOW_PROMPT, P12_WINDOW_STEPS = 4608, 8
+P12_BUDGET_S = 90.0
+
+
+def _say12(msg: str, card: str) -> None:
+    say(f"[phase12] {msg}; card {card}")
+
+
+def _device_bytes(cfg) -> dict:
+    """What the Scout engine holds on the card, from the shapes: the
+    float parameters in bf16 and, per MoE layer, the AMAT codes (one byte per
+    weight), their f32 scales and uint8 zero-points per 32-row group, and
+    the output-major copy of the ``wo`` codes (quantized execution)."""
+    from repro_torch.models.model import param_shapes, shape_leaves
+
+    n = sum(int(np.prod(s)) for s in shape_leaves(param_shapes(cfg)))
+    m = cfg.moe
+    wi, wo = cfg.d_model * 2 * m.d_ff, m.d_ff * cfg.d_model
+    per_layer = m.n_experts * ((wi + wo) * (1 + 5 / 32) + wo)
+    return {"params": n, "float_bytes": n * 2,
+            "amat_bytes": per_layer * cfg.n_layers}
+
+
+def phase_scout_kernels(cfg, card: str):
+    """12a, before the model is built: K1 (``wi``, K-major) and K2 (``wo``,
+    output-major) with bf16 x at Scout's decode shapes (16 experts, the
+    capacity of 4 sequences at top-1: E=16, M=8; K=5120, N=16384 for
+    ``wi``; K=8192, N=5120 for ``wo``) against their plain versions at the
+    kernel tolerance, timed beside the plain version, ``torch.bmm`` on
+    dense f32 weights and the bound; then at the prefill capacities of
+    one 128-token prompt and of 512 tokens (checked, not timed)."""
+    from repro_torch.kernels.amat_matmul import ops
+    from repro_torch.kernels.amat_matmul.ref import (
+        _dequant_mixed_ref, amat_batched_matmul_ref, amat_batched_matmul_t_ref)
+    from repro_torch.models.moe import capacity
+
+    m = cfg.moe
+    bf16 = torch.bfloat16
+    caps = {n: capacity(n, m.top_k, m.n_experts, m.capacity_factor)
+            for n in (SERVE_REQ, SERVE_PROMPT, SERVE_REQ * SERVE_PROMPT)}
+    rows = []
+    for n_tok, M in caps.items():
+        rows += [(f"scout_wi_bf16_{n_tok}tok", False,
+                  (m.n_experts, M, cfg.d_model, 2 * m.d_ff), n_tok == SERVE_REQ),
+                 (f"scout_wo_t_bf16_{n_tok}tok", True,
+                  (m.n_experts, M, m.d_ff, cfg.d_model), n_tok == SERVE_REQ)]
+    out = {}
+    for seed, (name, transposed, (E, M, K, N), timed) in enumerate(rows):
+        args = _kernel_inputs(E, M, K, N, seed=100 + seed,
+                              transposed=transposed, x_dtype=bf16)
+        ref = amat_batched_matmul_t_ref if transposed \
+            else amat_batched_matmul_ref
+
+        def kern():
+            return ops.amat_expert_matmul(*args, group_size=32, shift=4,
+                                          transposed=transposed)
+
+        def plain():
+            return ref(*args, group_size=32, shift=4)
+
+        err = _check_row(f"{name} E={E} M={M} K={K} N={N}", kern(), plain(),
+                         (E, M, N))
+        t = {"max_abs_err": err, "shape": (E, M, K, N)}
+        if timed:
+            x, codes, scales, zps, use_lsb = args
+            codes_kn = codes.transpose(1, 2) if transposed else codes
+            w_dense = _dequant_mixed_ref(codes_kn, scales, zps, use_lsb,
+                                         group_size=32, shift=4).contiguous()
+            x32 = x.float()
+            nbytes = (codes.numel() + scales.numel() * 4 + zps.numel()
+                      + x.numel() * x.element_size() + E * M * N * 4
+                      + use_lsb.numel())
+            t.update(_timed(name, kern, plain,
+                            lambda: torch.bmm(x32, w_dense),
+                            "torch.bmm on dense f32 weights", nbytes,
+                            _amat_flops(bf16, 2.0 * E * M * K * N),
+                            f"{codes.numel() / 1e6:.0f} MB of codes"))
+            del w_dense, x32
+            _versus_library(name, t)
+            _say12(f"12a {name}: graph_ms {t['graph_ms']:.4f}, bound "
+                   f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+                   f"({t['bound_ms'] / t['graph_ms']:.1%}), torch.bmm "
+                   f"graph_ms {t['library_graph_ms']}, max|kernel-plain| "
+                   f"{err:.3e}", card)
+        out[name] = t
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_scout(cfg, card: str, device: str = "cuda"):
+    """12a: ``llama4-scout-17b-a16e`` at its published widths with its
+    depth cut to ``cfg.n_layers`` (bf16, random weights from seed 0),
+    phase 5's settings (MAT84, Cache-Prior + DBSC with quantized
+    execution, PCW, miss target 0.05, a quarter of the store cached) and
+    traffic (4 requests of 128 prompt tokens and 16 new tokens,
+    ``max_batch=4``), recorded and replayed.  Hard checks: K1 and K2 each
+    ``n_layers x 20`` times (4 prefills and 16 decode steps), every logit
+    finite, every request served in full, the replay equal to the live
+    run (``_check_replay``).  Returns the seconds."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.models.model import init_params
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    est = _device_bytes(cfg)
+    store_bytes = _store_bytes(cfg, MatConfig(8, 4))
+    _say12(f"12a {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+           f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+           f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+           f"of width {cfg.moe.d_ff}, {cfg.moe.n_shared_experts} shared of "
+           f"{cfg.moe.d_ff_shared}, vocab {cfg.vocab_size}; "
+           f"{est['params'] / 1e9:.2f} B params ({est['float_bytes'] / 1e9:.2f}"
+           f" GB bf16) and {est['amat_bytes'] / 1e9:.2f} GB of AMAT codes, "
+           f"scales, zero-points and output-major wo codes on the card "
+           f"(MAT84, from the shapes)", card)
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    ecfg = _phase7_engine_config({"cache_bytes": store_bytes / 4})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQ)]
+    run = _serve(cfg, params, ecfg, prompts, "scout", device)
+    n_fwd = len(run["sched"].wall_prefill_s) + len(run["sched"].wall_step_s)
+    if n_fwd != SERVE_REQ + SERVE_NEW:
+        fail(f"scout: {n_fwd} forwards, not {SERVE_REQ + SERVE_NEW}")
+    if run["engine"].store.total_bytes() != store_bytes:
+        fail("scout: slice store size differs from its analytic size")
+    _say_walls("scout", run)
+    path = os.path.join(HERE, "build", "scout_trace.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rep = _check_replay(run, "scout", path)
+    cs = [c.metrics["cache_stats"] for c in run["completions"]]
+    seconds = time.perf_counter() - t0
+    _say12(f"12a {cfg.name}: K1/K2 launches {run['launches']} (want "
+           f"{cfg.n_layers} x {n_fwd} = {cfg.n_layers * n_fwd} each); "
+           f"every logit finite; replay equal to the live run (decode "
+           f"accesses/misses {rep.decode_accesses}/{rep.decode_misses}, "
+           f"energy {rep.total_energy_j!r} J, cost model); MSB misses per "
+           f"request {[c['msb_misses'] for c in cs]}; run wall "
+           f"{run['wall']:.2f} s, AMAT quantization {run['t_quant']:.2f} s; "
+           f"max_memory_allocated {_peak_gb(on_card)} (shapes: "
+           f"{(est['float_bytes'] + est['amat_bytes']) / 1e9:.2f} GB); "
+           f"{seconds:.1f} s", card)
+    del run, params, rep
+    _release_any(on_card)
+    return seconds
+
+
+def _greedy(cfg, params, prompt, n_new: int, max_seq: int, device):
+    """A direct greedy loop over ``prefill`` and ``decode_step``: the
+    tokens, and whether every logit was finite."""
+    from repro_torch.models.model import decode_step, prefill
+
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=device)[None]
+    logits, cache, _ = prefill(params, cfg, toks, max_seq)
+    finite = torch.isfinite(logits).all()
+    out, token = [], torch.argmax(logits, dim=-1)
+    for _ in range(n_new):
+        out.append(int(token[0]))
+        logits, cache, _ = decode_step(params, cfg, token, cache)
+        finite &= torch.isfinite(logits).all()
+        token = torch.argmax(logits, dim=-1)
+    return out, bool(finite)
+
+
+def phase_gemma(cfg, card: str, device: str = "cuda"):
+    """12b: ``gemma-7b`` at full depth and width (bf16, random weights
+    from seed 0; GeGLU, head dim 256, tied vocabulary of 256000, attention
+    soft-cap 30) through ``SliceMoEServer(engine_cfg=None)``, that is
+    ``PlainEngine``: 2 requests of 64 prompt tokens and 16 new.  Hard
+    checks: no kernel launched; the server's tokens equal a direct greedy
+    ``prefill`` / ``decode_step`` loop over the same params, exactly; every
+    logit of that loop finite.  Returns the seconds."""
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.serving import Request, SliceMoEServer
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    n = count_params(params)
+    max_seq = P12_GEMMA_PROMPT + P12_GEMMA_NEW + 1
+    server = SliceMoEServer(cfg, params, engine_cfg=None, max_seq=max_seq,
+                            device=device)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, P12_GEMMA_PROMPT).astype(
+        np.int32) for _ in range(P12_GEMMA_REQ)]
+    for i, p in enumerate(prompts):
+        server.submit(Request(request_id=i, prompt=p,
+                              max_new_tokens=P12_GEMMA_NEW))
+    t_serve = time.perf_counter()
+    done, launches = _counted(server.run)
+    t_serve = time.perf_counter() - t_serve
+    if any(launches.values()):
+        fail(f"gemma: kernels launched on the plain path: {launches}")
+    if "unembed" in params or server._engine is not None:
+        fail("gemma: a tied model grew an unembed leaf, or an engine")
+    _check_tokens("gemma", done, P12_GEMMA_NEW, cfg.vocab_size)
+    for c, p in zip(sorted(done, key=lambda c: c.request_id), prompts):
+        direct, finite = _greedy(cfg, params, p, P12_GEMMA_NEW, max_seq,
+                                 device)
+        if not finite:
+            fail(f"gemma: request {c.request_id}: non-finite logits")
+        if direct != np.asarray(c.tokens).tolist():
+            fail(f"gemma: request {c.request_id}: server tokens "
+                 f"{np.asarray(c.tokens).tolist()} != the direct loop's "
+                 f"{direct}")
+    seconds = time.perf_counter() - t0
+    n_tok = P12_GEMMA_REQ * P12_GEMMA_NEW
+    _say12(f"12b {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+           f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.mlp_type}, vocab "
+           f"{cfg.vocab_size} tied, softcap {cfg.logit_softcap}; "
+           f"{n / 1e9:.2f} B params in {cfg.dtype}; PlainEngine served "
+           f"{P12_GEMMA_REQ} x ({P12_GEMMA_PROMPT} + {P12_GEMMA_NEW}) "
+           f"tokens in {t_serve:.2f} s ({t_serve / n_tok:.4f} s per "
+           f"generated token, prefill included); K1/K2 launches {launches}; "
+           f"tokens equal the direct greedy loop's; every logit finite; "
+           f"max_memory_allocated {_peak_gb(on_card)}; {seconds:.1f} s",
+           card)
+    del server, params, done
+    _release_any(on_card)
+    return seconds
+
+
+def phase_window(cfg, card: str, device: str = "cuda",
+                 n_prompt: int = P12_WINDOW_PROMPT,
+                 n_steps: int = P12_WINDOW_STEPS):
+    """12c: ``starcoder2-3b`` at full depth and width in f32 (GELU,
+    ``qkv_bias``, window 4096; TF32 off), one prompt of ``n_prompt``
+    tokens through ``prefill(use_window=True)``, then ``n_steps``
+    ``decode_step(use_window=True)`` steps, each reading the last 4096
+    cache rows.  Each step's logits must hold against ``unembed(forward(
+    ..., use_window=True))`` at the last position within ``1e-4 +
+    1e-4*|oracle|`` (``tests/test_perf_variants.py:70`` at full width);
+    the unwindowed forward's logits must differ from the windowed ones by
+    more than that, so a window silently ignored would fail.  Returns the
+    seconds."""
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill, unembed)
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(13)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, n_prompt),
+                          dtype=torch.int64, device=device)[None]
+    with torch.no_grad():
+        def oracle(window: bool):
+            h, _ = forward(params, cfg, seq, use_window=window)
+            return unembed(params, cfg, h[:, -1])
+
+        t_pre = time.perf_counter()
+        logits, cache, _ = prefill(params, cfg, seq, n_prompt + n_steps,
+                                   use_window=True)
+        _sync_any(on_card)
+        t_pre = time.perf_counter() - t_pre
+        ratios, walls = [], []
+        for step in range(n_steps):
+            token = torch.argmax(logits, dim=-1)
+            seq = torch.cat([seq, token[:, None]], dim=1)
+            t1 = time.perf_counter()
+            logits, cache, _ = decode_step(params, cfg, token, cache,
+                                           use_window=True)
+            _sync_any(on_card)
+            walls.append(time.perf_counter() - t1)
+            want = oracle(True)
+            tol = 1e-4 + 1e-4 * want.abs()
+            ratio = float(((logits - want).abs() / tol).max())
+            ratios.append(ratio)
+            say(f"[window] step {step} (position {n_prompt + step}): "
+                f"max|decode - windowed forward| / (1e-4 + 1e-4*|oracle|) "
+                f"= {ratio:.4f}, max abs gap "
+                f"{float((logits - want).abs().max()):.3e}")
+        unwindowed = oracle(False)
+        apart = float(((unwindowed - want).abs() / tol).max())
+    peak = _peak_gb(on_card)
+    seconds = time.perf_counter() - t0
+    _say12(f"12c {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+           f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+           f"{cfg.mlp_type}, window {cfg.sliding_window}, {cfg.dtype}; "
+           f"prefill of {n_prompt} tokens {t_pre:.2f} s, decode steps "
+           f"{[round(w, 4) for w in walls]} s; worst step's gap "
+           f"{max(ratios):.4f} of the tolerance (must be <= 1), the "
+           f"unwindowed forward {apart:.1f} of it at the last step (must "
+           f"be > 1); max_memory_allocated {peak}; {seconds:.1f} s", card)
+    del params, cache, logits
+    _release_any(on_card)
+    if max(ratios) > 1.0:
+        fail(f"window: the windowed decode missed the windowed forward by "
+             f"{max(ratios):.4f} of the tolerance 1e-4 + 1e-4*|oracle|")
+    if apart <= 1.0:
+        fail("window: the unwindowed forward is within the tolerance of the "
+             "windowed one, so the check cannot see the window")
+    return seconds
+
+
+def _sync_any(on_card: bool) -> None:
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def phase_archs(device: str = "cuda", scout=None, gemma=None, window=None,
+                window_prompt: int = P12_WINDOW_PROMPT):
+    """Phase 12 (after 11b, before 6; one model at a time, each released
+    before the next is built): 12a ``phase_scout_kernels`` and
+    ``phase_scout``, 12b ``phase_gemma``, 12c ``phase_window``.  The
+    configs default to the full-width ones (Scout's depth cut to
+    ``P12_SCOUT_LAYERS``, StarCoder2 in f32); pass reduced ones to
+    rehearse on the CPU.  Returns the seconds."""
+    from repro_torch.configs.base import get_config
+
+    on_card = device == "cuda"
+    card = smi_name_power() if on_card else "none (CPU)"
+    t0 = time.perf_counter()
+    if scout is None:
+        scout = dataclasses.replace(get_config(P12_SCOUT),
+                                    n_layers=P12_SCOUT_LAYERS)
+        _say12(f"reduced: {scout.name} depth cut to {scout.n_layers} of "
+               f"{get_config(P12_SCOUT).n_layers} layers (widths as "
+               "published); gemma-7b and starcoder2-3b whole", card)
+    if on_card:
+        phase_scout_kernels(scout, card)
+        _release()
+    t_a = phase_scout(scout, card, device)
+    t_b = phase_gemma(gemma or get_config("gemma-7b"), card, device)
+    t_c = phase_window(window or dataclasses.replace(
+        get_config("starcoder2-3b"), dtype="float32"), card, device,
+        n_prompt=window_prompt)
+    seconds = time.perf_counter() - t0
+    _say12(f"12a {t_a:.1f} s, 12b {t_b:.1f} s, 12c {t_c:.1f} s: phase 12 "
+           f"adds {seconds:.1f} s to the run (host clock; budget "
+           f"{P12_BUDGET_S:.0f} s)", card)
+    return seconds
+
+
 def _scheme_configs(cfg):
     """Phase 6's two serving schemes, both with quantized execution and a
     slice cache of a quarter of the store: Fig. 9's ``buddy_highbit``, and
@@ -3200,6 +3575,9 @@ def main() -> None:
     t_11b = phase_serve_cli(cache_mb=p5["cache_bytes"] / 1e6)
     say(f"[phase11] 11a {t_11a:.1f} s, 11b {t_11b:.1f} s: phase 11 adds "
         f"{t_11a + t_11b:.1f} s to the run (host clock)")
+    _release()
+    phase_archs()
+    _release()
     small, trained = phase_train_serve(cfg)
     _release()
     t_8b = phase_paper_trained(small, trained)

@@ -1,1 +1,3 @@
-"""Model configurations the port serves (paper eval models)."""
+"""Model configurations the port builds: the paper's eval models, the
+dense ``smollm-360m``, ``gemma-7b``, ``nemotron-4-15b``, ``starcoder2-3b``
+and the MoE ``llama4`` Scout and Maverick."""

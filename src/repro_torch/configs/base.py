@@ -2,9 +2,13 @@
 
 Each ported configuration is a ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG``.  Field names and defaults equal the reference dataclass, so a
-config compares field by field with its JAX counterpart; fields that
-select parts the port does not run yet (SSM mixers, encoder-decoder,
-vocab padding) keep their defaults.
+config compares field by field with its JAX counterpart.  The ported
+configurations are the two paper-reproduction MoE models, the full-width
+``qwen15-moe-a2.7b``, the dense ``smollm-360m``, ``gemma-7b``,
+``nemotron-4-15b`` and ``starcoder2-3b`` and the MoE
+``llama4-scout-17b-a16e`` and ``llama4-maverick-400b-a17b``; SSM mixers,
+prefix embeddings and encoders are not ported yet
+(``models/model.py::_check_supported``).
 """
 
 from __future__ import annotations
@@ -89,8 +93,25 @@ class ModelConfig:
         return any(b.mixer == "attn" for b in self.block_pattern)
 
     @property
+    def has_ssm(self) -> bool:
+        return any(b.mixer == "ssm" for b in self.block_pattern)
+
+    @property
     def has_moe(self) -> bool:
         return any(b.ffn == "moe" for b in self.block_pattern)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run the 500k decode shape?"""
+        if self.arch_type in ("ssm",):
+            return True
+        if self.arch_type == "hybrid":
+            return True      # attention layers get the sliding window
+        return self.sliding_window is not None
 
     def param_count(self) -> int:
         """Total parameters (embedding included)."""

@@ -57,8 +57,6 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.control.controller import SLOController
-from repro_torch.control.partition import TenantPartitionedCache
 from repro_torch.core.amat import MatConfig
 from repro_torch.core.cache import SliceCache
 from repro_torch.core.placement import build_placement_policy
@@ -158,6 +156,7 @@ class EngineConfig:
                     "controller cache partitioning and ep_shards > 1 are "
                     "mutually exclusive: the DRAM budget cannot be split "
                     "along both the tenant and the placement axis")
+            from repro_torch.control.partition import TenantPartitionedCache
             return TenantPartitionedCache(
                 self.cache_bytes, sorted(self.controller.slos),
                 shared_frac=self.controller.shared_frac,
@@ -375,6 +374,7 @@ class PersistentEngine:
         # adaptation (named apart from the per-request MissRateController).
         self.slo_controller = None
         if ecfg.controller is not None:
+            from repro_torch.control.controller import SLOController
             self.slo_controller = SLOController(
                 ecfg.controller, cache_bytes=ecfg.cache_bytes)
 
@@ -825,7 +825,7 @@ class PersistentEngine:
     @property
     def _partitioned(self) -> bool:
         """Whether the cache routes fills into per-tenant segments."""
-        return isinstance(self.cache, TenantPartitionedCache)
+        return hasattr(self.cache, "set_budgets")
 
     def _expert_owner(self, tr: _StepTrace, period: int, pidx: int):
         """expert id -> tenant whose segment a miss fill charges: the

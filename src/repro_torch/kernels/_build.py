@@ -83,6 +83,28 @@ def load_library(source: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+def launches_kernel(who: str, t, interpret) -> bool:
+    """Whether a wrapper given tensor ``t`` launches its kernel (True) or
+    runs its plain version (False), by the reference wrappers' keyword
+    ``interpret``.  ``None``: the device decides, the kernel on a CUDA
+    tensor and the plain version on a CPU tensor.  ``True`` asks for the
+    plain version, the counterpart of Pallas' interpret mode, which only a
+    CPU tensor has: a CUDA kernel has no interpret mode, so on a CUDA
+    tensor it raises.  ``False`` asks for the kernel, which a CPU tensor
+    cannot run, so there it raises."""
+    dev = t.device.type
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: no path for device {t.device}")
+    if interpret is None:
+        return dev == "cuda"
+    if bool(interpret) == (dev == "cuda"):
+        raise ValueError(
+            f"{who}: interpret={interpret} on a {dev} tensor: the plain "
+            "version runs only on CPU tensors and the CUDA kernel only on "
+            "CUDA tensors")
+    return not interpret
+
+
 class LaunchCounter:
     """Kernel launches since the last :meth:`reset`, by entry: each
     wrapper adds one to its key where it launches its kernel, and nowhere

@@ -35,6 +35,15 @@ most 8 bits, exact in bf16, so each 32-row group's product is exact in
   the order of the f32 sums differs from the plain version.  In the
   batched kernels this is the parity mode of the engine's f32 models.
 
+Every wrapper takes the reference's tile keywords ``bm``, ``bn``, ``bk``
+(with its defaults) and ``interpret``.  They choose no tile: on the card
+:func:`mma_m_tiles` and :func:`mma_plan` choose the tiling from the
+shapes, and the plain version has none, so the output does not depend on
+them.  ``interpret`` chooses the route
+(:func:`repro_torch.kernels._build.launches_kernel`): ``None`` by the
+device, ``True`` the plain version (CPU tensors only), ``False`` the
+kernel (CUDA tensors only).
+
 The kernels mask ragged M and N themselves.  Their metadata loads take
 16 columns at a time, so :func:`launch`, the one launch path of every
 wrapper here and of ``expert_matmul``, pads a ragged N to a multiple of
@@ -51,7 +60,7 @@ import pathlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import LaunchCounter
+from repro_torch.kernels._build import LaunchCounter, launches_kernel
 from repro_torch.kernels.amat_matmul.ref import (amat_batched_matmul_ref,
                                                  amat_batched_matmul_t_ref,
                                                  amat_matmul_ref)
@@ -279,69 +288,75 @@ def launch(who: str, counter: LaunchCounter, key: str, x, codes, scales,
 
 def amat_expert_matmul(x, codes, scales, zps, use_lsb, *,
                        group_size: int = 32, shift: int = 4,
-                       transposed: bool = False):
+                       transposed: bool = False,
+                       bm: int = 128, bn: int = 128, bk: int = 128,
+                       interpret=None):
     """[E, M, K] @ per-expert-dequant([E, K, N] codes) -> [E, M, N] f32.
 
     ``use_lsb`` [E] selects MSB+LSB (high-bit) vs MSB-only dequant per
     expert.  ``transposed=True`` reads output-major codes ``[E, N, K]``
     with the metadata still K-major ``[E, K//G, N]``.  On the card both
     types of ``x`` run on the tensor cores, f32 ``x`` as three exact bf16
-    planes (module docstring).
+    planes.  ``bm`` / ``bn`` / ``bk`` choose no tile and ``interpret``
+    the route (module docstring).
     """
-    if x.device.type == "cuda":
+    if launches_kernel("amat_expert_matmul", x, interpret):
         return launch("amat_expert_matmul", LAUNCHES,
                       "output_major" if transposed else "k_major", x, codes,
                       scales, zps, use_lsb, group_size=group_size,
                       shift=shift, transposed=transposed)
-    if x.device.type == "cpu":
-        ref = amat_batched_matmul_t_ref if transposed \
-            else amat_batched_matmul_ref
-        return ref(x, codes, scales, zps, use_lsb, group_size=group_size,
-                   shift=shift)
-    raise ValueError(f"amat_expert_matmul: no path for device {x.device}")
+    ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
+    return ref(x, codes, scales, zps, use_lsb, group_size=group_size,
+               shift=shift)
 
 
-def amat_expert_matmul_qt(x, qt, use_lsb, *, shift: int):
-    """QuantizedTensor convention for the batched expert kernel."""
+def amat_expert_matmul_qt(x, qt, use_lsb, *, shift: int, **kw):
+    """QuantizedTensor convention for the batched expert kernel; ``kw``
+    goes to :func:`amat_expert_matmul`."""
     if not qt.asymmetric:
         raise ValueError("AMAT kernel expects asymmetric group quant")
     return amat_expert_matmul(x, qt.codes, qt.scales, qt.zero_points,
-                              use_lsb, group_size=qt.group_size, shift=shift)
+                              use_lsb, group_size=qt.group_size, shift=shift,
+                              **kw)
 
 
 def amat_expert_matmul_t(x, codes_t, scales, zps, use_lsb, *, shift: int,
-                         group_size: int = 32):
-    """Transposed-weight entry point: codes_t [E, N, K] output-major."""
+                         group_size: int = 32, **kw):
+    """Transposed-weight entry point: codes_t [E, N, K] output-major;
+    ``kw`` goes to :func:`amat_expert_matmul`."""
     return amat_expert_matmul(x, codes_t, scales, zps, use_lsb,
                               group_size=group_size, shift=shift,
-                              transposed=True)
+                              transposed=True, **kw)
 
 
 def amat_matmul(x, codes, scales, zps, *, group_size: int = 32,
-                shift: int = 0, mode: str = "high"):
+                shift: int = 0, mode: str = "high",
+                bm: int = 128, bn: int = 128, bk: int = 128,
+                interpret=None):
     """x [M, K] @ dequant(codes [K, N]) -> [M, N] f32.
 
     On the card both types of ``x`` run on the tensor cores, f32 ``x`` as
-    three exact bf16 planes (module docstring).  ``mode='high'``
-    dequantizes ``(c - z) * s`` and ignores ``shift``; ``mode='low'`` the
-    MSB-only ``(c >> shift - z >> shift) * s * 2^shift``.  scales / zps
-    are ``[K // group_size, N]``.
+    three exact bf16 planes.  ``mode='high'`` dequantizes ``(c - z) * s``
+    and ignores ``shift``; ``mode='low'`` the MSB-only ``(c >> shift - z
+    >> shift) * s * 2^shift``.  scales / zps are ``[K // group_size,
+    N]``.  ``bm`` / ``bn`` / ``bk`` choose no tile and ``interpret`` the
+    route (module docstring).
     """
     if mode not in MODES:
         raise ValueError(f"amat_matmul: mode {mode!r} is not one of {MODES}")
-    if x.device.type == "cuda":
+    if launches_kernel("amat_matmul", x, interpret):
         return launch("amat_matmul", LAUNCHES, "single", x, codes, scales,
                       zps, None, group_size=group_size, shift=shift,
                       high=mode == "high")
-    if x.device.type == "cpu":
-        return amat_matmul_ref(x, codes, scales, zps, group_size=group_size,
-                               shift=shift, mode=mode)
-    raise ValueError(f"amat_matmul: no path for device {x.device}")
+    return amat_matmul_ref(x, codes, scales, zps, group_size=group_size,
+                           shift=shift, mode=mode)
 
 
-def amat_matmul_qt(x, qt, *, shift: int = 0, mode: str = "high"):
-    """QuantizedTensor convention for the single-matrix kernel."""
+def amat_matmul_qt(x, qt, *, shift: int = 0, mode: str = "high", **kw):
+    """QuantizedTensor convention for the single-matrix kernel; ``kw``
+    goes to :func:`amat_matmul`."""
     if not qt.asymmetric:
         raise ValueError("AMAT kernel expects asymmetric group quant")
     return amat_matmul(x, qt.codes, qt.scales, qt.zero_points,
-                       group_size=qt.group_size, shift=shift, mode=mode)
+                       group_size=qt.group_size, shift=shift, mode=mode,
+                       **kw)

@@ -1,7 +1,10 @@
 """Public wrapper of the flash-attention kernel.
 
 :func:`flash_attention` keeps the semantics of the reference wrapper
-(``repro/kernels/flash_attn/ops.py``) without its tiling knobs.
+(``repro/kernels/flash_attn/ops.py``).  Its tile keywords ``bq`` and ``bk``
+choose no tile (the kernel's tiles are fixed by the head dim) and
+``interpret`` chooses the route
+(:func:`repro_torch.kernels._build.launches_kernel`).
 
 * On CUDA tensors it launches a hand-written Hopper kernel
   (``csrc/flash_attention.cu``) or raises: it checks device, dtype,
@@ -30,7 +33,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels._build import LaunchCounter
+from repro_torch.kernels._build import LaunchCounter, launches_kernel
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" \
@@ -106,17 +109,17 @@ def _launch(q, k, v, causal, sliding_window):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, sliding_window=None):
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window=None,
+                    bq: int = 128, bk: int = 128, interpret=None):
     """q: [B, Sq, H, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, H, D] f32.
 
     Causal masking is start-aligned (query and key positions both count
     from 0); ``sliding_window`` keeps keys with ``q - k < window``.  H must
     be a multiple of Hkv: query head ``h`` reads KV head ``h // (H //
-    Hkv)``.
+    Hkv)``.  ``bq`` / ``bk`` choose no tile and ``interpret`` the route
+    (module docstring).
     """
-    if q.device.type == "cuda":
+    if launches_kernel("flash_attention", q, interpret):
         return _launch(q, k, v, causal, sliding_window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal,
-                                   sliding_window=sliding_window)
-    raise ValueError(f"flash_attention: no path for device {q.device}")
+    return flash_attention_ref(q, k, v, causal=causal,
+                               sliding_window=sliding_window)

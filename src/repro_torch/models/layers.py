@@ -1,14 +1,14 @@
-"""Transformer building blocks (port of the parts of ``repro.models.layers``
-that the ``moe`` architecture runs).
+"""Transformer building blocks (port of ``repro.models.layers``).
 
-RMSNorm, RoPE, causal GQA attention over a full sequence (dense up to
-``BLOCKWISE_THRESHOLD`` keys, online-softmax over ``BLOCK_KV``-key blocks
-above it), single-token decode attention against a KV cache, and the
-SwiGLU MLP.  Attention scores, softmax and the value mix run in f32 as in
-the reference.  Full-sequence attention takes the reference's
-``q_offset``, ``sliding_window`` and ``logit_softcap``; the model passes
-none of them, and the decode attention and the other MLP types wait for
-ROADMAP.md queue 1, 'remaining architectures'.
+RMSNorm and LayerNorm, RoPE, GQA attention over a full sequence (dense up
+to ``BLOCKWISE_THRESHOLD`` keys, online-softmax over ``BLOCK_KV``-key
+blocks above it) with an optional sliding window and logit soft-capping,
+single-token decode attention against a KV cache (the same window and
+soft-cap), and the four MLPs: SwiGLU (llama family), GeGLU (gemma),
+squared ReLU (nemotron) and GELU (starcoder2).  Scores, softmax and the
+value mix run in f32 as in the reference; the GELUs are the reference's
+tanh approximation.  Cross-attention (encoder-decoder) waits for ROADMAP.md
+queue 1, 'remaining architectures'.
 """
 
 from __future__ import annotations
@@ -29,6 +29,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -162,9 +172,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_pos) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur_pos, *,
+                     sliding_window: Optional[int] = None,
+                     logit_softcap: Optional[float] = None) -> torch.Tensor:
     """Single-token attention.  q: [B, H, D]; caches [B, S, Hkv, D];
-    ``cur_pos``: [] or [B] number of valid cache entries."""
+    ``cur_pos``: [] or [B] number of valid cache entries; a
+    ``sliding_window`` keeps the last ``sliding_window`` of them."""
     b, s, hkv, d = k_cache.shape
     h = q.shape[1]
     rep = h // hkv
@@ -172,10 +185,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.to(torch.float32).reshape(b, hkv, rep, d)
     kf = k_cache.to(torch.float32)
     scores = torch.einsum("bgrd,bsgd->bgrs", qf, kf) * scale
+    scores = _soft_cap(scores, logit_softcap)
     kpos = torch.arange(s, device=q.device)
     cur = torch.as_tensor(cur_pos, device=q.device)
     cur_b = cur.reshape(-1).expand(b) if cur.ndim == 0 else cur
     valid = kpos[None, :] < cur_b[:, None]                  # [B, S]
+    if sliding_window is not None:
+        valid &= kpos[None, :] >= (cur_b[:, None] - sliding_window)
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
@@ -183,20 +199,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def swiglu(h: torch.Tensor, dtype) -> torch.Tensor:
-    """SwiGLU on the fused gate|up projection ``h`` [..., 2F]: the gate's
-    SiLU in f32, cast to ``dtype``, times the up half."""
-    g, u = torch.chunk(h, 2, dim=-1)
-    return F.silu(g.to(torch.float32)).to(dtype) * u
+def ffn_activation(h: torch.Tensor, mlp_type: str, dtype) -> torch.Tensor:
+    """The FFN nonlinearity on the ``wi`` output ``h``, in f32, cast to
+    ``dtype``: for the gated types (``swiglu``, ``geglu``) on the gate
+    half of ``h`` [..., 2F], times the up half; for ``relu2`` and
+    ``gelu`` on ``h`` [..., F].  GELU is the tanh approximation, as the
+    reference's ``jax.nn.gelu(approximate=True)``."""
+    if mlp_type in ("swiglu", "geglu"):
+        g, u = torch.chunk(h, 2, dim=-1)
+        g = g.to(torch.float32)
+        a = F.silu(g) if mlp_type == "swiglu" \
+            else F.gelu(g, approximate="tanh")
+        return a.to(dtype) * u
+    if mlp_type == "relu2":
+        return torch.square(F.relu(h.to(torch.float32))).to(dtype)
+    if mlp_type == "gelu":
+        return F.gelu(h.to(torch.float32), approximate="tanh").to(dtype)
+    raise ValueError(f"unknown mlp_type {mlp_type}")
 
 
 def mlp_apply(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    """Dense FFN. params: {'wi': [d, 2F], 'wo': [F, d]} (SwiGLU)."""
-    if mlp_type != "swiglu":
-        raise NotImplementedError(
-            f"mlp_type {mlp_type!r} is not ported yet (ROADMAP.md queue 1, "
-            "'remaining architectures')")
-    return swiglu(x @ params["wi"], x.dtype) @ params["wo"]
+    """Dense FFN. params: {'wi': [d, F] or [d, 2F] for gated, 'wo': [F, d]}."""
+    return ffn_activation(x @ params["wi"], mlp_type, x.dtype) @ params["wo"]
 
 
 def mlp_param_shapes(d_model: int, d_ff: int, mlp_type: str) -> dict:

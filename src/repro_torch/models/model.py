@@ -1,4 +1,5 @@
-"""Model stack for the ``moe`` architecture (port of ``repro.models.model``).
+"""Model stack for the ``dense`` and ``moe`` architectures (port of
+``repro.models.model``).
 
 Parameters keep the reference's tree and its stacked ``[n_periods, ...]``
 layout (``blocks/pos{i}/...``), so :mod:`repro_torch.bridge` maps the JAX
@@ -7,15 +8,23 @@ package's parameters onto the port one leaf to one leaf.  The reference
 slice (a view, no copy).
 
 Public entry points: ``param_shapes`` / ``init_params``, ``embed_inputs``,
-``forward`` (full sequence, differentiable), ``lm_loss`` (chunked
-cross-entropy plus the MoE load-balance loss), ``unembed``,
-``init_cache``, ``prefill``, ``decode_step`` (scalar and ``[B]``
-positions, ``token_mask``), ``count_params``.  With ``kv_dtype="int8"``
-the KV cache holds per-(token, head) int8 codes and f32 scales
-(``_quant_kv`` / ``_dequant_kv``), dequantized to the model dtype before
-each decode attention.  The reference wraps each
-period of ``forward`` in ``jax.checkpoint`` (remat); that changes memory,
-not values, and is not ported.
+``forward`` (full sequence, differentiable over float experts; on AMAT
+experts with ``mat`` and, with ``quant_execution``, through the batched
+expert kernels), ``lm_loss`` (chunked cross-entropy plus the MoE
+load-balance loss), ``unembed``, ``init_cache``, ``prefill``,
+``decode_step`` (scalar and ``[B]`` positions, ``token_mask``, the
+engine's per-position ``use_lsb`` / ``gate_override`` / ``policy_state``),
+``count_params``.  Every attention takes the config's ``logit_softcap``;
+``use_window`` (or ``always_swa``) limits it to the config's
+``sliding_window``, and a windowed decode step with aligned positions
+reads only the last ``sliding_window`` cache rows.  ``tie_embeddings``
+unembeds with the embedding table (no ``unembed`` leaf); ``pad_vocab_to``
+pads the vocabulary and masks the pad columns to -1e30.  With
+``kv_dtype="int8"`` the KV cache holds per-(token, head) int8 codes and
+f32 scales (``_quant_kv`` / ``_dequant_kv``), dequantized to the model
+dtype before each decode attention.  The reference wraps each period of
+``forward`` in ``jax.checkpoint`` (remat); that changes memory, not
+values, and is not ported.
 
 Departures from the functional reference, both to save device memory:
 ``decode_step`` writes the new KV row into the cache tensors in place
@@ -46,19 +55,23 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "moe":
+    if cfg.arch_type not in ("dense", "moe") or cfg.has_ssm:
         raise NotImplementedError(
-            f"{cfg.name}: only the 'moe' architecture is ported "
+            f"{cfg.name}: the {cfg.arch_type!r} architecture is not ported "
+            "yet; the port builds 'dense' and 'moe' (ROADMAP.md queue 1, "
+            "'remaining architectures')")
+    if cfg.prefix_len or cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: prefix embeddings and encoders are not ported yet "
             "(ROADMAP.md queue 1, 'remaining architectures')")
-    if cfg.ring_kv or cfg.prefix_len or cfg.encoder_layers \
-            or cfg.quantized_serve or cfg.pad_vocab_to != 1 \
-            or cfg.tie_embeddings or cfg.sliding_window or cfg.always_swa \
-            or cfg.logit_softcap is not None or cfg.mlp_type != "swiglu":
+    if cfg.ring_kv or cfg.quantized_serve:
         raise NotImplementedError(
-            f"{cfg.name}: ring KV, prefix embeddings, encoders, "
-            "quantized_serve, vocab padding, tied embeddings, sliding "
-            "windows, logit soft-capping and MLPs other than SwiGLU are not "
-            "ported yet (ROADMAP.md queue 1, 'remaining architectures')")
+            f"{cfg.name}: ring KV and quantized_serve are not ported yet "
+            "(ROADMAP.md queue 1, 'remaining architectures')")
+
+
+def _window(cfg: ModelConfig, use_window: bool) -> Optional[int]:
+    return cfg.sliding_window if (use_window or cfg.always_swa) else None
 
 
 # ==========================================================================
@@ -101,12 +114,15 @@ def param_shapes(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
     blocks = {f"pos{i}": _stack(_block_shapes(cfg, spec), cfg.n_periods)
               for i, spec in enumerate(cfg.block_pattern)}
-    return {
-        "embed": (cfg.vocab_size, cfg.d_model),
+    v_embed = cfg.padded_vocab if cfg.tie_embeddings else cfg.vocab_size
+    sh = {
+        "embed": (v_embed, cfg.d_model),
         "blocks": blocks,
         "final_norm": (cfg.d_model,),
-        "unembed": (cfg.d_model, cfg.padded_vocab),
     }
+    if not cfg.tie_embeddings:
+        sh["unembed"] = (cfg.d_model, cfg.padded_vocab)
+    return sh
 
 
 def shape_leaves(tree: dict) -> Iterator[tuple]:
@@ -185,7 +201,7 @@ def _attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _self_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor):
+                     positions: torch.Tensor, window: Optional[int]):
     """Causal self-attention over the whole sequence with its residual;
     returns (x, (k, v)) with ``k``/``v`` after RoPE (the cache rows)."""
     b, s, _ = x.shape
@@ -193,13 +209,15 @@ def _self_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _attn_qkv(p, h, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.attention(q, k, v, causal=True)
+    o = L.attention(q, k, v, causal=True, sliding_window=window,
+                    logit_softcap=cfg.logit_softcap)
     return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
 
 
 def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
-               *, collect: bool, policy=None, policy_state=None, mat=None,
-               token_mask=None, quant_execution=None, force_high_bit=False):
+               *, collect: bool, use_lsb=None, gate_override=None,
+               policy=None, policy_state=None, mat=None, token_mask=None,
+               quant_execution=None, force_high_bit=False):
     """The block's FFN half; returns (x, aux): the MoE layer's whole aux
     with ``collect``, else only its ``aux_loss`` and ``dropped_frac``
     (None for a dense FFN)."""
@@ -209,7 +227,8 @@ def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
     h = L.rms_norm(x, p["moe_norm"], cfg.norm_eps)
     b, s, d = h.shape
     y, aux = M.moe_apply(
-        p["moe"], h.reshape(-1, d), cfg.moe, policy=policy,
+        p["moe"], h.reshape(-1, d), cfg.moe, use_lsb=use_lsb,
+        gate_override=gate_override, policy=policy,
         policy_state=policy_state, mat=mat, token_mask=token_mask,
         quant_execution=quant_execution, force_high_bit=force_high_bit)
     if not collect:
@@ -235,24 +254,30 @@ def embed_inputs(params: dict, cfg: ModelConfig,
     return params["embed"][tokens].to(_dt(cfg))
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    """Full-sequence forward over float experts (the training path).
-    tokens: [B, S] int.  Returns (hidden [B, S, d] after the final norm,
-    aux): ``aux["aux_loss"]`` sums the MoE layers' load-balance losses;
-    ``aux["moe"]`` holds their ``aux_loss`` and ``dropped_frac`` stacked
-    ``[n_periods, n_moe_pos]``.  Differentiable unless run under
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            collect_trace: bool = False, use_window: bool = False,
+            mat=None, quant_execution: Optional[bool] = None):
+    """Full-sequence forward.  tokens: [B, S] int.  Returns (hidden
+    [B, S, d] after the final norm, aux): ``aux["aux_loss"]`` sums the MoE
+    layers' load-balance losses; ``aux["moe"]`` holds their ``aux_loss``
+    and ``dropped_frac`` (with ``collect_trace`` their whole aux: ids,
+    gates) stacked ``[n_periods, n_moe_pos, ...]``.  AMAT experts need
+    ``mat``; ``quant_execution`` runs them through the batched expert
+    kernels.  Differentiable over float weights unless run under
     ``torch.no_grad()``."""
     _check_supported(cfg)
     x = embed_inputs(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    window = _window(cfg, use_window)
     aux_rows = []
     for period in range(cfg.n_periods):
         period_params = _index(params["blocks"], period)
         row = []
         for i, spec in enumerate(cfg.block_pattern):
             p = period_params[f"pos{i}"]
-            x, _ = _self_attn_block(p, x, cfg, positions)
-            x, aux = _ffn_block(p, x, cfg, spec, collect=False)
+            x, _ = _self_attn_block(p, x, cfg, positions, window)
+            x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
+                                mat=mat, quant_execution=quant_execution)
             if aux is not None:
                 row.append(aux)
         aux_rows.append(row)
@@ -265,7 +290,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 
 
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    return (h @ params["unembed"].to(h.dtype)).to(torch.float32)
+    """Logits in f32 over the padded vocabulary, its pad columns masked
+    to -1e30 (so softmax, argmax and logsumexp ignore them)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    logits = (h @ w.to(h.dtype)).to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits,
+                             torch.full_like(logits, -1e30))
+    return logits
 
 
 def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -347,7 +380,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # ==========================================================================
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            max_seq: int, *, collect_trace: bool = False, mat=None,
+            max_seq: int, *, collect_trace: bool = False,
+            use_window: bool = False, mat=None,
             quant_execution: Optional[bool] = None, policy=None):
     """Forward over the prompt, returning (last-token logits, cache, aux).
 
@@ -358,6 +392,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     b, s, d = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)[None, :]
+    window = _window(cfg, use_window)
 
     cache = init_cache(cfg, b, max_seq, device=dev)
     aux_rows = []
@@ -366,7 +401,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         row = []
         for i, spec in enumerate(cfg.block_pattern):
             p = period_params[f"pos{i}"]
-            x, (k, v) = _self_attn_block(p, x, cfg, positions)
+            x, (k, v) = _self_attn_block(p, x, cfg, positions, window)
             entry = cache[f"pos{i}"]
             if cfg.kv_dtype == "int8":
                 for name, t in (("k", k), ("v", v)):
@@ -400,23 +435,34 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, *, collect_trace: bool = False,
+                use_lsb: Optional[dict] = None,
+                gate_override: Optional[dict] = None,
                 policy=None,
                 policy_state: Optional[dict] = None,
                 alpha=None,
                 mat=None,
                 token_mask: Optional[torch.Tensor] = None,
+                use_window: bool = False,
                 quant_execution: Optional[bool] = None):
     """One decode step.  token: [B] int.  Returns (logits, cache, aux).
 
-    ``policy_state[f"pos{i}"]`` holds the engine's residency masks
-    ``{'cached_msb', 'cached_lsb'}: [n_periods, E]``; ``alpha`` is the
-    Cache-Prior boost broadcast to every MoE layer; ``token_mask`` ([B]
-    bool) excludes padding rows from MoE routing and capacity.
+    ``use_lsb`` / ``gate_override`` / ``policy_state`` are optional
+    per-(position, period) overrides injected by the SliceMoE engine:
+      use_lsb[f"pos{i}"]        : [n_periods, E] bool
+      gate_override[f"pos{i}"]  : ([n_periods, B, k] gates, ids)
+      policy_state[f"pos{i}"]   : {'cached_msb'/'cached_lsb': [n_periods, E]}
+    ``alpha`` is the Cache-Prior boost broadcast to every MoE layer;
+    ``token_mask`` ([B] bool) excludes padding rows from MoE routing and
+    capacity.
 
     ``cache["pos"]`` is a scalar (all sequences aligned) or a ``[B]``
     vector of per-sequence lengths (continuous batching): each sequence
     writes its KV row at its own offset and attends over its own prefix.
-    The rows are written into the cache tensors in place.
+    The rows are written into the cache tensors in place.  With a window
+    (``use_window`` or ``always_swa``) and a scalar position, attention
+    reads only the last ``sliding_window`` cache rows when the cache is
+    longer than that; with vector positions it reads the whole cache
+    under the window's mask.
     """
     b = token.shape[0]
     pos = cache["pos"]
@@ -424,6 +470,15 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = params["embed"][token].to(_dt(cfg))[:, None, :]       # [B, 1, d]
     positions = pos[:, None] if vector_pos else pos.reshape(1, 1)
     rows = torch.arange(b, device=x.device)
+    window = _window(cfg, use_window)
+
+    def per_period(overrides, key, period):
+        if overrides is None or key not in overrides:
+            return None
+        v = overrides[key]
+        if isinstance(v, (tuple, list)):
+            return tuple(t[period] for t in v)
+        return v[period]
 
     new_cache = {"pos": pos + 1}
     aux_rows = []
@@ -457,15 +512,31 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
             if cfg.kv_dtype == "int8":
                 (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
-                kc = _dequant_kv(write_row("k", kq),
-                                 write_row("k_scale", ks), _dt(cfg))
-                vc = _dequant_kv(write_row("v", vq),
-                                 write_row("v_scale", vs), _dt(cfg))
+                bufs = [write_row(n, t) for n, t in (
+                    ("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))]
             else:
-                kc = write_row("k", k)                      # [B, S, Hkv, D]
-                vc = write_row("v", v)
+                bufs = [write_row("k", k), write_row("v", v)]
             new_cache[key] = entry
-            o = L.decode_attention(q[:, 0], kc, vc, pos + 1)
+
+            # A windowed step at aligned positions reads only the last
+            # `window` cache rows (O(window) traffic, not a masked full
+            # read); per-sequence positions read the full cache and let
+            # decode_attention's per-row mask bound each window.
+            s_cache = bufs[0].shape[1]
+            cur, win_mask = pos + 1, window
+            if not vector_pos and window is not None and s_cache > window:
+                start = torch.clamp(pos + 1 - window, 0, s_cache - window)
+                idx = start + torch.arange(window, device=x.device)
+                bufs = [t.index_select(1, idx) for t in bufs]
+                cur, win_mask = pos + 1 - start, None
+            if cfg.kv_dtype == "int8":
+                kc = _dequant_kv(bufs[0], bufs[2], _dt(cfg))
+                vc = _dequant_kv(bufs[1], bufs[3], _dt(cfg))
+            else:
+                kc, vc = bufs
+            o = L.decode_attention(q[:, 0], kc, vc, cur,
+                                   sliding_window=win_mask,
+                                   logit_softcap=cfg.logit_softcap)
             x = x + (o.reshape(b, -1) @ p["wo"])[:, None, :]
 
             ps = None
@@ -474,6 +545,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 if alpha is not None:
                     ps["alpha"] = alpha
             x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
+                                use_lsb=per_period(use_lsb, key, period),
+                                gate_override=per_period(gate_override, key,
+                                                         period),
                                 policy=policy, policy_state=ps, mat=mat,
                                 token_mask=token_mask,
                                 quant_execution=quant_execution)

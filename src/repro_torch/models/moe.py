@@ -33,7 +33,8 @@ from repro_torch.core import routing as R
 from repro_torch.core.amat import MatConfig, dequant_mixed
 from repro_torch.kernels.amat_matmul.ops import (amat_expert_matmul_qt,
                                                  amat_expert_matmul_t)
-from repro_torch.models.layers import mlp_apply, mlp_param_shapes, swiglu
+from repro_torch.models.layers import (ffn_activation, mlp_apply,
+                                      mlp_param_shapes)
 from repro_torch.quant.groupquant import QuantizedTensor, dequantize
 
 
@@ -169,11 +170,11 @@ def combine(y_buf: torch.Tensor, ids: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 # Expert compute
 # --------------------------------------------------------------------------
-def _expert_ffn(xe: torch.Tensor, wi: torch.Tensor,
-                wo: torch.Tensor) -> torch.Tensor:
-    """Batched per-expert SwiGLU FFN. xe: [E, C, d]; wi: [E, d, 2F];
+def _expert_ffn(xe: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                mlp_type: str) -> torch.Tensor:
+    """Batched per-expert FFN. xe: [E, C, d]; wi: [E, d, F(|2F)];
     wo: [E, F, d]."""
-    h = swiglu(torch.bmm(xe, wi.to(xe.dtype)), xe.dtype)
+    h = ffn_activation(torch.bmm(xe, wi.to(xe.dtype)), mlp_type, xe.dtype)
     return torch.bmm(h, wo.to(xe.dtype))
 
 
@@ -181,14 +182,15 @@ def _expert_ffn_quant(xe: torch.Tensor, wi_q: QuantizedTensor,
                       wo_q: QuantizedTensor,
                       wo_codes_t: Optional[torch.Tensor],
                       use_lsb: Optional[torch.Tensor],
-                      shift: int) -> torch.Tensor:
+                      shift: int, mlp_type: str) -> torch.Tensor:
     """Expert FFN computed directly on packed AMAT codes: two launches of
     the batched-expert kernel, ``wi`` K-major and ``wo`` output-major (or
-    K-major when no pre-transposed codes are given)."""
+    K-major when no pre-transposed codes are given), with the FFN's
+    activation between them."""
     ul = use_lsb if use_lsb is not None \
         else torch.ones((xe.shape[0],), dtype=torch.bool, device=xe.device)
-    h = swiglu(amat_expert_matmul_qt(xe, wi_q, ul, shift=shift).to(xe.dtype),
-               xe.dtype)
+    h = amat_expert_matmul_qt(xe, wi_q, ul, shift=shift).to(xe.dtype)
+    h = ffn_activation(h, mlp_type, xe.dtype)
     if wo_codes_t is not None:
         y = amat_expert_matmul_t(h, wo_codes_t, wo_q.scales,
                                  wo_q.zero_points, ul, shift=shift,
@@ -213,31 +215,39 @@ def moe_apply(
     x: torch.Tensor,                          # [T, d] flat tokens
     cfg: MoECfg,
     *,
+    use_lsb: Optional[torch.Tensor] = None,   # [E] bool (quantized only)
     mat: Optional[MatConfig] = None,
+    gate_override: Optional[tuple] = None,    # (gates [T,k], ids [T,k])
     policy: Optional[RoutingPolicy] = None,
     policy_state: Optional[dict] = None,      # {'alpha', 'cached_msb' [E],
                                               #  'cached_lsb' [E]}
     token_mask: Optional[torch.Tensor] = None,  # [T] bool; False = padding
+    deterministic: bool = True,
+    rng: Optional[torch.Generator] = None,
     quant_execution: Optional[bool] = None,   # None -> policy decides
     force_high_bit: bool = False,             # prefill: policy routes,
                                               # compute stays high-bit
 ):
     """Full MoE layer.  Returns (y [T, d], aux: dict of tensors).
 
+    ``gate_override`` routes by the given (gates, ids) instead of the
+    router; ``use_lsb`` [E] picks MSB+LSB (True) or MSB-only compute per
+    expert on quantized experts (a ``policy`` sets its own).  Without a
+    policy or an override, ``deterministic=False`` with an ``rng`` (a
+    ``torch.Generator`` on ``x``'s device) jitters the router's
+    probabilities by a uniform factor in ``[1 - router_noise, 1 +
+    router_noise]`` before the top-k, as the reference does (its numbers
+    come from ``jax.random``, which a generator cannot reproduce).
+
     ``token_mask`` redirects padding rows' ids to the out-of-range id
     ``n_experts``: they take no expert capacity, never appear in the
     slice demand, and cannot evict a live token under the capacity limit.
     """
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(
-            f"expert mlp_type {cfg.mlp_type!r} is not ported yet "
-            "(ROADMAP.md queue 1, 'remaining architectures')")
     T, d = x.shape
     E = cfg.n_experts
     probs = router_probs(x, params["w_router"])
     active = None
     critical = None
-    use_lsb = None
 
     def mask_routing(gates, ids, active):
         if token_mask is None:
@@ -249,7 +259,14 @@ def moe_apply(
             else (active & tm[:, None])
         return gates, ids, active
 
-    if policy is not None:
+    if gate_override is not None:
+        if policy is not None:
+            raise ValueError("gate_override and policy are exclusive: the "
+                             "override replaces the policy's routing")
+        gates, ids = gate_override
+        gates, ids, active = mask_routing(gates, ids, active)
+        k_eff = ids.shape[-1]
+    elif policy is not None:
         if policy.kind == "cache_prior":
             gates, ids = R.cache_prior_routing(
                 probs, policy_state["cached_msb"], policy_state["alpha"],
@@ -291,7 +308,12 @@ def moe_apply(
         if force_high_bit:
             use_lsb = None
     else:
-        gates, ids = topk_select(probs, cfg.top_k)
+        p = probs
+        if not deterministic and cfg.router_noise > 0 and rng is not None:
+            u = torch.rand(probs.shape, generator=rng, device=probs.device,
+                           dtype=probs.dtype)
+            p = p * ((1.0 - cfg.router_noise) + 2.0 * cfg.router_noise * u)
+        gates, ids = topk_select(p, cfg.top_k)
         gates, ids, active = mask_routing(gates, ids, active)
         gates = gates.to(x.dtype)
         k_eff = cfg.top_k
@@ -309,13 +331,13 @@ def moe_apply(
         wi_qt, wo_qt = experts["wi_q"], experts["wo_q"]
         if quant_exec:
             ye = _expert_ffn_quant(xe, wi_qt, wo_qt, experts.get("wo_codes_t"),
-                                   use_lsb, mat.shift)
+                                   use_lsb, mat.shift, cfg.mlp_type)
         else:
             wi = _dequant_experts(wi_qt, use_lsb, mat.shift, x.dtype)
             wo = _dequant_experts(wo_qt, use_lsb, mat.shift, x.dtype)
-            ye = _expert_ffn(xe, wi, wo)
+            ye = _expert_ffn(xe, wi, wo, cfg.mlp_type)
     else:
-        ye = _expert_ffn(xe, experts["wi"], experts["wo"])
+        ye = _expert_ffn(xe, experts["wi"], experts["wo"], cfg.mlp_type)
     y = combine(ye, ids, positions, keep, gates)
 
     if cfg.n_shared_experts > 0:

@@ -9,8 +9,8 @@ exact and its ``decode_totals`` at rtol 1e-6 (``cache_stats`` exact),
 ``ValueError`` messages.  Then the port's counterparts of
 ``tests/test_system.py::TestServing::test_server_moe_arch`` and
 ``tests/test_serving.py::TestWarmCache::test_fresh_engines_stay_cold``.
-``test_server_dense_arch`` (``smollm-360m``) waits for the dense
-architectures (ROADMAP.md queue 1, 'remaining architectures').
+``test_server_dense_arch`` (``smollm-360m``) is in
+``tests/test_torch_archs.py``.
 """
 
 import dataclasses

@@ -259,10 +259,44 @@ it goes, any failure exiting non-zero:
    gemma=..., window=..., window_prompt=80)`` over the ``.reduced()``
    configs (StarCoder2's in f32; about 4 s).
 
+13. the Mamba2 (SSD) mixer, the SSM and hybrid architectures, after 12
+   and before 6, one model at a time, each released before the next is
+   built (``phase_ssm_archs``; ``[phase13]`` lines give each sub-phase's
+   seconds, peak memory, K1/K2 launches and measured gaps, each with the
+   card's name and power limit; the phase fails past 60 s):
+   13a. K1 and K2 with bf16 x at ``jamba-v0.1-52b``'s decode shapes (E=16,
+       M=8; ``wi`` K=4096, N=28672; ``wo`` K=14336, N=4096) against their
+       plain versions, timed beside ``torch.bmm`` and the bound, and
+       checked at its prefill capacities (M=21 and 81);
+   13b. Jamba at its published widths with its depth cut to 8 of 32
+       layers, one period of its pattern (attention at position 3, SSD
+       mixers at the other seven, MoE FFNs at the odd positions; ``[phase13]
+       reduced``; bf16, seed 0) served with phase 5's settings and traffic,
+       recorded and replayed.  Hard checks: K1 and K2 each 4 MoE layers x
+       20 forwards = 80 times, every logit finite, every leaf of the batch
+       cache on the card (SSM ``state`` f32, ``conv`` and the KV rows
+       bf16), the replay equal to the live run with ``moe_positions``
+       (1, 3, 5, 7) in the trace, the peak within 5% of the 43.33 GB the
+       shapes give;
+   13c. ``mamba2-2.7b`` whole in f32 (64 SSD layers, no attention, no FFN;
+       TF32 off): (i) ``SliceMoEServer`` with an engine config serves 2
+       requests of 64 + 16 tokens through ``PlainEngine`` (no MoE layer):
+       no kernel launched, the tokens equal a direct greedy loop's; (ii)
+       one 2000-token prompt (7 chunks of 256 and a padded eighth), then 8
+       decode steps, each held against ``unembed(forward(...))`` at the
+       last position within 5e-4 x (1 + |oracle|) (``[ssm]`` lines; f32
+       sums in another order by two algorithms, the recurrence and the
+       chunked scan), and the same steps decoded from a zeroed ``state``
+       and ``conv`` outside that tolerance at every step.
+   Rehearse on the CPU with ``phase_ssm_archs(device="cpu", jamba=
+   get_config("jamba-v0.1-52b").reduced(), mamba=dataclasses.replace(
+   get_config("mamba2-2.7b").reduced(), dtype="float32"),
+   long_prompt=80)`` (about 3 s).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 12.
+busy share).  Without arguments the script runs phases 1 to 13.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -1293,7 +1327,7 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
     launches = {k: ops.LAUNCHES.by_key[k]
                 for k in ("k_major", "output_major")}
     n_prefill, n_steps = len(sched.wall_prefill_s), len(sched.wall_step_s)
-    want = cfg.n_layers * (n_prefill + n_steps)
+    want = _n_moe_layers(cfg) * (n_prefill + n_steps)
     say(f"[{tag}] kernel launches: {launches} (want {want} each, "
         f"{2 * want} in all)")
     if len(completions) != len(prompts) or any(
@@ -1353,9 +1387,15 @@ def _check_replay(run, tag: str, path: str):
     return rep
 
 
+def _n_moe_layers(cfg) -> int:
+    """MoE layers in the stack: the pattern's MoE positions times the
+    periods (every layer, for a uniform MoE model)."""
+    return cfg.n_periods * sum(b.ffn == "moe" for b in cfg.block_pattern)
+
+
 def _store_bytes(cfg, mat) -> float:
     """The slice store's size from the shapes: MSB and LSB slices of
-    every expert's ``wi`` and ``wo`` in every layer."""
+    every expert's ``wi`` and ``wo`` in every MoE layer."""
     from repro_torch.core.amat import slice_nbytes
 
     m = cfg.moe
@@ -1364,7 +1404,7 @@ def _store_bytes(cfg, mat) -> float:
                      shift=mat.shift)
         for shape in ((cfg.d_model, 2 * m.d_ff), (m.d_ff, cfg.d_model))
         for w in ("msb", "lsb"))
-    return per_expert * cfg.n_layers * m.n_experts
+    return per_expert * _n_moe_layers(cfg) * m.n_experts
 
 
 def phase_serving(cfg, device: str = "cuda"):
@@ -2668,10 +2708,12 @@ def _say12(msg: str, card: str) -> None:
 
 
 def _device_bytes(cfg) -> dict:
-    """What the Scout engine holds on the card, from the shapes: the
-    float parameters in bf16 and, per MoE layer, the AMAT codes (one byte per
-    weight), their f32 scales and uint8 zero-points per 32-row group, and
-    the output-major copy of the ``wo`` codes (quantized execution)."""
+    """What a MoE engine (Scout's, Jamba's) holds on the card, from the
+    shapes: the float parameters in bf16 and, per MoE layer, the AMAT
+    codes (one byte per weight), their f32 scales and uint8 zero-points
+    per 32-row group, and the output-major copy of the ``wo`` codes
+    (quantized execution).  An SSM mixer's ``A_log``, ``D`` and
+    ``dt_bias`` are f32, counted here as bf16 (a few kB)."""
     from repro_torch.models.model import param_shapes, shape_leaves
 
     n = sum(int(np.prod(s)) for s in shape_leaves(param_shapes(cfg)))
@@ -2679,17 +2721,20 @@ def _device_bytes(cfg) -> dict:
     wi, wo = cfg.d_model * 2 * m.d_ff, m.d_ff * cfg.d_model
     per_layer = m.n_experts * ((wi + wo) * (1 + 5 / 32) + wo)
     return {"params": n, "float_bytes": n * 2,
-            "amat_bytes": per_layer * cfg.n_layers}
+            "amat_bytes": per_layer * _n_moe_layers(cfg)}
 
 
-def phase_scout_kernels(cfg, card: str):
-    """12a, before the model is built: K1 (``wi``, K-major) and K2 (``wo``,
-    output-major) with bf16 x at Scout's decode shapes (16 experts, the
-    capacity of 4 sequences at top-1: E=16, M=8; K=5120, N=16384 for
-    ``wi``; K=8192, N=5120 for ``wo``) against their plain versions at the
-    kernel tolerance, timed beside the plain version, ``torch.bmm`` on
-    dense f32 weights and the bound; then at the prefill capacities of
-    one 128-token prompt and of 512 tokens (checked, not timed)."""
+def phase_moe_kernels(cfg, card: str, tag: str, sub: str, say_fn):
+    """Before a MoE model is built (12a: Scout, 13a: Jamba): K1 (``wi``,
+    K-major) and K2 (``wo``, output-major) with bf16 x at ``cfg``'s decode
+    shapes (E experts, the capacity of 4 sequences at its top-k; Scout:
+    E=16, M=8, K=5120, N=16384 for ``wi`` and K=8192, N=5120 for ``wo``;
+    Jamba: E=16, M=8, K=4096, N=28672 and K=14336, N=4096) against their
+    plain versions at the kernel tolerance, timed beside the plain
+    version, ``torch.bmm`` on dense f32 weights and the bound; then at
+    the prefill capacities of one 128-token prompt and of 512 tokens
+    (checked, not timed).  Rows are named ``{tag}_...``; ``say_fn`` prints
+    the phase's lines, ``sub`` leading them."""
     from repro_torch.kernels.amat_matmul import ops
     from repro_torch.kernels.amat_matmul.ref import (
         _dequant_mixed_ref, amat_batched_matmul_ref, amat_batched_matmul_t_ref)
@@ -2701,9 +2746,9 @@ def phase_scout_kernels(cfg, card: str):
             for n in (SERVE_REQ, SERVE_PROMPT, SERVE_REQ * SERVE_PROMPT)}
     rows = []
     for n_tok, M in caps.items():
-        rows += [(f"scout_wi_bf16_{n_tok}tok", False,
+        rows += [(f"{tag}_wi_bf16_{n_tok}tok", False,
                   (m.n_experts, M, cfg.d_model, 2 * m.d_ff), n_tok == SERVE_REQ),
-                 (f"scout_wo_t_bf16_{n_tok}tok", True,
+                 (f"{tag}_wo_t_bf16_{n_tok}tok", True,
                   (m.n_experts, M, m.d_ff, cfg.d_model), n_tok == SERVE_REQ)]
     out = {}
     for seed, (name, transposed, (E, M, K, N), timed) in enumerate(rows):
@@ -2738,7 +2783,7 @@ def phase_scout_kernels(cfg, card: str):
                             f"{codes.numel() / 1e6:.0f} MB of codes"))
             del w_dense, x32
             _versus_library(name, t)
-            _say12(f"12a {name}: graph_ms {t['graph_ms']:.4f}, bound "
+            say_fn(f"{sub} {name}: graph_ms {t['graph_ms']:.4f}, bound "
                    f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
                    f"({t['bound_ms'] / t['graph_ms']:.1%}), torch.bmm "
                    f"graph_ms {t['library_graph_ms']}, max|kernel-plain| "
@@ -2968,7 +3013,7 @@ def _sync_any(on_card: bool) -> None:
 def phase_archs(device: str = "cuda", scout=None, gemma=None, window=None,
                 window_prompt: int = P12_WINDOW_PROMPT):
     """Phase 12 (after 11b, before 6; one model at a time, each released
-    before the next is built): 12a ``phase_scout_kernels`` and
+    before the next is built): 12a ``phase_moe_kernels`` and
     ``phase_scout``, 12b ``phase_gemma``, 12c ``phase_window``.  The
     configs default to the full-width ones (Scout's depth cut to
     ``P12_SCOUT_LAYERS``, StarCoder2 in f32); pass reduced ones to
@@ -2985,7 +3030,7 @@ def phase_archs(device: str = "cuda", scout=None, gemma=None, window=None,
                f"{get_config(P12_SCOUT).n_layers} layers (widths as "
                "published); gemma-7b and starcoder2-3b whole", card)
     if on_card:
-        phase_scout_kernels(scout, card)
+        phase_moe_kernels(scout, card, "scout", "12a", _say12)
         _release()
     t_a = phase_scout(scout, card, device)
     t_b = phase_gemma(gemma or get_config("gemma-7b"), card, device)
@@ -2996,6 +3041,275 @@ def phase_archs(device: str = "cuda", scout=None, gemma=None, window=None,
     _say12(f"12a {t_a:.1f} s, 12b {t_b:.1f} s, 12c {t_c:.1f} s: phase 12 "
            f"adds {seconds:.1f} s to the run (host clock; budget "
            f"{P12_BUDGET_S:.0f} s)", card)
+    return seconds
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the Mamba2 (SSD) mixer, the SSM and hybrid architectures.
+P13_JAMBA = "jamba-v0.1-52b"
+P13_JAMBA_LAYERS = 8                   # of 32: one period of its pattern
+P13_MAMBA = "mamba2-2.7b"
+P13_MAMBA_REQ, P13_MAMBA_PROMPT, P13_MAMBA_NEW = 2, 64, 16
+P13_LONG_PROMPT, P13_LONG_STEPS = 2000, 8
+# 13c (ii): decode against the forward, |gap| <= P13_TOL * (1 + |oracle|).
+# Both sum in f32, in another order, by two algorithms (the recurrence,
+# the chunked scan).  On the CPU with mamba2's pattern the gap was
+# 0.08-0.20 of 1e-4 * (1 + |oracle|) (d_model 256 and 1024, 16 and 64
+# layers, 2000 tokens; 4x the width about doubled it); full width is 2.5x
+# wider again, so 5x 12c's tolerance keeps a margin of about 10x, while a
+# decode from a zeroed state misses by thousands of tolerances.
+P13_TOL = 5e-4
+P13_PEAK_SLACK = 1.05                  # 13b's peak over the shapes' bytes
+P13_BUDGET_S = 60.0
+
+
+def _say13(msg: str, card: str) -> None:
+    say(f"[phase13] {msg}; card {card}")
+
+
+def phase_jamba(cfg, card: str, device: str = "cuda"):
+    """13b: ``jamba-v0.1-52b`` at its published widths with its depth cut
+    to ``cfg.n_layers`` (bf16, random weights from seed 0), phase 5's
+    settings (MAT84, Cache-Prior + DBSC with quantized execution, PCW,
+    miss target 0.05, a quarter of the store cached) and traffic (4
+    requests of 128 prompt tokens and 16 new, ``max_batch=4``), recorded
+    and replayed.  Hard checks: K1 and K2 each (MoE layers) x 20 times,
+    every logit finite, every request served in full, every leaf of the
+    batch cache on the device (SSM ``state`` f32, ``conv`` and the KV rows
+    in the model dtype), the replay equal to the live run, the peak
+    memory within ``P13_PEAK_SLACK`` of the shapes' bytes.  Returns the
+    seconds."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.models.model import init_params
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    est = _device_bytes(cfg)
+    n_moe = _n_moe_layers(cfg)
+    store_bytes = _store_bytes(cfg, MatConfig(8, 4))
+    pattern = "".join("A" if b.mixer == "attn" else "S"
+                      for b in cfg.block_pattern)
+    _say13(f"13b {cfg.name}: {cfg.n_layers} layers of pattern {pattern} "
+           f"(MoE FFN at positions "
+           f"{[i for i, b in enumerate(cfg.block_pattern) if b.ffn == 'moe']}"
+           f", {n_moe} MoE layers), d_model {cfg.d_model}, {cfg.n_heads} "
+           f"heads over {cfg.n_kv_heads} KV heads of {cfg.head_dim}, SSM "
+           f"{cfg.ssm.n_heads(cfg.d_model)} heads of {cfg.ssm.head_dim}, "
+           f"state {cfg.ssm.d_state}, {cfg.moe.n_experts} experts top-"
+           f"{cfg.moe.top_k} of width {cfg.moe.d_ff}, vocab {cfg.vocab_size}"
+           f"; {est['params'] / 1e9:.2f} B params "
+           f"({est['float_bytes'] / 1e9:.2f} GB bf16) and "
+           f"{est['amat_bytes'] / 1e9:.2f} GB of AMAT codes, scales, "
+           f"zero-points and output-major wo codes on the card (MAT84, from "
+           f"the shapes)", card)
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    ecfg = _phase7_engine_config({"cache_bytes": store_bytes / 4})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQ)]
+    run = _serve(cfg, params, ecfg, prompts, "jamba", device)
+    sched = run["sched"]
+    n_fwd = len(sched.wall_prefill_s) + len(sched.wall_step_s)
+    if n_fwd != SERVE_REQ + SERVE_NEW:
+        fail(f"jamba: {n_fwd} forwards, not {SERVE_REQ + SERVE_NEW}")
+    if tuple(run["engine"].moe_positions) != (1, 3, 5, 7):
+        fail(f"jamba: MoE positions {run['engine'].moe_positions}")
+    if run["engine"].store.total_bytes() != store_bytes:
+        fail("jamba: slice store size differs from its analytic size")
+    want_dtype = {"state": torch.float32}
+    leaves = []
+    for key, entry in sched.batch_cache.items():
+        if key == "pos":
+            continue
+        for name, leaf in entry.items():
+            dtype = want_dtype.get(name, torch.bfloat16)
+            leaves.append(f"{key}/{name} {tuple(leaf.shape)} {leaf.dtype}")
+            if leaf.device.type != torch.device(device).type \
+                    or leaf.dtype != dtype:
+                fail(f"jamba: batch cache leaf {key}/{name} is "
+                     f"{leaf.dtype} on {leaf.device}, not {dtype} on "
+                     f"{device}")
+    say(f"[jamba] batch cache on {device}: " + ", ".join(leaves))
+    _say_walls("jamba", run)
+    path = os.path.join(HERE, "build", "jamba_trace.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rep = _check_replay(run, "jamba", path)
+    if run["trace"].meta.moe_positions != (1, 3, 5, 7):
+        fail("jamba: the trace does not carry moe_positions (1, 3, 5, 7)")
+    shapes_gb = (est["float_bytes"] + est["amat_bytes"]) / 1e9
+    peak = _peak_gb(on_card)
+    if on_card and torch.cuda.max_memory_allocated() / 1e9 \
+            > P13_PEAK_SLACK * shapes_gb:
+        fail(f"jamba: peak {peak} over {P13_PEAK_SLACK} x the shapes' "
+             f"{shapes_gb:.2f} GB")
+    cs = [c.metrics["cache_stats"] for c in run["completions"]]
+    seconds = time.perf_counter() - t0
+    _say13(f"13b {cfg.name}: K1/K2 launches {run['launches']} (want "
+           f"{n_moe} x {n_fwd} = {n_moe * n_fwd} each); every logit finite; "
+           f"replay equal to the live run (decode accesses/misses "
+           f"{rep.decode_accesses}/{rep.decode_misses}, energy "
+           f"{rep.total_energy_j!r} J, cost model); MSB misses per request "
+           f"{[c['msb_misses'] for c in cs]}; run wall {run['wall']:.2f} s, "
+           f"median decode step {np.median(sched.wall_step_s):.4f} s, AMAT "
+           f"quantization {run['t_quant']:.2f} s; max_memory_allocated "
+           f"{peak} (shapes: {shapes_gb:.2f} GB); {seconds:.1f} s", card)
+    del run, sched, params, rep
+    _release_any(on_card)
+    return seconds
+
+
+def phase_mamba(cfg, card: str, device: str = "cuda",
+                n_prompt: int = P13_LONG_PROMPT, n_steps: int = P13_LONG_STEPS):
+    """13c: ``mamba2-2.7b`` whole in f32 (TF32 off; random weights from
+    seed 0).  (i) ``SliceMoEServer`` with an engine config serves 2
+    requests of 64 + 16 tokens through ``PlainEngine`` (the model has no
+    MoE layer): no kernel launched, no engine built, the tokens equal a
+    direct greedy ``prefill`` / ``decode_step`` loop's, every logit
+    finite.  (ii) One prompt of ``n_prompt`` tokens (2000: 7 chunks of
+    256 and a padded eighth of 208), then ``n_steps`` decode steps; each
+    step's logits within ``P13_TOL * (1 + |oracle|)`` of ``unembed(
+    forward(...))`` over the prompt and the tokens so far, and the same
+    steps decoded from a zeroed ``state`` and ``conv`` outside it at
+    every step.  Returns the seconds."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models.model import (count_params, decode_step, forward,
+                                          init_cache, init_params, prefill,
+                                          unembed)
+    from repro_torch.serving import Request, SliceMoEServer
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    n = count_params(params)
+
+    # (i) the server's plain path.
+    max_seq = P13_MAMBA_PROMPT + P13_MAMBA_NEW + 1
+    server = SliceMoEServer(cfg, params, engine_cfg=EngineConfig(
+        mat=MatConfig(8, 4)), max_seq=max_seq, device=device)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, P13_MAMBA_PROMPT).astype(
+        np.int32) for _ in range(P13_MAMBA_REQ)]
+    for i, p in enumerate(prompts):
+        server.submit(Request(request_id=i, prompt=p,
+                              max_new_tokens=P13_MAMBA_NEW))
+    t_serve = time.perf_counter()
+    done, launches = _counted(server.run)
+    t_serve = time.perf_counter() - t_serve
+    if any(launches.values()):
+        fail(f"mamba: kernels launched on the plain path: {launches}")
+    if server._engine is not None or any(c.metrics is not None
+                                         for c in done):
+        fail("mamba: a model without MoE layers got a SliceMoE engine")
+    _check_tokens("mamba", done, P13_MAMBA_NEW, cfg.vocab_size)
+    for c, p in zip(sorted(done, key=lambda c: c.request_id), prompts):
+        direct, finite = _greedy(cfg, params, p, P13_MAMBA_NEW, max_seq,
+                                 device)
+        if not finite:
+            fail(f"mamba: request {c.request_id}: non-finite logits")
+        if direct != np.asarray(c.tokens).tolist():
+            fail(f"mamba: request {c.request_id}: server tokens "
+                 f"{np.asarray(c.tokens).tolist()} != the direct loop's "
+                 f"{direct}")
+    del server, done
+
+    # (ii) a long prompt, then decode steps held against the forward.
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, n_prompt),
+                          dtype=torch.int64, device=device)[None]
+    with torch.no_grad():
+        t_pre = time.perf_counter()
+        logits, cache, _ = prefill(params, cfg, seq, n_prompt + n_steps)
+        _sync_any(on_card)
+        t_pre = time.perf_counter() - t_pre
+        zeroed = init_cache(cfg, 1, n_prompt + n_steps, device=device)
+        zeroed["pos"] = cache["pos"].clone()
+        ratios, controls, walls = [], [], []
+        for step in range(n_steps):
+            token = torch.argmax(logits, dim=-1)
+            seq = torch.cat([seq, token[:, None]], dim=1)
+            t1 = time.perf_counter()
+            logits, cache, _ = decode_step(params, cfg, token, cache)
+            _sync_any(on_card)
+            walls.append(time.perf_counter() - t1)
+            control, zeroed, _ = decode_step(params, cfg, token, zeroed)
+            h, _ = forward(params, cfg, seq)
+            want = unembed(params, cfg, h[:, -1])
+            tol = P13_TOL * (1.0 + want.abs())
+            ratios.append(float(((logits - want).abs() / tol).max()))
+            controls.append(float(((control - want).abs() / tol).max()))
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"mamba: step {step}: non-finite logits")
+            say(f"[ssm] step {step} (position {n_prompt + step}): "
+                f"max|decode - forward| / ({P13_TOL:g} * (1 + |oracle|)) = "
+                f"{ratios[-1]:.4f} (max abs gap "
+                f"{float((logits - want).abs().max()):.3e}); from a zeroed "
+                f"state {controls[-1]:.1f}")
+    peak = _peak_gb(on_card)
+    seconds = time.perf_counter() - t0
+    n_tok = P13_MAMBA_REQ * P13_MAMBA_NEW
+    _say13(f"13c {cfg.name}: {cfg.n_layers} SSM layers, d_model "
+           f"{cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} heads of "
+           f"{cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk "
+           f"{cfg.ssm.chunk}, vocab {cfg.vocab_size}; {n / 1e9:.2f} B params"
+           f" in {cfg.dtype}; (i) PlainEngine served {P13_MAMBA_REQ} x "
+           f"({P13_MAMBA_PROMPT} + {P13_MAMBA_NEW}) tokens in {t_serve:.2f} s "
+           f"({t_serve / n_tok:.4f} s per generated token, prefill "
+           f"included), K1/K2 launches {launches}, tokens equal the direct "
+           f"greedy loop's; (ii) prefill of {n_prompt} tokens {t_pre:.2f} s, "
+           f"decode steps {[round(w, 4) for w in walls]} s, worst step's gap "
+           f"{max(ratios):.4f} of the tolerance (must be <= 1), the zeroed "
+           f"state's least {min(controls):.1f} (must be > 1); "
+           f"max_memory_allocated {peak}; {seconds:.1f} s", card)
+    del params, cache, zeroed, logits
+    _release_any(on_card)
+    if max(ratios) > 1.0:
+        fail(f"mamba: a decode step missed the forward by {max(ratios):.4f} "
+             f"of the tolerance {P13_TOL:g} * (1 + |oracle|)")
+    if min(controls) <= 1.0:
+        fail("mamba: a decode from a zeroed state is within the tolerance, "
+             "so the check cannot see the state")
+    return seconds
+
+
+def phase_ssm_archs(device: str = "cuda", jamba=None, mamba=None,
+                    long_prompt: int = P13_LONG_PROMPT):
+    """Phase 13 (after 12, before 6; one model at a time, each released
+    before the next is built): 13a ``phase_moe_kernels`` at Jamba's
+    shapes (on the card), 13b ``phase_jamba``, 13c ``phase_mamba``.  The
+    configs default to the full-width ones (Jamba's depth cut to
+    ``P13_JAMBA_LAYERS``, mamba2 in f32); pass reduced ones to rehearse on
+    the CPU.  Fails on the card past ``P13_BUDGET_S``.  Returns the
+    seconds."""
+    from repro_torch.configs.base import get_config
+
+    on_card = device == "cuda"
+    card = smi_name_power() if on_card else "none (CPU)"
+    t0 = time.perf_counter()
+    if jamba is None:
+        jamba = dataclasses.replace(get_config(P13_JAMBA),
+                                    n_layers=P13_JAMBA_LAYERS)
+        _say13(f"reduced: {jamba.name} depth cut to {jamba.n_layers} of "
+               f"{get_config(P13_JAMBA).n_layers} layers, one period of its "
+               "pattern (widths as published); mamba2-2.7b whole, in f32",
+               card)
+    if on_card:
+        phase_moe_kernels(jamba, card, "jamba", "13a", _say13)
+        _release()
+    t_b = phase_jamba(jamba, card, device)
+    t_c = phase_mamba(mamba or dataclasses.replace(
+        get_config(P13_MAMBA), dtype="float32"), card, device,
+        n_prompt=long_prompt)
+    seconds = time.perf_counter() - t0
+    _say13(f"13b {t_b:.1f} s, 13c {t_c:.1f} s: phase 13 adds {seconds:.1f} s "
+           f"to the run (host clock; budget {P13_BUDGET_S:.0f} s)", card)
+    if on_card and seconds > P13_BUDGET_S:
+        fail(f"phase 13 took {seconds:.1f} s, over its {P13_BUDGET_S:.0f} s "
+             "budget")
     return seconds
 
 
@@ -3577,6 +3891,8 @@ def main() -> None:
         f"{t_11a + t_11b:.1f} s to the run (host clock)")
     _release()
     phase_archs()
+    _release()
+    phase_ssm_archs()
     _release()
     small, trained = phase_train_serve(cfg)
     _release()

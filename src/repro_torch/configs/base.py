@@ -5,10 +5,13 @@ Each ported configuration is a ``repro_torch/configs/<id>.py`` exporting
 config compares field by field with its JAX counterpart.  The ported
 configurations are the two paper-reproduction MoE models, the full-width
 ``qwen15-moe-a2.7b``, the dense ``smollm-360m``, ``gemma-7b``,
-``nemotron-4-15b`` and ``starcoder2-3b`` and the MoE
-``llama4-scout-17b-a16e`` and ``llama4-maverick-400b-a17b``; SSM mixers,
-prefix embeddings and encoders are not ported yet
-(``models/model.py::_check_supported``).
+``nemotron-4-15b`` and ``starcoder2-3b``, the MoE
+``llama4-scout-17b-a16e`` and ``llama4-maverick-400b-a17b``, the SSM
+``mamba2-2.7b`` and the hybrid ``jamba-v0.1-52b``; prefix embeddings and
+encoders are not ported yet (``models/model.py::_check_supported``).
+``reduced()`` derives the CPU-smoke-test variant (2 layers, or two
+periods of a longer pattern; d_model <= 256, <= 4 experts, an SSM state
+of <= 16 with heads of 32 and chunks of 32) of the same family.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import importlib
 from typing import Optional, Tuple
 
 from repro_torch.models.moe import MoECfg
+from repro_torch.models.ssm import SSMCfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +45,7 @@ class ModelConfig:
     vocab_size: int
     mlp_type: str = "swiglu"
     moe: Optional[MoECfg] = None
-    ssm: Optional[object] = None         # SSM mixers are not ported yet
+    ssm: Optional[SSMCfg] = None
     pattern: Optional[Tuple[BlockSpec, ...]] = None
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -127,8 +131,7 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims (the reference's
-        rule; SSM mixers, which the port does not run, are left as they
-        are)."""
+        rule)."""
         plen = len(self.block_pattern)
         n_kv = min(self.n_kv_heads, 2)
         moe = None
@@ -141,6 +144,11 @@ class ModelConfig:
                 d_ff_shared=min(self.moe.d_ff_shared, 128)
                 if self.moe.d_ff_shared else 0,
             )
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(
+                self.ssm, d_state=min(self.ssm.d_state, 16),
+                head_dim=32, chunk=32)
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
@@ -152,6 +160,7 @@ class ModelConfig:
             d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512),
             moe=moe,
+            ssm=ssm,
             encoder_layers=min(self.encoder_layers, 2),
             encoder_seq=min(self.encoder_seq, 16) if self.encoder_seq else 0,
             prefix_len=min(self.prefix_len, 8) if self.prefix_len else 0,

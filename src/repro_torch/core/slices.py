@@ -104,12 +104,15 @@ class ExpertSliceStore:
 
 @torch.no_grad()
 def _quantize_stacked(w: torch.Tensor, mat: MatConfig) -> QuantizedTensor:
-    """AMAT-quantize a ``[n_periods, E, K, N]`` stack one period at a time.
+    """AMAT-quantize a ``[n_periods, E, K, N]`` stack one expert matrix at
+    a time.
 
     The reference casts the whole stack to f32 first; for Qwen1.5-MoE-A2.7B
-    at full width that is a 33 GB temporary for ``wi`` alone.  Groups run
-    along K inside each [K, N] matrix, so quantizing period by period
-    gives identical codes, scales and zero-points.
+    at full width that is a 33 GB temporary for ``wi`` alone, and one
+    period of Jamba's ``wi`` (16 x 4096 x 28672) is 7.5 GB in f32.  Groups
+    run along K inside each [K, N] matrix, so quantizing matrix by matrix
+    gives identical codes, scales and zero-points, with a temporary of one
+    matrix in f32.
     """
     P, E, K, N = w.shape
     G = K // mat.group_size
@@ -118,8 +121,10 @@ def _quantize_stacked(w: torch.Tensor, mat: MatConfig) -> QuantizedTensor:
     scales = torch.empty((P, E, G, N), dtype=torch.float32, device=dev)
     zps = torch.empty((P, E, G, N), dtype=torch.uint8, device=dev)
     for p in range(P):
-        qt = amat_quantize(w[p], mat)
-        codes[p], scales[p], zps[p] = qt.codes, qt.scales, qt.zero_points
+        for e in range(E):
+            qt = amat_quantize(w[p, e], mat)
+            codes[p, e], scales[p, e], zps[p, e] = (
+                qt.codes, qt.scales, qt.zero_points)
     return QuantizedTensor(codes, scales, zps, mat.high_bits,
                            mat.group_size, True)
 

@@ -1,11 +1,15 @@
-"""Model stack for the ``dense`` and ``moe`` architectures (port of
-``repro.models.model``).
+"""Model stack for the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+architectures (port of ``repro.models.model``).
 
 Parameters keep the reference's tree and its stacked ``[n_periods, ...]``
 layout (``blocks/pos{i}/...``), so :mod:`repro_torch.bridge` maps the JAX
 package's parameters onto the port one leaf to one leaf.  The reference
 ``lax.scan``s over periods; here a Python loop indexes each period's
-slice (a view, no copy).
+slice (a view, no copy).  Layers follow ``cfg.block_pattern``: each
+position's mixer is attention (``attn``) or the Mamba2 SSD mixer
+(``ssm``, :mod:`repro_torch.models.ssm`), its FFN dense, MoE or none.
+``mamba2-2.7b`` is a pattern of one SSM position without FFN; Jamba's is
+8 long, attention at position 3, MoE FFNs at the odd positions.
 
 Public entry points: ``param_shapes`` / ``init_params``, ``embed_inputs``,
 ``forward`` (full sequence, differentiable over float experts; on AMAT
@@ -14,7 +18,9 @@ expert kernels), ``lm_loss`` (chunked cross-entropy plus the MoE
 load-balance loss), ``unembed``, ``init_cache``, ``prefill``,
 ``decode_step`` (scalar and ``[B]`` positions, ``token_mask``, the
 engine's per-position ``use_lsb`` / ``gate_override`` / ``policy_state``),
-``count_params``.  Every attention takes the config's ``logit_softcap``;
+``count_params``.  The MoE aux of a pattern that mixes dense and MoE FFNs
+comes from the MoE positions only, stacked ``[n_periods, n_moe_pos,
+...]``.  Every attention takes the config's ``logit_softcap``;
 ``use_window`` (or ``always_swa``) limits it to the config's
 ``sliding_window``, and a windowed decode step with aligned positions
 reads only the last ``sliding_window`` cache rows.  ``tie_embeddings``
@@ -22,14 +28,22 @@ unembeds with the embedding table (no ``unembed`` leaf); ``pad_vocab_to``
 pads the vocabulary and masks the pad columns to -1e30.  With
 ``kv_dtype="int8"`` the KV cache holds per-(token, head) int8 codes and
 f32 scales (``_quant_kv`` / ``_dequant_kv``), dequantized to the model
-dtype before each decode attention.  The reference wraps each period of
-``forward`` in ``jax.checkpoint`` (remat); that changes memory, not
-values, and is not ported.
+dtype before each decode attention.  An SSM position's cache entry holds
+``state`` [n_periods, B, H, head_dim, d_state] in f32 and ``conv``
+[n_periods, B, d_conv - 1, conv_channels] in the model dtype; its
+``A_log``, ``D`` and ``dt_bias`` leaves stay f32 in a bf16 model, as in
+the reference.  The reference wraps each period of ``forward`` in
+``jax.checkpoint`` (remat); that changes memory, not values, and is not
+ported.
 
-Departures from the functional reference, both to save device memory:
-``decode_step`` writes the new KV row into the cache tensors in place
-and returns a dict holding those same tensors (with ``pos`` advanced);
-``init_params`` draws each stacked leaf one period at a time.
+Departures from the functional reference: ``decode_step`` writes the new
+KV row, and an SSM position's new ``state`` and ``conv`` window, into the
+cache tensors in place and returns a dict holding those same tensors
+(with ``pos`` advanced), which saves device memory and keeps the buffers
+where a captured decode step would find them; ``init_params`` draws each
+stacked leaf one period at a time (device memory again), and draws
+``conv_w`` from the port's generator (the reference seeds it from
+``hash(name)``, which depends on the process).
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.quant.groupquant import QuantizedTensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -55,11 +70,11 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe") or cfg.has_ssm:
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type!r} architecture is not ported "
-            "yet; the port builds 'dense' and 'moe' (ROADMAP.md queue 1, "
-            "'remaining architectures')")
+            "yet; the port builds 'dense', 'moe', 'ssm' and 'hybrid' "
+            "(ROADMAP.md queue 1, 'remaining architectures')")
     if cfg.prefix_len or cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: prefix embeddings and encoders are not ported yet "
@@ -94,7 +109,14 @@ def _attn_shapes(cfg: ModelConfig) -> dict:
 
 
 def _block_shapes(cfg: ModelConfig, spec: BlockSpec) -> dict:
-    sh = dict(_attn_shapes(cfg))
+    if spec.mixer == "attn":
+        sh = dict(_attn_shapes(cfg))
+    else:
+        if cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: an SSM position needs an SSMCfg "
+                             "(cfg.ssm is None)")
+        sh = {"ssm": S.ssm_param_shapes(cfg.d_model, cfg.ssm),
+              "ssm_norm": (cfg.d_model,)}
     if spec.ffn == "dense":
         sh["mlp"] = L.mlp_param_shapes(cfg.d_model, cfg.d_ff, cfg.mlp_type)
         sh["mlp_norm"] = (cfg.d_model,)
@@ -142,6 +164,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     cannot reproduce ``jax.random``'s numbers, so parity tests carry JAX
     parameters across with :mod:`repro_torch.bridge`).
 
+    An SSM mixer's leaves get the reference's special inits: ``A_log =
+    log(linspace(1, 16, H))``, ``D = 1`` and ``dt_bias = -2``, all three
+    f32 in any model dtype, and ``conv_w`` normal times 0.2.
+
     Stacked leaves are drawn one period at a time in f32 and cast into a
     preallocated tensor of the model dtype, so the peak temporary is one
     period of one leaf, never a whole stack in f32.
@@ -150,26 +176,43 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     dtype = _dt(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    f32 = torch.float32
 
-    def init_tree(shapes: dict) -> dict:
+    def init_tree(shapes: dict, ssm: bool = False) -> dict:
         out = {}
         for k in sorted(shapes):
             v = shapes[k]
-            out[k] = init_tree(v) if isinstance(v, dict) else init_one(v)
+            if isinstance(v, dict):
+                out[k] = init_tree(v, ssm=k == "ssm")
+            elif ssm and k in ssm_init:
+                out[k] = ssm_init[k](v)
+            else:
+                out[k] = init_one(v)
         return out
 
-    def init_one(shape):
-        t = torch.zeros(shape, dtype=dtype, device=dev)
-        if len(shape) == 1 or shape[-1] == 1:
-            return t
-        std = shape[-2] ** -0.5
+    def normal(shape, std, dt):
+        t = torch.zeros(shape, dtype=dt, device=dev)
         chunks = list(t) if len(shape) >= 3 else [t]
         for chunk in chunks:
             draw = torch.randn(chunk.shape, generator=gen, device=dev,
-                               dtype=torch.float32)
+                               dtype=f32)
             chunk.copy_(draw.mul_(std))
         return t
 
+    def init_one(shape):
+        if len(shape) == 1 or shape[-1] == 1:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return normal(shape, shape[-2] ** -0.5, dtype)
+
+    ssm_init = {
+        "A_log": lambda shape: torch.log(torch.linspace(
+            1.0, 16.0, shape[-1], dtype=f32, device=dev)).expand(
+                shape).contiguous(),
+        "D": lambda shape: torch.ones(shape, dtype=f32, device=dev),
+        "dt_bias": lambda shape: torch.full(shape, -2.0, dtype=f32,
+                                            device=dev),
+        "conv_w": lambda shape: normal(shape, 0.2, dtype),
+    }
     return init_tree(param_shapes(cfg))
 
 
@@ -220,7 +263,9 @@ def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
                quant_execution=None, force_high_bit=False):
     """The block's FFN half; returns (x, aux): the MoE layer's whole aux
     with ``collect``, else only its ``aux_loss`` and ``dropped_frac``
-    (None for a dense FFN)."""
+    (None for a dense FFN or none)."""
+    if spec.ffn == "none":
+        return x, None
     if spec.ffn == "dense":
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         return x + L.mlp_apply(p["mlp"], h, cfg.mlp_type), None
@@ -235,6 +280,11 @@ def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
         aux = {"aux_loss": aux["aux_loss"],
                "dropped_frac": aux["dropped_frac"]}
     return x + y.reshape(b, s, d), aux
+
+
+def _ssm_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    h = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
+    return x + S.ssm_forward(p["ssm"], h, cfg.ssm)
 
 
 def _stack_aux(per_period: list) -> dict:
@@ -275,7 +325,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         row = []
         for i, spec in enumerate(cfg.block_pattern):
             p = period_params[f"pos{i}"]
-            x, _ = _self_attn_block(p, x, cfg, positions, window)
+            if spec.mixer == "attn":
+                x, _ = _self_attn_block(p, x, cfg, positions, window)
+            else:
+                x = _ssm_block(p, x, cfg)
             x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
                                 mat=mat, quant_execution=quant_execution)
             if aux is not None:
@@ -354,9 +407,11 @@ def _dequant_kv(codes: torch.Tensor, scale: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """Decode-state tree, stacked over periods per pattern position.
-    With ``kv_dtype="int8"`` each entry also holds ``k_scale`` /
-    ``v_scale`` [n_periods, B, S, Hkv] f32."""
+    """Decode-state tree, stacked over periods per pattern position: an
+    attention position's ``k`` / ``v`` [n_periods, B, S, Hkv, hd] (with
+    ``kv_dtype="int8"`` also ``k_scale`` / ``v_scale`` [n_periods, B, S,
+    Hkv] f32), an SSM position's ``state`` [n_periods, B, H, head_dim,
+    d_state] f32 and ``conv`` [n_periods, B, d_conv - 1, conv_channels]."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dt(cfg)
@@ -365,6 +420,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     kv_shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     kv_dt = torch.int8 if int8_kv else dtype
     for i, spec in enumerate(cfg.block_pattern):
+        if spec.mixer != "attn":
+            ssm = cfg.ssm
+            cache[f"pos{i}"] = {
+                "state": torch.zeros(
+                    (cfg.n_periods, batch, ssm.n_heads(cfg.d_model),
+                     ssm.head_dim, ssm.d_state), dtype=torch.float32,
+                    device=dev),
+                "conv": torch.zeros(
+                    (cfg.n_periods, batch, ssm.d_conv - 1,
+                     ssm.conv_channels(cfg.d_model)), dtype=dtype,
+                    device=dev)}
+            continue
         entry = {"k": torch.zeros(kv_shape, dtype=kv_dt, device=dev),
                  "v": torch.zeros(kv_shape, dtype=kv_dt, device=dev)}
         if int8_kv:
@@ -401,19 +468,28 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         row = []
         for i, spec in enumerate(cfg.block_pattern):
             p = period_params[f"pos{i}"]
-            x, (k, v) = _self_attn_block(p, x, cfg, positions, window)
             entry = cache[f"pos{i}"]
-            if cfg.kv_dtype == "int8":
-                for name, t in (("k", k), ("v", v)):
-                    codes, scale = _quant_kv(t)
-                    entry[name][period, :, :s] = codes
-                    entry[f"{name}_scale"][period, :, :s] = scale
-                    # The reference quantizes the zero-padded rows too;
-                    # their scale is the floor.
-                    entry[f"{name}_scale"][period, :, s:] = KV_SCALE_FLOOR
+            if spec.mixer != "attn":
+                h = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
+                y, (state, tail) = S.ssm_forward(p["ssm"], h, cfg.ssm,
+                                                 return_state=True)
+                x = x + y
+                entry["state"][period] = state
+                entry["conv"][period] = tail.to(entry["conv"].dtype)
             else:
-                entry["k"][period, :, :s] = k.to(entry["k"].dtype)
-                entry["v"][period, :, :s] = v.to(entry["v"].dtype)
+                x, (k, v) = _self_attn_block(p, x, cfg, positions, window)
+                if cfg.kv_dtype == "int8":
+                    for name, t in (("k", k), ("v", v)):
+                        codes, scale = _quant_kv(t)
+                        entry[name][period, :, :s] = codes
+                        entry[f"{name}_scale"][period, :, :s] = scale
+                        # The reference quantizes the zero-padded rows
+                        # too; their scale is the floor.
+                        entry[f"{name}_scale"][period, :, s:] = \
+                            KV_SCALE_FLOOR
+                else:
+                    entry["k"][period, :, :s] = k.to(entry["k"].dtype)
+                    entry["v"][period, :, :s] = v.to(entry["v"].dtype)
             x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
                                 mat=mat, quant_execution=quant_execution,
                                 policy=policy,
@@ -432,6 +508,64 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # ==========================================================================
 # Decode step
 # ==========================================================================
+def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
+                 period: int, pos: torch.Tensor, positions: torch.Tensor,
+                 rows: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """One attention position of a decode step with its residual: writes
+    the new K/V row of period ``period`` into ``entry`` in place, then
+    attends over the cache (``pos``: scalar or ``[B]``; ``rows``:
+    ``arange(B)``)."""
+    b = x.shape[0]
+    vector_pos = pos.ndim == 1
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _attn_qkv(p, h, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    def write_row(name, val):
+        # val: [B, 1, ...], the new token's row per sequence.
+        buf = entry[name][period]                           # [B, S, ...]
+        if vector_pos:
+            # A row at or past the cache's end (an idle slot's position
+            # keeps counting) is dropped, as the reference's scatter
+            # drops it; no host sync.
+            at = pos.clamp(max=buf.shape[1] - 1)
+            keep = (pos < buf.shape[1]).reshape(
+                (b,) + (1,) * (buf.ndim - 2))
+            buf[rows, at] = torch.where(
+                keep, val[:, 0].to(buf.dtype), buf[rows, at])
+        else:
+            buf[:, pos.reshape(1)] = val.to(buf.dtype)
+        return buf
+
+    if cfg.kv_dtype == "int8":
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        bufs = [write_row(n, t) for n, t in (
+            ("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))]
+    else:
+        bufs = [write_row("k", k), write_row("v", v)]
+
+    # A windowed step at aligned positions reads only the last `window`
+    # cache rows (O(window) traffic, not a masked full read); per-sequence
+    # positions read the full cache and let decode_attention's per-row
+    # mask bound each window.
+    s_cache = bufs[0].shape[1]
+    cur, win_mask = pos + 1, window
+    if not vector_pos and window is not None and s_cache > window:
+        start = torch.clamp(pos + 1 - window, 0, s_cache - window)
+        idx = start + torch.arange(window, device=x.device)
+        bufs = [t.index_select(1, idx) for t in bufs]
+        cur, win_mask = pos + 1 - start, None
+    if cfg.kv_dtype == "int8":
+        kc = _dequant_kv(bufs[0], bufs[2], _dt(cfg))
+        vc = _dequant_kv(bufs[1], bufs[3], _dt(cfg))
+    else:
+        kc, vc = bufs
+    o = L.decode_attention(q[:, 0], kc, vc, cur, sliding_window=win_mask,
+                           logit_softcap=cfg.logit_softcap)
+    return x + (o.reshape(b, -1) @ p["wo"])[:, None, :]
+
+
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, *, collect_trace: bool = False,
@@ -458,7 +592,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``cache["pos"]`` is a scalar (all sequences aligned) or a ``[B]``
     vector of per-sequence lengths (continuous batching): each sequence
     writes its KV row at its own offset and attends over its own prefix.
-    The rows are written into the cache tensors in place.  With a window
+    The rows are written into the cache tensors in place, and so are an
+    SSM position's new ``state`` and ``conv`` window (every sequence's,
+    whatever its position or mask, as in the reference).  With a window
     (``use_window`` or ``always_swa``) and a scalar position, attention
     reads only the last ``sliding_window`` cache rows when the cache is
     longer than that; with vector positions it reads the whole cache
@@ -488,59 +624,22 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         for i, spec in enumerate(cfg.block_pattern):
             key = f"pos{i}"
             p = period_params[key]
-            h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-            q, k, v = _attn_qkv(p, h, cfg)
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
             entry = cache[key]
-
-            def write_row(name, val):
-                # val: [B, 1, ...], the new token's row per sequence.
-                buf = entry[name][period]                   # [B, S, ...]
-                if vector_pos:
-                    # A row at or past the cache's end (an idle slot's
-                    # position keeps counting) is dropped, as the
-                    # reference's scatter drops it; no host sync.
-                    at = pos.clamp(max=buf.shape[1] - 1)
-                    keep = (pos < buf.shape[1]).reshape(
-                        (b,) + (1,) * (buf.ndim - 2))
-                    buf[rows, at] = torch.where(
-                        keep, val[:, 0].to(buf.dtype), buf[rows, at])
-                else:
-                    buf[:, pos.reshape(1)] = val.to(buf.dtype)
-                return buf
-
-            if cfg.kv_dtype == "int8":
-                (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
-                bufs = [write_row(n, t) for n, t in (
-                    ("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))]
+            if spec.mixer == "attn":
+                x = _attn_decode(p, x, cfg, entry, period, pos, positions,
+                                 rows, window)
             else:
-                bufs = [write_row("k", k), write_row("v", v)]
+                h = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
+                state, conv = entry["state"][period], entry["conv"][period]
+                y, new_state, new_conv = S.ssm_decode_step(
+                    p["ssm"], h[:, 0], state, conv, cfg.ssm)
+                state.copy_(new_state)
+                conv.copy_(new_conv)
+                x = x + y[:, None, :]
             new_cache[key] = entry
 
-            # A windowed step at aligned positions reads only the last
-            # `window` cache rows (O(window) traffic, not a masked full
-            # read); per-sequence positions read the full cache and let
-            # decode_attention's per-row mask bound each window.
-            s_cache = bufs[0].shape[1]
-            cur, win_mask = pos + 1, window
-            if not vector_pos and window is not None and s_cache > window:
-                start = torch.clamp(pos + 1 - window, 0, s_cache - window)
-                idx = start + torch.arange(window, device=x.device)
-                bufs = [t.index_select(1, idx) for t in bufs]
-                cur, win_mask = pos + 1 - start, None
-            if cfg.kv_dtype == "int8":
-                kc = _dequant_kv(bufs[0], bufs[2], _dt(cfg))
-                vc = _dequant_kv(bufs[1], bufs[3], _dt(cfg))
-            else:
-                kc, vc = bufs
-            o = L.decode_attention(q[:, 0], kc, vc, cur,
-                                   sliding_window=win_mask,
-                                   logit_softcap=cfg.logit_softcap)
-            x = x + (o.reshape(b, -1) @ p["wo"])[:, None, :]
-
             ps = None
-            if policy_state is not None:
+            if policy_state is not None and key in policy_state:
                 ps = {n: t[period] for n, t in policy_state[key].items()}
                 if alpha is not None:
                     ps["alpha"] = alpha

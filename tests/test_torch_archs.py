@@ -490,7 +490,7 @@ def test_llama4_scout_served_by_both_packages():
 
 # ----------------------------------------------------------------- unported
 @pytest.mark.parametrize("over", [
-    dict(arch_type="ssm"), dict(arch_type="hybrid"), dict(arch_type="vlm"),
+    dict(arch_type="vlm"),
     dict(arch_type="audio"), dict(prefix_len=4), dict(encoder_layers=2),
     dict(ring_kv=True), dict(quantized_serve=True),
 ], ids=lambda d: next(iter(d)) + "=" + str(next(iter(d.values()))))

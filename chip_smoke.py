@@ -293,10 +293,47 @@ it goes, any failure exiting non-zero:
    get_config("mamba2-2.7b").reduced(), dtype="float32"),
    long_prompt=80)`` (about 3 s).
 
+14. prefix embeddings and the encoder-decoder, after 13 and before 6, one
+   model at a time, each released before the next is built
+   (``phase_prefix_encdec``; ``[phase14]`` lines give each sub-phase's
+   seconds, peak memory, K1/K2 launches and measured gaps, each with the
+   card's name and power limit; the phase fails past 60 s):
+   14a. ``internvl2-1b`` whole (24 layers, d_model 896, a prefix of 256
+       stub patch embeddings; random weights from seed 0): (i) in f32
+       (TF32 off) the prefix and a 64-token prompt prefilled, then 8
+       greedy decode steps, each held against ``unembed(forward(prefix,
+       prompt + tokens so far))`` at the last position within 1e-4 +
+       1e-4*|oracle| (``[prefix]`` lines), and the same tokens decoded
+       from a prefill without the prefix outside that tolerance at every
+       step; (ii) in bf16, ``PlainEngine.generate`` on 2 requests of 64 +
+       16 tokens with their prefixes: no kernel launched, the tokens equal
+       a direct greedy loop's, every logit finite; (iii) ``train_loop``
+       for 10 steps in bf16, batch 2, ``seq_len`` 320 (64 text tokens
+       after the cut): every loss finite, the last below the first;
+   14b. ``whisper-small`` whole (12 encoder and 12 decoder layers, 1500
+       stub frames): the same three parts, (i) against ``forward`` with
+       the same frames (``[encdec]`` lines), every step returning the
+       cache's own ``ck`` / ``cv`` tensors, bit-equal to what the prefill
+       stored, and the control a cache whose ``ck`` / ``cv`` hold the
+       encoding of frames from another seed; (ii) with
+       ``encoder_frames``; (iii) ``seq_len`` 64;
+   14c. K1/K2 behind a prefixed prefill through the engine: a test
+       configuration built on the reference's pass-through, not a
+       published model (``qwen15-moe-a2.7b`` at its published widths,
+       cut to 4 of 24 layers, ``prefix_len=256``), in a ``SliceMoEEngine``
+       with phase 5's settings; 256 stub prefix embeddings + 128 tokens
+       through ``prefill(tokens, prefix_embeds=...)``, then ``decode(first,
+       16)``.  Hard checks: K1 and K2 each 4 x 17 = 68 times, the cache
+       position 384 after prefill, every logit finite.
+   Rehearse on the CPU with ``phase_prefix_encdec(device="cpu",
+   internvl=get_config("internvl2-1b").reduced(), whisper=get_config(
+   "whisper-small").reduced(), engine=dataclasses.replace(get_config(
+   "qwen15-moe-repro").reduced(), prefix_len=4))`` (about 4 s).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 13.
+busy share).  Without arguments the script runs phases 1 to 14.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -2853,13 +2890,15 @@ def phase_scout(cfg, card: str, device: str = "cuda"):
     return seconds
 
 
-def _greedy(cfg, params, prompt, n_new: int, max_seq: int, device):
-    """A direct greedy loop over ``prefill`` and ``decode_step``: the
-    tokens, and whether every logit was finite."""
+def _greedy(cfg, params, prompt, n_new: int, max_seq: int, device,
+            **extras):
+    """A direct greedy loop over ``prefill`` (given ``extras``: a prefix,
+    encoder frames) and ``decode_step``: the tokens, and whether every
+    logit was finite."""
     from repro_torch.models.model import decode_step, prefill
 
     toks = torch.as_tensor(prompt, dtype=torch.int64, device=device)[None]
-    logits, cache, _ = prefill(params, cfg, toks, max_seq)
+    logits, cache, _ = prefill(params, cfg, toks, max_seq, **extras)
     finite = torch.isfinite(logits).all()
     out, token = [], torch.argmax(logits, dim=-1)
     for _ in range(n_new):
@@ -3309,6 +3348,435 @@ def phase_ssm_archs(device: str = "cuda", jamba=None, mamba=None,
            f"to the run (host clock; budget {P13_BUDGET_S:.0f} s)", card)
     if on_card and seconds > P13_BUDGET_S:
         fail(f"phase 13 took {seconds:.1f} s, over its {P13_BUDGET_S:.0f} s "
+             "budget")
+    return seconds
+
+
+# --------------------------------------------------------------------------
+# Phase 14: prefix embeddings and the encoder-decoder.
+P14_INTERNVL, P14_WHISPER = "internvl2-1b", "whisper-small"
+P14_ENGINE, P14_ENGINE_LAYERS = "qwen15-moe-a2.7b", 4   # 14c, of 24
+P14_PROMPT, P14_STEPS = 64, 8             # (i): prompt, decode steps held
+P14_REQ, P14_NEW = 2, 16                  # (ii): PlainEngine requests
+P14_TRAIN_STEPS, P14_TRAIN_BATCH, P14_TRAIN_TEXT, P14_TRAIN_LR = \
+    10, 2, 64, 2e-3                       # (iii): text tokens after the cut
+P14_ENGINE_PREFIX, P14_ENGINE_PROMPT, P14_ENGINE_NEW = 256, 128, 16
+# (i): decode against the forward at 12c's tolerance, 1e-4 + 1e-4*|oracle|
+# (f32, TF32 off; the decode step and the forward sum in another order).
+P14_TOL = 1e-4
+P14_BUDGET_S = 60.0
+
+
+def _say14(msg: str, card: str) -> None:
+    say(f"[phase14] {msg}; card {card}")
+
+
+def _f32_model(cfg):
+    """``cfg`` in f32 with TF32 off on the card (the decode checks)."""
+    if torch.cuda.is_available():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def _held_decode(tag, cfg, params, seq, extras, cache, control, n_steps,
+                 on_card):
+    """``n_steps`` greedy decode steps from ``cache`` (its prefill's
+    logits first), each held against ``unembed(forward(seq so far,
+    **extras))`` at the last position within ``P14_TOL * (1 +
+    |oracle|)``; the same tokens decoded from ``control`` (a cache that
+    must not give the oracle) beside them.  Returns the gaps and the
+    control's, each a fraction of the tolerance, the step walls and the
+    cache after the last step."""
+    from repro_torch.models.model import decode_step, forward, unembed
+
+    logits, cache = cache
+    ratios, controls, walls = [], [], []
+    with torch.no_grad():
+        for step in range(n_steps):
+            token = torch.argmax(logits, dim=-1)
+            seq = torch.cat([seq, token[:, None]], dim=1)
+            t1 = time.perf_counter()
+            logits, cache, _ = decode_step(params, cfg, token, cache)
+            _sync_any(on_card)
+            walls.append(time.perf_counter() - t1)
+            ctl, control, _ = decode_step(params, cfg, token, control)
+            h, _ = forward(params, cfg, seq, **extras)
+            want = unembed(params, cfg, h[:, -1])
+            tol = P14_TOL + P14_TOL * want.abs()
+            ratios.append(float(((logits - want).abs() / tol).max()))
+            controls.append(float(((ctl - want).abs() / tol).max()))
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"{tag}: step {step}: non-finite logits")
+            say(f"[{tag}] step {step} (position {int(cache['pos']) - 1}): "
+                f"max|decode - forward| / ({P14_TOL:g} + {P14_TOL:g}*"
+                f"|oracle|) = {ratios[-1]:.4f} (max abs gap "
+                f"{float((logits - want).abs().max()):.3e}); control "
+                f"{controls[-1]:.1f}")
+    return ratios, controls, walls, cache
+
+
+def _check_held(tag, ratios, controls, what_control):
+    if max(ratios) > 1.0:
+        fail(f"{tag}: a decode step missed the forward by {max(ratios):.4f} "
+             f"of the tolerance {P14_TOL:g} + {P14_TOL:g}*|oracle|")
+    if min(controls) <= 1.0:
+        fail(f"{tag}: {what_control} is within the tolerance at some step, "
+             "so the check cannot see it")
+
+
+def _plain_generate(tag, cfg, params, extras_for, n_prompt, device):
+    """(ii): ``PlainEngine.generate`` on ``P14_REQ`` prompts of
+    ``n_prompt`` tokens with ``extras_for(i)``, ``P14_NEW`` tokens each,
+    under the launch counts: no kernel, tokens equal a direct greedy
+    loop's, every logit finite.  Returns the wall per generated token."""
+    from repro_torch.serving.server import PlainEngine
+
+    max_seq = cfg.prefix_len + n_prompt + P14_NEW + 1
+    engine = PlainEngine(cfg, params, max_seq, device=device)
+    rng = np.random.default_rng(141)
+    prompts = [rng.integers(0, cfg.vocab_size, n_prompt).astype(np.int32)
+               for _ in range(P14_REQ)]
+
+    def run():
+        t0 = time.perf_counter()
+        out = [engine.generate(p, P14_NEW, **extras_for(i))[0]
+               for i, p in enumerate(prompts)]
+        _sync_any(device == "cuda")
+        return out, time.perf_counter() - t0
+
+    (outs, wall), launches = _counted(run)
+    if any(launches.values()):
+        fail(f"{tag}: kernels launched on the plain path: {launches}")
+    for i, (toks, p) in enumerate(zip(outs, prompts)):
+        toks = np.asarray(toks).tolist()
+        if len(toks) != P14_NEW or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+            fail(f"{tag}: request {i}: {toks} is not {P14_NEW} tokens of "
+                 "the vocabulary")
+        direct, finite = _greedy(cfg, params, p, P14_NEW, max_seq, device,
+                                 **extras_for(i))
+        if not finite:
+            fail(f"{tag}: request {i}: non-finite logits")
+        if direct != toks:
+            fail(f"{tag}: request {i}: PlainEngine's tokens {toks} != the "
+                 f"direct loop's {direct}")
+    return wall / (P14_REQ * P14_NEW), launches
+
+
+def _train_check(tag, cfg, seq_len, device):
+    """(iii): ``train_loop`` for ``P14_TRAIN_STEPS`` steps at the
+    config's dtype, with the stubs it draws itself.  Every loss finite,
+    the last below the first.  Returns the losses, the median wall per
+    step and the peak memory."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import AdamWConfig
+
+    on_card = device == "cuda"
+    _peak_reset(on_card)
+    opt_cfg = AdamWConfig(lr=P14_TRAIN_LR, total_steps=P14_TRAIN_STEPS,
+                          warmup_steps=1)
+    params, opt_state, hist = train_loop(
+        cfg, steps=P14_TRAIN_STEPS, global_batch=P14_TRAIN_BATCH,
+        seq_len=seq_len, opt_cfg=opt_cfg, log_every=P14_TRAIN_STEPS,
+        seed=0, collect_history=True, device=device)
+    _sync_any(on_card)
+    losses = [m["loss"] for m in hist]
+    per_step = np.diff([0.0] + [m["wall_s"] for m in hist])
+    peak = _peak_gb(on_card)
+    del params, opt_state
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: a non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the last loss {losses[-1]:.4f} is not below the "
+             f"first {losses[0]:.4f}")
+    return losses, float(np.median(per_step)), peak
+
+
+def phase_internvl(cfg, card: str, device: str = "cuda",
+                   n_prompt: int = P14_PROMPT, n_steps: int = P14_STEPS):
+    """14a: ``internvl2-1b`` whole (24 layers, prefix 256; random weights
+    from seed 0).  (i) In f32: stub patch embeddings (``_stub_prefix``'s
+    scale, 0.02) and a prompt of ``n_prompt`` tokens prefilled, then
+    ``n_steps`` greedy decode steps, each within ``P14_TOL + P14_TOL *
+    |oracle|`` of ``unembed(forward(prefix, prompt + tokens so far))``;
+    the same tokens decoded from a prefill without the prefix outside it
+    at every step.  (ii) In bf16: ``PlainEngine.generate`` on 2 requests
+    of ``n_prompt`` + 16 tokens with their prefixes, no kernel launched.
+    (iii) ``train_loop`` 10 steps in bf16, batch 2, ``seq_len`` the
+    prefix + 64 text tokens.  Returns the seconds."""
+    from repro_torch.launch.train import _stub_prefix
+    from repro_torch.models.model import count_params, init_params, prefill
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    f32 = _f32_model(cfg)
+    _peak_reset(on_card)
+    params = init_params(f32, seed=0, device=device)
+    n = count_params(params)
+    prefix = _stub_prefix(f32, 1, 14, device)
+    rng = np.random.default_rng(14)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, n_prompt),
+                          dtype=torch.int64, device=device)[None]
+    max_seq = cfg.prefix_len + n_prompt + P14_NEW
+    with torch.no_grad():
+        t_pre = time.perf_counter()
+        logits, cache, _ = prefill(params, f32, seq, max_seq,
+                                   prefix_embeds=prefix)
+        _sync_any(on_card)
+        t_pre = time.perf_counter() - t_pre
+        if int(cache["pos"]) != cfg.prefix_len + n_prompt:
+            fail(f"internvl: prefill position {int(cache['pos'])}, not "
+                 f"{cfg.prefix_len} + {n_prompt}")
+        _, control, _ = prefill(params, f32, seq, max_seq)
+    ratios, controls, walls, _ = _held_decode(
+        "prefix", f32, params, seq, {"prefix_embeds": prefix},
+        (logits, cache), control, n_steps, on_card)
+    peak_i = _peak_gb(on_card)
+    del params, cache, control, logits
+    _release_any(on_card)
+    _check_held("internvl", ratios, controls,
+                "the decode from a prefill without the prefix")
+
+    params = init_params(cfg, seed=0, device=device)
+    per_token, launches = _plain_generate(
+        "internvl", cfg, params,
+        lambda i: {"prefix_embeds": _stub_prefix(cfg, 1, 20 + i, device)},
+        n_prompt, device)
+    del params
+    _release_any(on_card)
+    losses, step_s, peak_t = _train_check(
+        "internvl", cfg, cfg.prefix_len + P14_TRAIN_TEXT, device)
+    _release_any(on_card)
+    seconds = time.perf_counter() - t0
+    _say14(f"14a {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+           f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+           f"{cfg.head_dim}, {cfg.mlp_type} {cfg.d_ff}, vocab "
+           f"{cfg.vocab_size}, prefix {cfg.prefix_len}; {n / 1e9:.4f} B "
+           f"params; (i) f32: prefill of {cfg.prefix_len} + {n_prompt} "
+           f"{t_pre:.2f} s, decode steps {[round(w, 4) for w in walls]} s, "
+           f"worst step's gap {max(ratios):.4f} of the tolerance (must be <= "
+           f"1), without the prefix the least {min(controls):.1f} (must be > "
+           f"1), max_memory_allocated {peak_i}; (ii) bf16 PlainEngine "
+           f"{P14_REQ} x ({cfg.prefix_len} + {n_prompt} + {P14_NEW}) tokens, "
+           f"{per_token:.4f} s per generated token (prefill included), "
+           f"K1/K2 launches {launches}; (iii) train {P14_TRAIN_STEPS} steps "
+           f"bf16, batch {P14_TRAIN_BATCH} x ({cfg.prefix_len} + "
+           f"{P14_TRAIN_TEXT}), losses {[round(x, 4) for x in losses]}, "
+           f"median step {step_s:.4f} s, max_memory_allocated {peak_t}; "
+           f"{seconds:.1f} s", card)
+    return seconds
+
+
+def phase_whisper(cfg, card: str, device: str = "cuda",
+                  n_prompt: int = P14_PROMPT, n_steps: int = P14_STEPS):
+    """14b: ``whisper-small`` whole (12 encoder and 12 decoder layers,
+    ``encoder_seq`` frames; random weights from seed 0).  (i) In f32:
+    stub frames (``_stub_frames``' scale) and a prompt of ``n_prompt``
+    tokens prefilled, then ``n_steps`` greedy decode steps, each within
+    ``P14_TOL + P14_TOL * |oracle|`` of ``unembed(forward(..., frames))``;
+    every step returns the cache's own ``ck`` / ``cv`` tensors, bit-equal
+    to what the prefill stored; the same tokens decoded from a cache whose
+    ``ck`` / ``cv`` hold the encoding of frames drawn from another seed
+    outside the tolerance at every step.  (ii) ``PlainEngine.generate``
+    with ``encoder_frames``, 2 requests of ``n_prompt`` + 16 tokens in
+    bf16, no kernel launched.  (iii) ``train_loop`` 10 steps in bf16,
+    batch 2, ``seq_len`` 64.  Returns the seconds."""
+    from repro_torch.launch.train import _stub_frames
+    from repro_torch.models.model import count_params, init_params, prefill
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    f32 = _f32_model(cfg)
+    _peak_reset(on_card)
+    params = init_params(f32, seed=0, device=device)
+    n = count_params(params)
+    n_enc = sum(t.numel() for t in _leaves(params["encoder"]))
+    frames = _stub_frames(f32, 1, 14, device)
+    rng = np.random.default_rng(15)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, n_prompt),
+                          dtype=torch.int64, device=device)[None]
+    max_seq = n_prompt + P14_NEW
+    with torch.no_grad():
+        t_pre = time.perf_counter()
+        logits, cache, _ = prefill(params, f32, seq, max_seq,
+                                   encoder_frames=frames)
+        _sync_any(on_card)
+        t_pre = time.perf_counter() - t_pre
+        _, other, _ = prefill(params, f32, seq, max_seq,
+                              encoder_frames=_stub_frames(f32, 1, 15, device))
+    attn = [k for k in cache if k != "pos"]
+    cross = {(k, c): cache[k][c] for k in attn for c in ("ck", "cv")}
+    stored = {key: t.clone() for key, t in cross.items()}
+    control = {"pos": cache["pos"].clone()}
+    for k in attn:
+        control[k] = {"k": cache[k]["k"].clone(), "v": cache[k]["v"].clone(),
+                      "ck": other[k]["ck"], "cv": other[k]["cv"]}
+    del other
+    ratios, controls, walls, after = _held_decode(
+        "encdec", f32, params, seq, {"encoder_frames": frames},
+        (logits, cache), control, n_steps, on_card)
+    same = all(after[k][c] is cross[(k, c)] for k, c in cross)
+    equal = all(torch.equal(cross[key], stored[key]) for key in cross)
+    peak_i = _peak_gb(on_card)
+    del params, cache, control, after, cross, stored, logits
+    _release_any(on_card)
+    if not (same and equal):
+        fail(f"whisper: decode replaced ck/cv ({not same}) or changed them "
+             f"({not equal})")
+    _check_held("whisper", ratios, controls,
+                "the decode from another seed's cross K/V")
+
+    params = init_params(cfg, seed=0, device=device)
+    per_token, launches = _plain_generate(
+        "whisper", cfg, params,
+        lambda i: {"encoder_frames": _stub_frames(cfg, 1, 20 + i, device)},
+        n_prompt, device)
+    del params
+    _release_any(on_card)
+    losses, step_s, peak_t = _train_check("whisper", cfg, P14_TRAIN_TEXT,
+                                          device)
+    _release_any(on_card)
+    seconds = time.perf_counter() - t0
+    _say14(f"14b {cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} "
+           f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+           f"{cfg.head_dim}, {cfg.mlp_type} {cfg.d_ff}, vocab "
+           f"{cfg.vocab_size}, {cfg.encoder_seq} frames; {n / 1e9:.4f} B "
+           f"params ({n_enc / 1e9:.4f} B in the encoder); (i) f32: prefill "
+           f"of {cfg.encoder_seq} frames + {n_prompt} tokens {t_pre:.2f} s, "
+           f"decode steps {[round(w, 4) for w in walls]} s, worst step's gap "
+           f"{max(ratios):.4f} of the tolerance (must be <= 1), from another "
+           f"seed's cross K/V the least {min(controls):.1f} (must be > 1), "
+           f"ck/cv the same tensors and bit-equal after decode, "
+           f"max_memory_allocated {peak_i}; (ii) bf16 PlainEngine {P14_REQ} "
+           f"x ({n_prompt} + {P14_NEW}) tokens, {per_token:.4f} s per "
+           f"generated token (prefill and encoder included), K1/K2 launches "
+           f"{launches}; (iii) train {P14_TRAIN_STEPS} steps bf16, batch "
+           f"{P14_TRAIN_BATCH} x {P14_TRAIN_TEXT}, losses "
+           f"{[round(x, 4) for x in losses]}, median step {step_s:.4f} s, "
+           f"max_memory_allocated {peak_t}; {seconds:.1f} s", card)
+    return seconds
+
+
+def phase_prefixed_engine(cfg, card: str, device: str = "cuda",
+                          n_prompt: int = P14_ENGINE_PROMPT,
+                          n_new: int = P14_ENGINE_NEW):
+    """14c: K1/K2 behind a prefixed prefill through the engine.  ``cfg``
+    (a test configuration, not a published model) runs in a
+    ``SliceMoEEngine`` with phase 5's settings (MAT84, Cache-Prior + DBSC
+    with quantized execution, PCW, miss target 0.05, a quarter of the
+    store cached): one request of ``cfg.prefix_len`` stub prefix
+    embeddings and ``n_prompt`` tokens through ``prefill(tokens,
+    prefix_embeds=...)``, then ``decode(first, n_new)``, with the launch
+    counts set to 0 just before and read just after.  Hard checks: K1
+    and K2 each (MoE layers) x (1 + ``n_new``) times, the cache position
+    after prefill ``prefix_len + n_prompt``, every logit finite.  Returns
+    the seconds."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import SliceMoEEngine
+    from repro_torch.launch.train import _stub_prefix
+    from repro_torch.models.model import init_params
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    est = _device_bytes(cfg)
+    n_moe = _n_moe_layers(cfg)
+    store_bytes = _store_bytes(cfg, MatConfig(8, 4))
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    max_seq = cfg.prefix_len + n_prompt + n_new + 1
+    engine = SliceMoEEngine(cfg, params, _phase7_engine_config(
+        {"cache_bytes": store_bytes / 4}, max_seq=max_seq), device=device)
+    del params
+    _sync_any(on_card)
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(16)
+    tokens = rng.integers(0, cfg.vocab_size, (1, n_prompt)).astype(np.int32)
+    prefix = _stub_prefix(cfg, 1, 16, device)
+
+    def run():
+        t1 = time.perf_counter()
+        logits = engine.prefill(tokens, prefix_embeds=prefix)
+        pos = int(engine.kv_cache["pos"])
+        finite = bool(torch.isfinite(logits).all())
+        t_pre = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out, metrics = engine.decode(torch.argmax(logits, dim=-1), n_new)
+        _sync_any(on_card)
+        return pos, finite, out, metrics, t_pre, time.perf_counter() - t1
+
+    (pos, finite, out, metrics, t_pre, t_dec), launches = _counted(run)
+    want = n_moe * (1 + n_new)
+    cs = metrics["cache_stats"]
+    peak = _peak_gb(on_card)
+    seconds = time.perf_counter() - t0
+    _say14(f"14c {cfg.name} with prefix_len={cfg.prefix_len}: "
+           f"{cfg.n_layers} layers, {est['params'] / 1e9:.3f} B params "
+           f"({est['float_bytes'] / 1e9:.2f} GB bf16) and "
+           f"{est['amat_bytes'] / 1e9:.2f} GB of AMAT codes, scales, "
+           f"zero-points and output-major wo codes (from the shapes); "
+           f"1 request of {cfg.prefix_len} + {n_prompt} tokens, then "
+           f"{n_new} decoded: cache position {pos} after prefill, K1/K2 "
+           f"launches {launches} (want {n_moe} x {1 + n_new} = {want} each), "
+           f"every logit finite {finite and metrics['logits_finite']}, "
+           f"decode MSB misses {cs['msb_misses']} of "
+           f"{cs['msb_hits'] + cs['msb_misses']}; engine built in "
+           f"{t_build:.2f} s, prefill {t_pre:.2f} s, decode {t_dec:.2f} s "
+           f"({t_dec / n_new:.4f} s a token); max_memory_allocated {peak} "
+           f"(shapes: {(est['float_bytes'] + est['amat_bytes']) / 1e9:.2f} "
+           f"GB); {seconds:.1f} s", card)
+    del engine
+    _release_any(on_card)
+    if pos != cfg.prefix_len + n_prompt:
+        fail(f"engine: cache position {pos} after prefill, not "
+             f"{cfg.prefix_len} + {n_prompt}")
+    if on_card and (launches.get("k_major") != want
+                    or launches.get("output_major") != want
+                    or sum(launches.values()) != 2 * want):
+        fail(f"engine: K1/K2 launches {launches}, not {want} each")
+    if not (finite and metrics["logits_finite"]):
+        fail("engine: non-finite logits")
+    if out.shape != (1, n_new):
+        fail(f"engine: decoded {tuple(out.shape)}, not (1, {n_new})")
+    return seconds
+
+
+def phase_prefix_encdec(device: str = "cuda", internvl=None, whisper=None,
+                        engine=None, n_prompt: int = P14_PROMPT,
+                        engine_prompt: int = P14_ENGINE_PROMPT):
+    """Phase 14 (after 13, before 6; one model at a time, each released
+    before the next is built): 14a ``phase_internvl``, 14b
+    ``phase_whisper``, 14c ``phase_prefixed_engine``.  The configs
+    default to the full-width ones (the engine's ``qwen15-moe-a2.7b`` cut
+    to ``P14_ENGINE_LAYERS`` layers with ``prefix_len`` set); pass
+    reduced ones to rehearse on the CPU.  Fails on the card past
+    ``P14_BUDGET_S``.  Returns the seconds."""
+    from repro_torch.configs.base import get_config
+
+    on_card = device == "cuda"
+    card = smi_name_power() if on_card else "none (CPU)"
+    t0 = time.perf_counter()
+    if engine is None:
+        full = get_config(P14_ENGINE)
+        engine = dataclasses.replace(full, n_layers=P14_ENGINE_LAYERS,
+                                     prefix_len=P14_ENGINE_PREFIX)
+        _say14(f"reduced: internvl2-1b and whisper-small whole; 14c is a "
+               f"test configuration built on the reference's pass-through, "
+               f"not a published model: {full.name} at its published widths "
+               f"with its depth cut to {engine.n_layers} of {full.n_layers} "
+               f"layers and prefix_len={engine.prefix_len} set by "
+               f"dataclasses.replace", card)
+    t_a = phase_internvl(internvl or get_config(P14_INTERNVL), card, device,
+                         n_prompt=n_prompt)
+    t_b = phase_whisper(whisper or get_config(P14_WHISPER), card, device,
+                        n_prompt=n_prompt)
+    t_c = phase_prefixed_engine(engine, card, device, n_prompt=engine_prompt)
+    seconds = time.perf_counter() - t0
+    _say14(f"14a {t_a:.1f} s, 14b {t_b:.1f} s, 14c {t_c:.1f} s: phase 14 "
+           f"adds {seconds:.1f} s to the run (host clock; budget "
+           f"{P14_BUDGET_S:.0f} s)", card)
+    if on_card and seconds > P14_BUDGET_S:
+        fail(f"phase 14 took {seconds:.1f} s, over its {P14_BUDGET_S:.0f} s "
              "budget")
     return seconds
 
@@ -3893,6 +4361,8 @@ def main() -> None:
     phase_archs()
     _release()
     phase_ssm_archs()
+    _release()
+    phase_prefix_encdec()
     _release()
     small, trained = phase_train_serve(cfg)
     _release()

@@ -1,4 +1,6 @@
-"""Model configurations the port builds: the paper's eval models, the
-dense ``smollm-360m``, ``gemma-7b``, ``nemotron-4-15b``, ``starcoder2-3b``,
-the MoE ``llama4`` Scout and Maverick, the SSM ``mamba2-2.7b`` and the
-hybrid ``jamba-v0.1-52b``."""
+"""Model configurations the port builds: every configuration of the
+reference, that is the ten assigned architectures (``base.ARCH_IDS``:
+dense, MoE, SSM, hybrid, the ``internvl2-1b`` VLM backbone with its
+prefix-embedding stub and the ``whisper-small`` encoder-decoder with its
+frame stub), the paper's two eval models (``base.REPRO_IDS``) and the
+full-width ``qwen15-moe-a2.7b``."""

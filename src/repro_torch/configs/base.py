@@ -3,15 +3,18 @@
 Each ported configuration is a ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG``.  Field names and defaults equal the reference dataclass, so a
 config compares field by field with its JAX counterpart.  The ported
-configurations are the two paper-reproduction MoE models, the full-width
-``qwen15-moe-a2.7b``, the dense ``smollm-360m``, ``gemma-7b``,
+configurations are every one of the reference's: the ten assigned
+architectures (``ARCH_IDS``: the dense ``smollm-360m``, ``gemma-7b``,
 ``nemotron-4-15b`` and ``starcoder2-3b``, the MoE
 ``llama4-scout-17b-a16e`` and ``llama4-maverick-400b-a17b``, the SSM
-``mamba2-2.7b`` and the hybrid ``jamba-v0.1-52b``; prefix embeddings and
-encoders are not ported yet (``models/model.py::_check_supported``).
-``reduced()`` derives the CPU-smoke-test variant (2 layers, or two
-periods of a longer pattern; d_model <= 256, <= 4 experts, an SSM state
-of <= 16 with heads of 32 and chunks of 32) of the same family.
+``mamba2-2.7b``, the hybrid ``jamba-v0.1-52b``, the VLM backbone
+``internvl2-1b`` with its 256-embedding prefix stub and the
+encoder-decoder ``whisper-small`` with its frame stub), the two
+paper-reproduction MoE models (``REPRO_IDS``) and the full-width
+``qwen15-moe-a2.7b``.  ``reduced()`` derives the CPU-smoke-test variant
+(2 layers, or two periods of a longer pattern; d_model <= 256, <= 4
+experts, an SSM state of <= 16 with heads of 32 and chunks of 32, <= 2
+encoder layers over <= 16 frames, a prefix of <= 8) of the same family.
 """
 
 from __future__ import annotations
@@ -169,6 +172,19 @@ class ModelConfig:
         )
 
 
+ARCH_IDS = (
+    "internvl2-1b",
+    "llama4-maverick-400b-a17b",
+    "jamba-v0.1-52b",
+    "starcoder2-3b",
+    "llama4-scout-17b-a16e",
+    "nemotron-4-15b",
+    "gemma-7b",
+    "smollm-360m",
+    "mamba2-2.7b",
+    "whisper-small",
+)
+
 # Paper-reproduction MoE configs (DeepSeek-V2-Lite / Qwen1.5-MoE structure).
 REPRO_IDS = ("deepseek-v2-lite-repro", "qwen15-moe-repro")
 
@@ -177,3 +193,7 @@ def get_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.CONFIG
+
+
+def list_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

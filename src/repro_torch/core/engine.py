@@ -491,12 +491,15 @@ class PersistentEngine:
 
     # ------------------------------------------------------------- prefill
     def run_prefill(self, tokens, *, label: Optional[str] = None,
-                    inflight: int = 0, tenant: str = "default"):
+                    inflight: int = 0, tenant: str = "default",
+                    **model_kwargs):
         """Prefill one request against the warm shared cache.
 
         Returns ``(logits, kv_cache, info)``.  ``label`` archives the
         request's prefill hit/miss counters as a stats epoch; ``inflight``
-        (sequences decoding) scales the hotness boundary decay.
+        (sequences decoding) scales the hotness boundary decay;
+        ``model_kwargs`` (``prefix_embeds``, ``encoder_frames``) go to
+        ``MDL.prefill``.
         """
         self._begin_request(label, inflight, tenant=tenant)
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
@@ -506,7 +509,7 @@ class PersistentEngine:
                 self.qparams, self.cfg, tokens, self.ecfg.max_seq,
                 collect_trace=True, mat=self.ecfg.mat,
                 quant_execution=self.ecfg.policy.quant_execution,
-                policy=self._prefill_policy)
+                policy=self._prefill_policy, **model_kwargs)
         with record_function("slicemoe.prefill_charge"):
             keys = ("ids", "gates") + (("active",) if "active" in aux["moe"]
                                        else ())
@@ -659,30 +662,34 @@ class PersistentEngine:
         return state
 
     def _decode(self, token: torch.Tensor, kv_cache: dict, alpha: float,
-                token_mask: Optional[torch.Tensor]):
+                token_mask: Optional[torch.Tensor], **model_kwargs):
         # The reference feeds alpha as an f32 scalar; round it the same way.
         return MDL.decode_step(
             self.qparams, self.cfg, token, kv_cache, collect_trace=True,
             policy=self.ecfg.policy, policy_state=self._policy_state(),
             alpha=float(np.float32(alpha)), mat=self.ecfg.mat,
             token_mask=token_mask,
-            quant_execution=self.ecfg.policy.quant_execution)
+            quant_execution=self.ecfg.policy.quant_execution,
+            **model_kwargs)
 
     def decode_batch(self, token: torch.Tensor, kv_cache: dict, *,
                      alpha: float = 0.0,
                      slot_active: Optional[np.ndarray] = None,
-                     slot_tenants: Optional[list] = None):
+                     slot_tenants: Optional[list] = None,
+                     **model_kwargs):
         """One batched decode step for the scheduler.
 
         ``token``: [B] (padding slots carry an arbitrary token);
         ``slot_active``: [B] bool — padding slots are masked out of MoE
-        routing and of cache/cost accounting.
+        routing and of cache/cost accounting; ``model_kwargs`` go to
+        ``MDL.decode_step``.
         Returns ``(logits [B, V], kv_cache, StepCharge)``.
         """
         mask = None if slot_active is None else torch.as_tensor(
             np.asarray(slot_active, bool), device=self.device)
         with record_function("slicemoe.decode_forward"):
-            logits, kv_cache, aux = self._decode(token, kv_cache, alpha, mask)
+            logits, kv_cache, aux = self._decode(token, kv_cache, alpha, mask,
+                                                 **model_kwargs)
         with record_function("slicemoe.decode_charge"):
             charge = self.charge_decode_step(aux, slot_active=slot_active,
                                              slot_tenants=slot_tenants)
@@ -1626,15 +1633,20 @@ class SliceMoEEngine(PersistentEngine):
         self.controller = self.new_controller()
         self.alpha = 0.0
 
-    def prefill(self, tokens):
-        """Run prefill; simulate layer-streaming cache fills; apply warmup."""
-        logits, self.kv_cache, info = self.run_prefill(tokens)
+    def prefill(self, tokens, **model_kwargs):
+        """Run prefill; simulate layer-streaming cache fills; apply warmup.
+        ``model_kwargs`` (``prefix_embeds``, ``encoder_frames``) go to the
+        model's ``prefill``."""
+        logits, self.kv_cache, info = self.run_prefill(tokens,
+                                                       **model_kwargs)
         self.warmup_summary = info["warmup"]
         self.prefill_snapshot = info["snapshot"]
         return logits
 
-    def decode(self, first_token: torch.Tensor, n_steps: int):
-        """Greedy decode ``n_steps`` tokens with full offload simulation.
+    def decode(self, first_token: torch.Tensor, n_steps: int,
+               **model_kwargs):
+        """Greedy decode ``n_steps`` tokens with full offload simulation;
+        ``model_kwargs`` go to every ``decode_step``.
 
         Returns (tokens [B, n_steps], metrics dict); ``logits_finite``
         says whether every logit of every step was finite.
@@ -1645,7 +1657,7 @@ class SliceMoEEngine(PersistentEngine):
         finite = torch.ones((), dtype=torch.bool, device=self.device)
         for _ in range(n_steps):
             logits, self.kv_cache, aux = self._decode(
-                token, self.kv_cache, self.alpha, None)
+                token, self.kv_cache, self.alpha, None, **model_kwargs)
             finite &= torch.isfinite(logits).all()
             token = torch.argmax(logits, dim=-1)
             tokens_out.append(token)

@@ -2,10 +2,13 @@
 ``python -m repro_torch.launch.train --arch qwen15-moe-repro ...``
 
 Trains on one device, ``cuda`` unless ``--device`` says otherwise, on the
-synthetic zipf-markov stream.  The reference's ``--mesh pod|multipod``
-lowers onto a TPU pod mesh and raises here (ROADMAP.md queue 1, 'Launch
-and dry-run, last'); architectures with prefix or encoder stubs raise in
-the model (queue 1, 'remaining architectures').
+synthetic zipf-markov stream.  A prefix config (``internvl2-1b``) trains
+on the text after ``prefix_len`` tokens are cut off each batch, behind
+stub patch embeddings; an encoder-decoder (``whisper-small``) on stub
+encoder frames; both stubs are numpy draws seeded by the step, scaled by
+0.02, as the reference draws them.  The reference's ``--mesh
+pod|multipod`` lowers onto a TPU pod mesh and raises here (ROADMAP.md
+queue 1, 'Launch and dry-run, last').
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as CKPT
@@ -52,6 +56,14 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
         inputs = {k: torch.as_tensor(batch[k], dtype=torch.int64,
                                      device=dev)
                   for k in ("tokens", "labels")}
+        if cfg.prefix_len:
+            inputs["tokens"] = inputs["tokens"][:, :-cfg.prefix_len]
+            inputs["labels"] = inputs["labels"][:, :-cfg.prefix_len]
+            inputs["prefix_embeds"] = _stub_prefix(
+                cfg, global_batch, batch["step"], dev)
+        if cfg.is_encdec:
+            inputs["encoder_frames"] = _stub_frames(
+                cfg, global_batch, batch["step"], dev)
         params, opt_state, metrics = step_fn(params, opt_state, inputs)
         logged = step % log_every == 0 or step == steps - 1
         if collect_history or logged:
@@ -66,6 +78,27 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     if ckpt_dir:
         CKPT.save(ckpt_dir, {"params": params}, step=steps)
     return params, opt_state, history
+
+
+def _stub(cfg, shape, seed, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    draw = rng.standard_normal(shape, np.float32) * 0.02
+    return torch.from_numpy(draw).to(device=resolve_device(device),
+                                     dtype=MDL._dt(cfg))
+
+
+def _stub_prefix(cfg, batch, step, device=None) -> torch.Tensor:
+    """Stand-in patch embeddings [batch, prefix_len, d_model] for
+    ``step``, in the model dtype."""
+    return _stub(cfg, (batch, cfg.prefix_len, cfg.d_model), (step, 0xF00D),
+                 device)
+
+
+def _stub_frames(cfg, batch, step, device=None) -> torch.Tensor:
+    """Stand-in encoder frames [batch, encoder_seq, d_model] for
+    ``step``, in the model dtype."""
+    return _stub(cfg, (batch, cfg.encoder_seq, cfg.d_model), (step, 0xFEED),
+                 device)
 
 
 def main():

@@ -7,8 +7,9 @@ single-token decode attention against a KV cache (the same window and
 soft-cap), and the four MLPs: SwiGLU (llama family), GeGLU (gemma),
 squared ReLU (nemotron) and GELU (starcoder2).  Scores, softmax and the
 value mix run in f32 as in the reference; the GELUs are the reference's
-tanh approximation.  Cross-attention (encoder-decoder) waits for ROADMAP.md
-queue 1, 'remaining architectures'.
+tanh approximation.  The encoder's self-attention and the decoder's
+cross-attention are ``attention`` with ``causal=False``
+(``models/model.py``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,8 @@
-"""Model stack for the ``dense``, ``moe``, ``ssm`` and ``hybrid``
-architectures (port of ``repro.models.model``).
+"""Model stack for all six architecture families (port of
+``repro.models.model``): ``dense`` and ``moe`` decoders, ``ssm`` stacks
+(Mamba2), ``hybrid`` interleaves (Jamba), the ``vlm`` backbone with its
+embedding-prefix stub (InternVL2) and the ``audio`` encoder-decoder with
+its frame stub (Whisper).
 
 Parameters keep the reference's tree and its stacked ``[n_periods, ...]``
 layout (``blocks/pos{i}/...``), so :mod:`repro_torch.bridge` maps the JAX
@@ -11,6 +14,27 @@ position's mixer is attention (``attn``) or the Mamba2 SSD mixer
 ``mamba2-2.7b`` is a pattern of one SSM position without FFN; Jamba's is
 8 long, attention at position 3, MoE FFNs at the odd positions.
 
+The two stubs stand in for frontends the system does not model.  The
+VLM's vision encoder and projector are replaced by ``prefix_embeds``
+[B, prefix_len, d_model], precomputed patch embeddings that
+``embed_inputs`` puts before the token embeddings when ``cfg.prefix_len``
+is set and the argument is given (without it a prefix config runs on
+text only); ``lm_loss`` drops the prefix positions, and ``prefill``
+counts them in the cache position.  Whisper's mel and conv frontend is
+replaced by ``encoder_frames`` [B, encoder_seq, d_model]: ``_encode``
+runs them, cast to the model dtype, through ``encoder_layers``
+non-causal attention + dense blocks with RoPE and a final norm; every
+decoder attention block then adds a cross-attention (``c_``-prefixed
+leaves, ``_cross_attn_block``: no RoPE, no mask) over K/V projected from
+the normed encoder output (``_enc_kv``).  ``prefill`` stores those
+cross K/V in the cache as ``ck`` / ``cv`` [n_periods, B, encoder_seq,
+Hkv, hd] in the model dtype (int8 KV too), and ``decode_step`` reads
+them from there; its ``encoder_frames`` keyword is accepted and unused,
+as in the reference.  An encoder-decoder config without frames raises a
+``ValueError`` in ``forward`` and ``prefill``, where the reference
+asserts.  The reference builds ``c_bq`` / ``c_bk`` / ``c_bv`` leaves
+under ``qkv_bias`` and never reads them; so does the port.
+
 Public entry points: ``param_shapes`` / ``init_params``, ``embed_inputs``,
 ``forward`` (full sequence, differentiable over float experts; on AMAT
 experts with ``mat`` and, with ``quant_execution``, through the batched
@@ -20,7 +44,7 @@ load-balance loss), ``unembed``, ``init_cache``, ``prefill``,
 engine's per-position ``use_lsb`` / ``gate_override`` / ``policy_state``),
 ``count_params``.  The MoE aux of a pattern that mixes dense and MoE FFNs
 comes from the MoE positions only, stacked ``[n_periods, n_moe_pos,
-...]``.  Every attention takes the config's ``logit_softcap``;
+...]``.  Every self-attention takes the config's ``logit_softcap``;
 ``use_window`` (or ``always_swa``) limits it to the config's
 ``sliding_window``, and a windowed decode step with aligned positions
 reads only the last ``sliding_window`` cache rows.  ``tie_embeddings``
@@ -34,16 +58,18 @@ dtype before each decode attention.  An SSM position's cache entry holds
 ``A_log``, ``D`` and ``dt_bias`` leaves stay f32 in a bf16 model, as in
 the reference.  The reference wraps each period of ``forward`` in
 ``jax.checkpoint`` (remat); that changes memory, not values, and is not
-ported.
+ported.  ``ring_kv`` and ``quantized_serve`` are not ported yet and
+raise (ROADMAP.md queue 1, 'remaining architectures').
 
 Departures from the functional reference: ``decode_step`` writes the new
 KV row, and an SSM position's new ``state`` and ``conv`` window, into the
 cache tensors in place and returns a dict holding those same tensors
-(with ``pos`` advanced), which saves device memory and keeps the buffers
-where a captured decode step would find them; ``init_params`` draws each
-stacked leaf one period at a time (device memory again), and draws
-``conv_w`` from the port's generator (the reference seeds it from
-``hash(name)``, which depends on the process).
+(with ``pos`` advanced; ``ck`` / ``cv`` are returned as they came),
+which saves device memory and keeps the buffers where a captured decode
+step would find them; ``init_params`` draws each stacked leaf one period
+at a time (device memory again), and draws ``conv_w`` from the port's
+generator (the reference seeds it from ``hash(name)``, which depends on
+the process).
 """
 
 from __future__ import annotations
@@ -70,15 +96,6 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type!r} architecture is not ported "
-            "yet; the port builds 'dense', 'moe', 'ssm' and 'hybrid' "
-            "(ROADMAP.md queue 1, 'remaining architectures')")
-    if cfg.prefix_len or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix embeddings and encoders are not ported yet "
-            "(ROADMAP.md queue 1, 'remaining architectures')")
     if cfg.ring_kv or cfg.quantized_serve:
         raise NotImplementedError(
             f"{cfg.name}: ring KV and quantized_serve are not ported yet "
@@ -92,7 +109,7 @@ def _window(cfg: ModelConfig, use_window: bool) -> Optional[int]:
 # ==========================================================================
 # Parameter shapes / init
 # ==========================================================================
-def _attn_shapes(cfg: ModelConfig) -> dict:
+def _attn_shapes(cfg: ModelConfig, cross: bool = False) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sh = {
         "wq": (d, h * hd),
@@ -105,12 +122,17 @@ def _attn_shapes(cfg: ModelConfig) -> dict:
         sh["bq"] = (h * hd,)
         sh["bk"] = (kv * hd,)
         sh["bv"] = (kv * hd,)
+    if cross:
+        sh = {("c_" + k if k != "norm" else "c_norm"): v
+              for k, v in sh.items()}
     return sh
 
 
-def _block_shapes(cfg: ModelConfig, spec: BlockSpec) -> dict:
+def _block_shapes(cfg: ModelConfig, spec: BlockSpec, decoder: bool) -> dict:
     if spec.mixer == "attn":
         sh = dict(_attn_shapes(cfg))
+        if decoder and cfg.is_encdec:
+            sh.update(_attn_shapes(cfg, cross=True))
     else:
         if cfg.ssm is None:
             raise ValueError(f"{cfg.name}: an SSM position needs an SSMCfg "
@@ -134,7 +156,8 @@ def _stack(shapes: dict, n: int) -> dict:
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of shape-tuples mirroring the param tree."""
     _check_supported(cfg)
-    blocks = {f"pos{i}": _stack(_block_shapes(cfg, spec), cfg.n_periods)
+    blocks = {f"pos{i}": _stack(_block_shapes(cfg, spec, decoder=True),
+                                cfg.n_periods)
               for i, spec in enumerate(cfg.block_pattern)}
     v_embed = cfg.padded_vocab if cfg.tie_embeddings else cfg.vocab_size
     sh = {
@@ -144,6 +167,11 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         sh["unembed"] = (cfg.d_model, cfg.padded_vocab)
+    if cfg.is_encdec:
+        enc_block = _block_shapes(cfg, BlockSpec("attn", "dense"),
+                                  decoder=False)
+        sh["encoder"] = {"blocks": _stack(enc_block, cfg.encoder_layers),
+                         "final_norm": (cfg.d_model,)}
     return sh
 
 
@@ -164,7 +192,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     cannot reproduce ``jax.random``'s numbers, so parity tests carry JAX
     parameters across with :mod:`repro_torch.bridge`).
 
-    An SSM mixer's leaves get the reference's special inits: ``A_log =
+    An encoder-decoder's ``encoder`` subtree and cross-attention leaves
+    follow the same rule.  An SSM mixer's leaves get the reference's
+    special inits: ``A_log =
     log(linspace(1, 16, H))``, ``D = 1`` and ``dt_bias = -2``, all three
     f32 in any model dtype, and ``conv_w`` normal times 0.2.
 
@@ -243,18 +273,32 @@ def _attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def _self_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor, window: Optional[int]):
-    """Causal self-attention over the whole sequence with its residual;
-    returns (x, (k, v)) with ``k``/``v`` after RoPE (the cache rows)."""
+def _self_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     causal: bool, positions: torch.Tensor,
+                     window: Optional[int]):
+    """Self-attention over the whole sequence (causal in the decoder, not
+    in the encoder) with its residual; returns (x, (k, v)) with ``k``/``v``
+    after RoPE (the cache rows)."""
     b, s, _ = x.shape
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(p, h, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.attention(q, k, v, causal=True, sliding_window=window,
+    o = L.attention(q, k, v, causal=causal, sliding_window=window,
                     logit_softcap=cfg.logit_softcap)
     return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
+
+
+def _cross_attn_block(p: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                      enc_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A decoder block's cross-attention over the encoder's K/V (no RoPE,
+    no mask) with its residual."""
+    h = L.rms_norm(x, p["c_norm"], cfg.norm_eps)
+    b, s, _ = h.shape
+    q = (h @ p["c_wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    o = L.attention(q, enc_k, enc_v, causal=False,
+                    logit_softcap=cfg.logit_softcap)
+    return x + o.reshape(b, s, -1) @ p["c_wo"]
 
 
 def _ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
@@ -297,18 +341,76 @@ def _stack_aux(per_period: list) -> dict:
 
 
 # ==========================================================================
+# Encoder (whisper)
+# ==========================================================================
+def _encode(params: dict, cfg: ModelConfig,
+            frames: torch.Tensor) -> torch.Tensor:
+    """frames: [B, enc_seq, d_model], precomputed frontend embeddings (a
+    tensor or an array), cast to the model dtype; returns the encoder's
+    output after its final norm."""
+    enc = params["encoder"]
+    x = torch.as_tensor(frames, device=enc["final_norm"].device).to(_dt(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    spec = BlockSpec("attn", "dense")
+    for layer in range(cfg.encoder_layers):
+        p = _index(enc["blocks"], layer)
+        x, _ = _self_attn_block(p, x, cfg, causal=False, positions=positions,
+                                window=None)
+        x, _ = _ffn_block(p, x, cfg, spec, collect=False)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _enc_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """One decoder block's cross K/V from the normed encoder output."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ p["c_wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["c_wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _encoder_output(params: dict, cfg: ModelConfig,
+                    encoder_frames) -> Optional[torch.Tensor]:
+    """``_encode`` of the frames for an encoder-decoder (which must have
+    them), else None."""
+    if not cfg.is_encdec:
+        return None
+    if encoder_frames is None:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder needs encoder_frames [B, "
+            "encoder_seq, d_model]")
+    return _encode(params, cfg, encoder_frames)
+
+
+# ==========================================================================
 # Full-sequence pieces
 # ==========================================================================
-def embed_inputs(params: dict, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(_dt(cfg))
+def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 prefix_embeds=None) -> torch.Tensor:
+    """Token embeddings in the model dtype, after ``prefix_embeds``
+    [B, prefix_len, d] (a tensor or an array, cast to the model dtype)
+    when the config has a prefix and the argument is given.
+
+    The reference's ``onehot_embed`` computes the lookup as a one-hot
+    product, a sharding knob for a vocabulary split over devices; the
+    product adds one nonzero term per row, so it picks the same row
+    exactly, and the port keeps the gather for that setting too.
+    """
+    x = params["embed"][tokens].to(_dt(cfg))
+    if cfg.prefix_len and prefix_embeds is not None:
+        prefix = torch.as_tensor(prefix_embeds, device=x.device)
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return x
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embeds=None, encoder_frames=None,
             collect_trace: bool = False, use_window: bool = False,
             mat=None, quant_execution: Optional[bool] = None):
-    """Full-sequence forward.  tokens: [B, S] int.  Returns (hidden
-    [B, S, d] after the final norm, aux): ``aux["aux_loss"]`` sums the MoE
+    """Full-sequence forward.  tokens: [B, S_text] int; ``prefix_embeds``
+    [B, prefix_len, d] for a prefix config, ``encoder_frames`` [B,
+    enc_seq, d] for an encoder-decoder (required there).  Returns (hidden
+    [B, S, d] after the final norm, S counting the prefix, aux):
+    ``aux["aux_loss"]`` sums the MoE
     layers' load-balance losses; ``aux["moe"]`` holds their ``aux_loss``
     and ``dropped_frac`` (with ``collect_trace`` their whole aux: ids,
     gates) stacked ``[n_periods, n_moe_pos, ...]``.  AMAT experts need
@@ -316,9 +418,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     kernels.  Differentiable over float weights unless run under
     ``torch.no_grad()``."""
     _check_supported(cfg)
-    x = embed_inputs(params, cfg, tokens)
+    x = embed_inputs(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     window = _window(cfg, use_window)
+    enc_out = _encoder_output(params, cfg, encoder_frames)
     aux_rows = []
     for period in range(cfg.n_periods):
         period_params = _index(params["blocks"], period)
@@ -326,7 +429,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         for i, spec in enumerate(cfg.block_pattern):
             p = period_params[f"pos{i}"]
             if spec.mixer == "attn":
-                x, _ = _self_attn_block(p, x, cfg, positions, window)
+                x, _ = _self_attn_block(p, x, cfg, causal=True,
+                                        positions=positions, window=window)
+                if enc_out is not None:
+                    ek, ev = _enc_kv(p, enc_out, cfg)
+                    x = _cross_attn_block(p, x, ek, ev, cfg)
             else:
                 x = _ssm_block(p, x, cfg)
             x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
@@ -355,12 +462,18 @@ def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, *, aux_weight: float = 0.01):
+            labels: torch.Tensor, *, prefix_embeds=None,
+            encoder_frames=None, aux_weight: float = 0.01):
     """Mean next-token cross-entropy over the flattened token stream,
     plus ``aux_weight`` times the load-balance loss; returns (loss, aux).
-    The logits are formed ``LOSS_CHUNKS`` token chunks at a time (one
-    chunk when the token count does not divide), never as one [T, V]."""
-    h, aux = forward(params, cfg, tokens)
+    The prefix positions are dropped before the loss (``labels`` cover
+    the text only).  The logits are formed ``LOSS_CHUNKS`` token chunks
+    at a time (one chunk when the token count does not divide), never as
+    one [T, V]."""
+    h, aux = forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                     encoder_frames=encoder_frames)
+    if cfg.prefix_len and prefix_embeds is not None:
+        h = h[:, cfg.prefix_len:]
     d = h.shape[-1]
     hf = h.reshape(-1, d)
     lf = labels.reshape(-1)
@@ -410,11 +523,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     """Decode-state tree, stacked over periods per pattern position: an
     attention position's ``k`` / ``v`` [n_periods, B, S, Hkv, hd] (with
     ``kv_dtype="int8"`` also ``k_scale`` / ``v_scale`` [n_periods, B, S,
-    Hkv] f32), an SSM position's ``state`` [n_periods, B, H, head_dim,
-    d_state] f32 and ``conv`` [n_periods, B, d_conv - 1, conv_channels]."""
+    Hkv] f32; an encoder-decoder's also ``ck`` / ``cv`` [n_periods, B,
+    encoder_seq, Hkv, hd] in ``dtype``, int8 KV or not), an SSM
+    position's ``state`` [n_periods, B, H, head_dim, d_state] f32 and
+    ``conv`` [n_periods, B, d_conv - 1, conv_channels]."""
+    return _init_cache(cfg, batch, max_seq, dtype or _dt(cfg),
+                       resolve_device(device), cfg.encoder_seq)
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                dev: torch.device, encoder_seq: int) -> dict:
+    """``init_cache`` with the cross K/V ``encoder_seq`` rows long (the
+    frames' length, in ``prefill``)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
-    dtype = dtype or _dt(cfg)
     int8_kv = cfg.kv_dtype == "int8"
     cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
     kv_shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -438,6 +559,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
             for name in ("k_scale", "v_scale"):
                 entry[name] = torch.zeros(kv_shape[:-1], dtype=torch.float32,
                                           device=dev)
+        if cfg.is_encdec:
+            cross_shape = (cfg.n_periods, batch, encoder_seq,
+                           cfg.n_kv_heads, cfg.head_dim)
+            for name in ("ck", "cv"):
+                entry[name] = torch.zeros(cross_shape, dtype=dtype,
+                                          device=dev)
         cache[f"pos{i}"] = entry
     return cache
 
@@ -447,21 +574,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # ==========================================================================
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            max_seq: int, *, collect_trace: bool = False,
-            use_window: bool = False, mat=None,
+            max_seq: int, *, prefix_embeds=None, encoder_frames=None,
+            collect_trace: bool = False, use_window: bool = False, mat=None,
             quant_execution: Optional[bool] = None, policy=None):
     """Forward over the prompt, returning (last-token logits, cache, aux).
+    The cache position counts the prefix; an encoder-decoder's cache
+    holds each decoder block's cross K/V of ``encoder_frames``.
 
     ``policy``: optional *state-free* RoutingPolicy (cumsum) to route the
     prompt with; compute stays high-bit for every routed expert.
     """
-    x = embed_inputs(params, cfg, tokens)
+    x = embed_inputs(params, cfg, tokens, prefix_embeds)
     b, s, d = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)[None, :]
     window = _window(cfg, use_window)
+    enc_out = _encoder_output(params, cfg, encoder_frames)
 
-    cache = init_cache(cfg, b, max_seq, device=dev)
+    cache = _init_cache(cfg, b, max_seq, _dt(cfg), dev,
+                        cfg.encoder_seq if enc_out is None
+                        else enc_out.shape[1])
     aux_rows = []
     for period in range(cfg.n_periods):
         period_params = _index(params["blocks"], period)
@@ -477,7 +609,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 entry["state"][period] = state
                 entry["conv"][period] = tail.to(entry["conv"].dtype)
             else:
-                x, (k, v) = _self_attn_block(p, x, cfg, positions, window)
+                x, (k, v) = _self_attn_block(p, x, cfg, causal=True,
+                                             positions=positions,
+                                             window=window)
                 if cfg.kv_dtype == "int8":
                     for name, t in (("k", k), ("v", v)):
                         codes, scale = _quant_kv(t)
@@ -490,6 +624,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 else:
                     entry["k"][period, :, :s] = k.to(entry["k"].dtype)
                     entry["v"][period, :, :s] = v.to(entry["v"].dtype)
+                if enc_out is not None:
+                    ek, ev = _enc_kv(p, enc_out, cfg)
+                    x = _cross_attn_block(p, x, ek, ev, cfg)
+                    entry["ck"][period] = ek.to(entry["ck"].dtype)
+                    entry["cv"][period] = ev.to(entry["cv"].dtype)
             x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
                                 mat=mat, quant_execution=quant_execution,
                                 policy=policy,
@@ -568,7 +707,8 @@ def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict, *, collect_trace: bool = False,
+                cache: dict, *, encoder_frames=None,
+                collect_trace: bool = False,
                 use_lsb: Optional[dict] = None,
                 gate_override: Optional[dict] = None,
                 policy=None,
@@ -587,7 +727,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
       policy_state[f"pos{i}"]   : {'cached_msb'/'cached_lsb': [n_periods, E]}
     ``alpha`` is the Cache-Prior boost broadcast to every MoE layer;
     ``token_mask`` ([B] bool) excludes padding rows from MoE routing and
-    capacity.
+    capacity.  ``encoder_frames`` is accepted and unused, as in the
+    reference: an encoder-decoder's cross-attention reads the ``ck`` /
+    ``cv`` that ``prefill`` stored, and the step returns those same
+    tensors.
 
     ``cache["pos"]`` is a scalar (all sequences aligned) or a ``[B]``
     vector of per-sequence lengths (continuous batching): each sequence
@@ -628,6 +771,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             if spec.mixer == "attn":
                 x = _attn_decode(p, x, cfg, entry, period, pos, positions,
                                  rows, window)
+                if cfg.is_encdec:
+                    x = _cross_attn_block(p, x, entry["ck"][period],
+                                          entry["cv"][period], cfg)
             else:
                 h = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
                 state, conv = entry["state"][period], entry["conv"][period]

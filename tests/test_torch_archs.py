@@ -28,8 +28,10 @@ through the six configurations they unlock: ``smollm-360m``,
   reference's ``launch/serve.py:314``); ``llama4-scout`` (top-1, one
   shared expert) served by both packages' SliceMoE servers with
   quantized execution (tokens, cache stats exact; ledger rtol 1e-6).
-* The settings still unported raise ``NotImplementedError`` naming
-  'remaining architectures'.
+* The settings still unported (``ring_kv``, ``quantized_serve``) raise
+  ``NotImplementedError`` naming 'remaining architectures'; the four that
+  raised before prefix embeddings and the encoder-decoder were ported
+  give the reference's ``param_shapes`` and ``init_cache``.
 """
 
 import dataclasses
@@ -489,11 +491,13 @@ def test_llama4_scout_served_by_both_packages():
 
 
 # ----------------------------------------------------------------- unported
+def _over_id(d):
+    return next(iter(d)) + "=" + str(next(iter(d.values())))
+
+
 @pytest.mark.parametrize("over", [
-    dict(arch_type="vlm"),
-    dict(arch_type="audio"), dict(prefix_len=4), dict(encoder_layers=2),
     dict(ring_kv=True), dict(quantized_serve=True),
-], ids=lambda d: next(iter(d)) + "=" + str(next(iter(d.values()))))
+], ids=_over_id)
 def test_unported_settings_name_their_queue_item(over):
     cfg = dataclasses.replace(TC.get_config("smollm-360m").reduced(), **over)
     for fn in (lambda: TM.param_shapes(cfg),
@@ -501,3 +505,25 @@ def test_unported_settings_name_their_queue_item(over):
         with pytest.raises(NotImplementedError,
                            match="remaining architectures"):
             fn()
+
+
+@pytest.mark.parametrize("over", [
+    dict(arch_type="vlm"),
+    dict(arch_type="audio"), dict(prefix_len=4), dict(encoder_layers=2),
+], ids=_over_id)
+def test_prefix_and_encoder_settings_match_reference(over):
+    """The four settings that raised until prefix embeddings and the
+    encoder-decoder were ported: ``param_shapes`` and ``init_cache`` (its
+    leaves, shapes and dtypes) equal the reference's."""
+    jcfg = dataclasses.replace(get_config("smollm-360m").reduced(), **over)
+    tcfg = dataclasses.replace(TC.get_config("smollm-360m").reduced(), **over)
+    assert TM.param_shapes(tcfg) == JM.param_shapes(jcfg)
+
+    def view(cache):
+        return {k: {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                    for n, t in v.items()}
+                for k, v in cache.items() if k != "pos"}
+
+    got = TM.init_cache(tcfg, 2, 8, device="cpu")
+    assert view(got) == view(JM.init_cache(jcfg, 2, 8))
+    assert ("ck" in got["pos0"]) == bool(over.get("encoder_layers"))

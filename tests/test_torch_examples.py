@@ -2,13 +2,15 @@
 with ``--device cpu`` at its smallest size, under a timeout:
 ``examples/{quickstart,serve_traffic,compare_policies,offline_tune}
 _torch.py``.  The examples that would train first serve a checkpoint of
-the port's init instead (``--ckpt``), so no test trains.
+the port's init instead (``--ckpt``), so none of them trains;
+``examples/train_small_torch.py`` trains 4 steps of a reduced config.
 """
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,3 +82,17 @@ def test_offline_tune(tmp_path, synthetic):
     assert os.path.exists(tmp_path / "t.npz")
     assert any(line.startswith("cheapest config") or
                line.startswith("no config met") for line in lines)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_train_small(tmp_path, arch):
+    """``examples/train_small_torch.py`` trains the reduced stub
+    architectures (frames, a prefix) and restores its checkpoint."""
+    lines = _run("train_small_torch.py", "--arch", arch, "--steps", "4",
+                 cwd=tmp_path)
+    assert lines[0].startswith(f"training {arch}-reduced: 2L")
+    loss = next(line for line in lines if line.startswith("loss "))
+    first, last = (float(x) for x in loss.split()[1:4:2])
+    assert np.isfinite(first) and np.isfinite(last)
+    assert lines[-1] == ("checkpoint roundtrip: max logit delta = 0.00e+00 "
+                         "(OK)")

@@ -211,8 +211,8 @@ def test_batched_decode_vector_positions_and_token_mask(model):
 
 
 def test_unported_model_features_raise(model):
-    """The dense, MoE, SSM and hybrid architectures are ported; the VLM
-    is not (``tests/test_torch_archs.py`` lists every unported setting)."""
+    """All six architectures are ported; ring KV is not
+    (``tests/test_torch_archs.py`` lists every unported setting)."""
     _, tcfg, _, _ = model
-    with pytest.raises(NotImplementedError, match="architecture"):
-        TM.param_shapes(dataclasses.replace(tcfg, arch_type="vlm"))
+    with pytest.raises(NotImplementedError, match="remaining architectures"):
+        TM.param_shapes(dataclasses.replace(tcfg, ring_kv=True))

@@ -330,17 +330,63 @@ it goes, any failure exiting non-zero:
    "whisper-small").reduced(), engine=dataclasses.replace(get_config(
    "qwen15-moe-repro").reduced(), prefix_len=4))`` (about 4 s).
 
+15. the serving variants, ``quantized_serve`` and the ring KV cache, in
+   two halves (``phase_serving_variants_{a,b}``; ``[phase15]`` lines give
+   each sub-phase's seconds, peak memory, launches and measured gaps, each
+   with the card's name and power limit; the phase fails past 60 s):
+   15a'. after 8a: K1 on K-major ``wo`` codes, the flat tree's route (it
+       holds no output-major copy), at qwen15-moe-a2.7b's ``wo`` shape
+       (E=60, M=8, K=1408, N=2048), bf16 and f32 x, against the plain
+       version, timed beside ``torch.bmm`` on dense f32 weights and the
+       bound, and bf16 x at the 4 x 128-token prefill capacity (M=69);
+   15a. then, over phase 5's params (no new model):
+       ``quantize_params_for_serve`` at MAT84 (the flat tree beside the
+       float one), and phase 5's 4 prompts of 128 tokens through
+       ``prefill`` and 16 batched ``decode_step``s on three routes, the
+       float params, the flat tree dense-dequant and the flat tree with
+       ``quant_execution=True``, the quantized ones fed the float route's
+       greedy tokens, (i) from their own prefill and (ii) from the float
+       route's prefill cache with its routing (``gate_override``).  A
+       random bf16 model at this depth carries any perturbation to 4-15%
+       of the logits, as far between the two quantized routes as from
+       the float one, so (i) is printed beside that floor.  Hard checks:
+       (ii)'s relative L2 to the float route's logits below 0.05 at every
+       step (``tests/test_perf_variants.py:66-67``); every logit finite;
+       K1 2 x 24 per forward on the quantized route and never on the
+       others, K2 never; one checksum per flat leaf kept for 15c;
+   15b. after 14: ``starcoder2-3b`` whole in f32 (window 4096; TF32 off)
+       with ``ring_kv=True``: a 4000-token prefill into a 4096-row cache,
+       then 160 ``decode_step(use_window=True)`` steps (positions
+       4000-4159, rows 0-63 overwritten); the last step before the wrap,
+       the first after it and the last two held against
+       ``unembed(forward(..., use_window=True))`` within 1e-4 +
+       1e-4*|oracle|, the unwindowed forward outside it at the last step;
+       the cache still 4096 rows, rows 0-63 all changed and rows 64-3999
+       as the prefill left them (``[ring]`` lines; the KV bytes against a
+       4160-row cache without ring);
+   15c. then ``init_params`` of qwen15-moe-a2.7b with ``quantized_serve``
+       from scratch (seed 0): its own peak (over what earlier phases leave
+       allocated) at most 20 GB, where the float tree alone is 28.6 GB,
+       and every flat leaf's checksum equal to 15a's.
+   Rehearse on the CPU with ``phase_serving_variants_a(cfg, params,
+   prompts, device="cpu")`` over a 2-layer f32 ``qwen15-moe-repro`` and
+   four random prompts of 128 tokens, then ``phase_serving_variants_b(cfg,
+   sums, t_a, device="cpu", ring=dataclasses.replace(get_config(
+   "starcoder2-3b").reduced(), dtype="float32"), ring_prompt=60,
+   ring_steps=10)`` (about 2 s).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 14.
+busy share).  Without arguments the script runs phases 1 to 15.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
-and K5 as rows of their own; ``launches`` counts phase 5's run for K1 and
-K2, phase 3c's for K3-K5, phase 3d's for the f32 rows of K3 and K5 and
-phase 4's bf16-KV run for the f32 rows of K1 and K2; ``graph_ms`` and
-``library_graph_ms`` beside ``ms`` and ``library_ms``).
+and K5 as rows of their own; ``launches`` counts phase 5's run for K1
+(plus 15a's quantized route) and K2, phase 3c's for K3-K5, phase 3d's
+for the f32 rows of K3 and K5 and phase 4's bf16-KV run for the f32 rows
+of K1 and K2; ``graph_ms`` and ``library_graph_ms`` beside ``ms`` and
+``library_ms``).
 """
 
 from __future__ import annotations
@@ -2772,13 +2818,9 @@ def phase_moe_kernels(cfg, card: str, tag: str, sub: str, say_fn):
     the prefill capacities of one 128-token prompt and of 512 tokens
     (checked, not timed).  Rows are named ``{tag}_...``; ``say_fn`` prints
     the phase's lines, ``sub`` leading them."""
-    from repro_torch.kernels.amat_matmul import ops
-    from repro_torch.kernels.amat_matmul.ref import (
-        _dequant_mixed_ref, amat_batched_matmul_ref, amat_batched_matmul_t_ref)
     from repro_torch.models.moe import capacity
 
     m = cfg.moe
-    bf16 = torch.bfloat16
     caps = {n: capacity(n, m.top_k, m.n_experts, m.capacity_factor)
             for n in (SERVE_REQ, SERVE_PROMPT, SERVE_REQ * SERVE_PROMPT)}
     rows = []
@@ -2787,48 +2829,62 @@ def phase_moe_kernels(cfg, card: str, tag: str, sub: str, say_fn):
                   (m.n_experts, M, cfg.d_model, 2 * m.d_ff), n_tok == SERVE_REQ),
                  (f"{tag}_wo_t_bf16_{n_tok}tok", True,
                   (m.n_experts, M, m.d_ff, cfg.d_model), n_tok == SERVE_REQ)]
-    out = {}
-    for seed, (name, transposed, (E, M, K, N), timed) in enumerate(rows):
-        args = _kernel_inputs(E, M, K, N, seed=100 + seed,
-                              transposed=transposed, x_dtype=bf16)
-        ref = amat_batched_matmul_t_ref if transposed \
-            else amat_batched_matmul_ref
+    return {name: _expert_kernel_row(
+                name, shape, seed=100 + seed, transposed=transposed,
+                x_dtype=torch.bfloat16, timed=timed,
+                say_fn=lambda msg: say_fn(f"{sub} {msg}", card))
+            for seed, (name, transposed, shape, timed) in enumerate(rows)}
 
-        def kern():
-            return ops.amat_expert_matmul(*args, group_size=32, shift=4,
-                                          transposed=transposed)
 
-        def plain():
-            return ref(*args, group_size=32, shift=4)
+def _expert_kernel_row(name, shape, *, seed, transposed, x_dtype, timed,
+                       say_fn) -> dict:
+    """One row of K1 (K-major codes) or K2 (``transposed``: output-major)
+    at ``shape`` = (E, M, K, N): against the plain version at the kernel
+    tolerance and, when ``timed``, timed beside the plain version,
+    ``torch.bmm`` on dense f32 weights and the bound, its line said
+    through ``say_fn``."""
+    from repro_torch.kernels.amat_matmul import ops
+    from repro_torch.kernels.amat_matmul.ref import (
+        _dequant_mixed_ref, amat_batched_matmul_ref, amat_batched_matmul_t_ref)
 
-        err = _check_row(f"{name} E={E} M={M} K={K} N={N}", kern(), plain(),
-                         (E, M, N))
-        t = {"max_abs_err": err, "shape": (E, M, K, N)}
-        if timed:
-            x, codes, scales, zps, use_lsb = args
-            codes_kn = codes.transpose(1, 2) if transposed else codes
-            w_dense = _dequant_mixed_ref(codes_kn, scales, zps, use_lsb,
-                                         group_size=32, shift=4).contiguous()
-            x32 = x.float()
-            nbytes = (codes.numel() + scales.numel() * 4 + zps.numel()
-                      + x.numel() * x.element_size() + E * M * N * 4
-                      + use_lsb.numel())
-            t.update(_timed(name, kern, plain,
-                            lambda: torch.bmm(x32, w_dense),
-                            "torch.bmm on dense f32 weights", nbytes,
-                            _amat_flops(bf16, 2.0 * E * M * K * N),
-                            f"{codes.numel() / 1e6:.0f} MB of codes"))
-            del w_dense, x32
-            _versus_library(name, t)
-            say_fn(f"{sub} {name}: graph_ms {t['graph_ms']:.4f}, bound "
-                   f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
-                   f"({t['bound_ms'] / t['graph_ms']:.1%}), torch.bmm "
-                   f"graph_ms {t['library_graph_ms']}, max|kernel-plain| "
-                   f"{err:.3e}", card)
-        out[name] = t
-        del args
-        torch.cuda.empty_cache()
-    return out
+    E, M, K, N = shape
+    args = _kernel_inputs(E, M, K, N, seed=seed, transposed=transposed,
+                          x_dtype=x_dtype)
+    ref = amat_batched_matmul_t_ref if transposed else amat_batched_matmul_ref
+
+    def kern():
+        return ops.amat_expert_matmul(*args, group_size=32, shift=4,
+                                      transposed=transposed)
+
+    def plain():
+        return ref(*args, group_size=32, shift=4)
+
+    err = _check_row(f"{name} E={E} M={M} K={K} N={N}", kern(), plain(),
+                     (E, M, N))
+    t = {"max_abs_err": err, "shape": shape}
+    if timed:
+        x, codes, scales, zps, use_lsb = args
+        codes_kn = codes.transpose(1, 2) if transposed else codes
+        w_dense = _dequant_mixed_ref(codes_kn, scales, zps, use_lsb,
+                                     group_size=32, shift=4).contiguous()
+        x32 = x.float()
+        nbytes = (codes.numel() + scales.numel() * 4 + zps.numel()
+                  + x.numel() * x.element_size() + E * M * N * 4
+                  + use_lsb.numel())
+        t.update(_timed(name, kern, plain, lambda: torch.bmm(x32, w_dense),
+                        "torch.bmm on dense f32 weights", nbytes,
+                        _amat_flops(x_dtype, 2.0 * E * M * K * N),
+                        f"{codes.numel() / 1e6:.0f} MB of codes"))
+        del w_dense, x32
+        _versus_library(name, t)
+        say_fn(f"{name}: graph_ms {t['graph_ms']:.4f}, bound "
+               f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+               f"({t['bound_ms'] / t['graph_ms']:.1%}), torch.bmm "
+               f"graph_ms {t['library_graph_ms']}, max|kernel-plain| "
+               f"{err:.3e}")
+    del args
+    torch.cuda.empty_cache()
+    return t
 
 
 def phase_scout(cfg, card: str, device: str = "cuda"):
@@ -3781,6 +3837,439 @@ def phase_prefix_encdec(device: str = "cuda", internvl=None, whisper=None,
     return seconds
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the serving variants, quantized_serve and the ring KV cache.
+P15_REL = 0.05                   # tests/test_perf_variants.py:66-67
+P15_RING = "starcoder2-3b"
+P15_RING_PROMPT, P15_RING_STEPS = 4000, 160   # positions 4000-4159
+P15_TOL = 1e-4
+P15_INIT_PEAK_GB = 20.0          # 15c; the float tree alone is 28.6 GB
+P15_BUDGET_S = 60.0
+
+
+def _say15(msg: str, card: str) -> None:
+    say(f"[phase15] {msg}; card {card}")
+
+
+def _flat_leaves(params):
+    """The flat AMAT expert leaves of a ``quantized_serve`` tree by
+    (position, name)."""
+    for pos, blk in sorted(params["blocks"].items()):
+        if "moe" in blk:
+            for name, t in sorted(blk["moe"]["experts"].items()):
+                yield (pos, name), t
+
+
+def _checksums(params) -> dict:
+    """One checksum per flat leaf: the sum of the codes or zero-points as
+    int64, of the scales in f64, taken 8 matrices at a time (a sum in a
+    wider type casts its input whole: 62 GB for one stack of codes)."""
+    def leaf_sum(t):
+        wide = torch.float64 if t.is_floating_point() else torch.int64
+        parts = [c.sum(dtype=wide)
+                 for c in torch.split(t.flatten(0, -3), 8)]
+        total = torch.stack(parts).sum()
+        return float(total) if t.is_floating_point() else int(total)
+
+    return {key: leaf_sum(t) for key, t in _flat_leaves(params)}
+
+
+def _tree_gb(leaves) -> float:
+    return sum(t.numel() * t.element_size() for t in leaves) / 1e9
+
+
+def phase_k1_flat_wo(cfg, card: str) -> dict:
+    """15a': K1 on K-major ``wo`` codes, the route of the flat
+    ``quantized_serve`` tree, which holds no output-major copy: ``cfg``'s
+    ``wo`` at its decode capacity (Qwen: E=60, M=8, K=1408, N=2048), bf16
+    and f32 x, against the plain version at the kernel tolerance, timed
+    beside the plain version, ``torch.bmm`` on dense f32 weights (TF32
+    off) and the bound; then bf16 x at the prefill capacity of 4 x 128
+    tokens (checked, not timed).  A new row of K1, not a new kernel."""
+    from repro_torch.models.moe import capacity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = cfg.moe
+    rows = ((SERVE_REQ, torch.bfloat16), (SERVE_REQ, torch.float32),
+            (SERVE_REQ * SERVE_PROMPT, torch.bfloat16))
+    out = {}
+    for seed, (n_tok, x_dtype) in enumerate(rows):
+        M = capacity(n_tok, m.top_k, m.n_experts, m.capacity_factor)
+        xd = "bf16" if x_dtype == torch.bfloat16 else "f32"
+        name = f"flat_wo_k_major_{xd}_{n_tok}tok"
+        out[name] = _expert_kernel_row(
+            name, (m.n_experts, M, m.d_ff, cfg.d_model), seed=150 + seed,
+            transposed=False, x_dtype=x_dtype, timed=n_tok == SERVE_REQ,
+            say_fn=lambda msg: _say15(f"15a' {msg}", card))
+    return out
+
+
+def _clone_cache(cache) -> dict:
+    return {k: v.clone() if torch.is_tensor(v)
+            else {n: t.clone() for n, t in v.items()}
+            for k, v in cache.items()}
+
+
+def _float_route(params, cfg, toks, max_seq, on_card):
+    """``prefill`` of ``toks`` and ``SERVE_NEW`` greedy ``decode_step``s.
+    Returns the logits of every call (the prefill's first), their walls,
+    the tokens fed, a copy of the prefill's cache and each step's routing
+    as ``decode_step``'s ``gate_override``."""
+    from repro_torch.models.model import decode_step, prefill
+
+    moe_pos = [f"pos{i}" for i, s in enumerate(cfg.block_pattern)
+               if s.ffn == "moe"]
+    t1 = time.perf_counter()
+    logits, cache, _ = prefill(params, cfg, toks, max_seq)
+    _sync_any(on_card)
+    walls, logits_all = [time.perf_counter() - t1], [logits]
+    cache0 = _clone_cache(cache)
+    tokens, routing = [], []
+    for _ in range(SERVE_NEW):
+        token = torch.argmax(logits, dim=-1)
+        tokens.append(token)
+        t1 = time.perf_counter()
+        logits, cache, aux = decode_step(params, cfg, token, cache,
+                                         collect_trace=True)
+        _sync_any(on_card)
+        walls.append(time.perf_counter() - t1)
+        logits_all.append(logits)
+        m = aux["moe"]
+        routing.append({key: (m["gates"][:, j], m["ids"][:, j])
+                        for j, key in enumerate(moe_pos)})
+    return logits_all, walls, tokens, cache0, routing
+
+
+def _forced_route(params, cfg, toks, forced, max_seq, on_card, *,
+                  cache=None, routing=None, **kw):
+    """One ``decode_step`` per token of ``forced`` after ``prefill`` of
+    ``toks``, or, given ``cache``, from a copy of it with no prefill; with
+    ``routing``, each step takes its ``gate_override``.  Returns the logits
+    of every call and their walls."""
+    from repro_torch.models.model import decode_step, prefill
+
+    logits_all, walls = [], []
+    if cache is None:
+        t1 = time.perf_counter()
+        logits, cache, _ = prefill(params, cfg, toks, max_seq, **kw)
+        _sync_any(on_card)
+        walls.append(time.perf_counter() - t1)
+        logits_all.append(logits)
+    else:
+        cache = _clone_cache(cache)
+    for step, token in enumerate(forced):
+        t1 = time.perf_counter()
+        logits, cache, _ = decode_step(
+            params, cfg, token, cache,
+            gate_override=routing[step] if routing else None, **kw)
+        _sync_any(on_card)
+        walls.append(time.perf_counter() - t1)
+        logits_all.append(logits)
+    return logits_all, walls
+
+
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def phase_qserve(cfg, params, prompts, card: str, device: str = "cuda"):
+    """15a: ``quantized_serve`` over phase 5's params (bf16, full depth and
+    width; no new model): ``quantize_params_for_serve`` at MAT84, then
+    phase 5's prompts on three routes, the float params, the flat tree
+    dense-dequant and the flat tree with ``quant_execution=True``, each
+    route's caches released before the next.  The float route runs
+    ``prefill`` and ``SERVE_NEW`` greedy batched ``decode_step``s.  Each
+    quantized route runs twice, fed the float route's tokens (teacher
+    forcing): (i) ``prefill`` and the steps from scratch; (ii) the steps
+    from the float route's prefill cache with the float route's routing
+    (``gate_override``), so that what differs is the experts' weights
+    and the expert matmul's route, not the experts chosen.
+
+    At full width a random bf16 model amplifies any perturbation: on the
+    card (i)'s logits sat 0.04-0.15 (relative L2) from the float route's,
+    and as far from each other though both quantized routes read the same
+    codes.  So (i) is printed with that floor beside it, and the bound of
+    ``tests/test_perf_variants.py:66-67``, relative L2 below
+    ``P15_REL``, is held on (ii) at every step.  Hard checks besides:
+    every logit finite; K1 2 x (MoE layers) per forward on the quantized
+    route (``wi`` and ``wo`` on K-major codes) and never on the others, K2
+    never.  Returns the seconds, K1's launches and one checksum per flat
+    leaf for 15c."""
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.models.moe import quantize_params_for_serve
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    _peak_reset(on_card)
+    qcfg = dataclasses.replace(cfg, quantized_serve=True)
+    mat = MatConfig(8, 4)
+    t1 = time.perf_counter()
+    qparams = quantize_params_for_serve(params, qcfg, mat)
+    _sync_any(on_card)
+    t_quant = time.perf_counter() - t1
+    sums = _checksums(qparams)
+    flat_gb = _tree_gb(t for _, t in _flat_leaves(qparams))
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                           device=device)
+    max_seq = toks.shape[1] + SERVE_NEW
+    with torch.no_grad():
+        (ref, w_float, forced, cache0, routing), l_float = _counted(
+            lambda: _float_route(params, cfg, toks, max_seq, on_card))
+        _release_any(on_card)
+        routes = {}
+        for route, qexec in (("dense", False), ("quant", True)):
+            kw = dict(mat=mat, quant_execution=qexec)
+            (free, w_free), l_free = _counted(lambda: _forced_route(
+                qparams, qcfg, toks, forced, max_seq, on_card, **kw))
+            _release_any(on_card)
+            (pinned, w_pin), l_pin = _counted(lambda: _forced_route(
+                qparams, qcfg, toks, forced, max_seq, on_card,
+                cache=cache0, routing=routing, **kw))
+            _release_any(on_card)
+            routes[route] = dict(
+                free=free, w_free=w_free, pinned=pinned, w_pin=w_pin,
+                launches=(l_free, l_pin),
+                rel_free=[_rel_l2(a, b) for a, b in zip(free, ref)],
+                rel=[_rel_l2(a, b) for a, b in zip(pinned, ref[1:])],
+                finite=all(bool(torch.isfinite(a).all())
+                           for a in free + pinned))
+        dr, qr = routes["dense"], routes["quant"]
+        floor = [_rel_l2(a, b) for a, b in zip(qr["free"], dr["free"])]
+        gap = [_rel_l2(a, b) for a, b in zip(qr["pinned"], dr["pinned"])]
+    float_finite = all(bool(torch.isfinite(a).all()) for a in ref)
+    n_steps, n_moe = len(forced), _n_moe_layers(cfg)
+    want = {"quant": (2 * n_moe * (n_steps + 1), 2 * n_moe * n_steps),
+            "dense": (0, 0)}
+    peak = _peak_gb(on_card)
+    seconds = time.perf_counter() - t0
+
+    def r5(xs):
+        return [round(x, 5) for x in xs]
+
+    _say15(f"15a {cfg.name} through quantize_params_for_serve at MAT84: "
+           f"{len(sums)} flat leaves, {flat_gb:.2f} GB of codes, scales and "
+           f"zero-points beside the {_tree_gb(_leaves(params)):.2f} GB float "
+           f"tree, in {t_quant:.2f} s; {len(prompts)} prompts of "
+           f"{toks.shape[1]} tokens, prefill then {n_steps} decode steps",
+           card)
+    _say15(f"15a float route: walls {[round(w, 4) for w in w_float]} s, "
+           f"launches {l_float}, every logit finite {float_finite}", card)
+    for route in ("dense", "quant"):
+        r = routes[route]
+        _say15(f"15a {route} route (i) from its own prefill: relative L2 to "
+               f"the float route's logits {r5(r['rel_free'])}; walls "
+               f"{[round(w, 4) for w in r['w_free']]} s; (ii) from the float "
+               f"route's cache and routing: {r5(r['rel'])} (must be < "
+               f"{P15_REL}); walls {[round(w, 4) for w in r['w_pin']]} s; "
+               f"launches {r['launches']} (want K1 {want[route]}, K2 0); "
+               f"every logit finite {r['finite']}", card)
+    _say15(f"15a quant vs dense: (i) relative L2 {r5(floor)} (the floor "
+           f"that any perturbation reaches here), (ii) {r5(gap)}; "
+           f"max_memory_allocated {peak}; {seconds:.1f} s", card)
+    results = {r: (routes[r]["rel"], routes[r]["finite"],
+                   routes[r]["launches"]) for r in routes}
+    del qparams, routes, dr, qr, ref, cache0, routing, toks
+    _release_any(on_card)
+    if not float_finite:
+        fail("qserve: the float route gave non-finite logits")
+    if on_card and sum(l_float.values()) != 0:
+        fail(f"qserve: the float route launched {l_float}")
+    for route, (rel, finite, launches) in results.items():
+        if not finite:
+            fail(f"qserve: the {route} route gave non-finite logits")
+        if max(rel) >= P15_REL:
+            fail(f"qserve: the {route} route with the float route's routing "
+                 f"is {max(rel):.4f} from its logits (relative L2), not "
+                 f"below {P15_REL}")
+        got = tuple((n.get("k_major", 0), sum(n.values())) for n in launches)
+        if on_card and got != tuple((w, w) for w in want[route]):
+            fail(f"qserve: the {route} route launched {launches}, not K1 "
+                 f"{want[route]} times and nothing else")
+    return seconds, sum(want["quant"]), sums
+
+
+def phase_ring(cfg, card: str, device: str = "cuda",
+               n_prompt: int = P15_RING_PROMPT,
+               n_steps: int = P15_RING_STEPS):
+    """15b: ``cfg`` (``starcoder2-3b`` whole, f32, window 4096; TF32 off)
+    with ``ring_kv=True`` and a cache of ``sliding_window`` rows: one
+    prompt of ``n_prompt`` tokens through ``prefill``, then ``n_steps``
+    ``decode_step(use_window=True)`` steps, whose positions run past the
+    cache's end and wrap.  Four steps, the last before the wrap, the first
+    after it and the last two, are held against ``unembed(forward(...,
+    use_window=True))`` at the last position within ``1e-4 +
+    1e-4*|oracle|``; the unwindowed forward must miss the last step by
+    more.  Hard checks besides: the cache keeps its rows, the rows the
+    wrap overwrote all changed and the others below the prompt's end kept
+    their prefill values.  Returns the seconds."""
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill, unembed)
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, ring_kv=True)
+    S = cfg.sliding_window
+    wrap = S - n_prompt                    # the step at position S
+    n_over = n_prompt + n_steps - S        # rows the wrap overwrites
+    held = sorted({wrap - 1, wrap, n_steps - 2, n_steps - 1})
+    t0 = time.perf_counter()
+    _peak_reset(on_card)
+    params = init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(15)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, n_prompt),
+                          dtype=torch.int64, device=device)[None]
+    ratios, walls = {}, []
+    with torch.no_grad():
+        def oracle(window: bool):
+            h, _ = forward(params, cfg, seq, use_window=window)
+            return unembed(params, cfg, h[:, -1])
+
+        t1 = time.perf_counter()
+        logits, cache, _ = prefill(params, cfg, seq, S)
+        _sync_any(on_card)
+        t_pre = time.perf_counter() - t1
+        k0 = cache["pos0"]["k"].clone()
+        for step in range(n_steps):
+            token = torch.argmax(logits, dim=-1)
+            seq = torch.cat([seq, token[:, None]], dim=1)
+            t1 = time.perf_counter()
+            logits, cache, _ = decode_step(params, cfg, token, cache,
+                                           use_window=True)
+            _sync_any(on_card)
+            walls.append(time.perf_counter() - t1)
+            if step in held:
+                want = oracle(True)
+                tol = P15_TOL + P15_TOL * want.abs()
+                ratios[step] = float(((logits - want).abs() / tol).max())
+                say(f"[ring] step {step} (position {n_prompt + step}, row "
+                    f"{(n_prompt + step) % S}): max|decode - windowed "
+                    f"forward| / (1e-4 + 1e-4*|oracle|) = "
+                    f"{ratios[step]:.4f}, max abs gap "
+                    f"{float((logits - want).abs().max()):.3e}")
+        apart = float(((oracle(False) - want).abs() / tol).max())
+        k1 = cache["pos0"]["k"]
+        rows = (k1 != k0).flatten(3).any(-1).any(0)[0]       # [S]
+        rows_kept = bool(not rows[n_over:n_prompt].any())
+        rows_over = int(rows[:n_over].sum())
+        s_after = k1.shape[2]
+    kv_ring = _tree_gb(t for k, e in cache.items() if k != "pos"
+                       for t in e.values())
+    kv_full = kv_ring * (n_prompt + n_steps) / S     # bytes go by rows
+    peak = _peak_gb(on_card)
+    seconds = time.perf_counter() - t0
+    _say15(f"15b {cfg.name} with ring_kv: {cfg.n_layers} layers, d_model "
+           f"{cfg.d_model}, window {S}, {cfg.dtype}; prefill of {n_prompt} "
+           f"tokens into {S} rows {t_pre:.2f} s, {n_steps} decode steps "
+           f"(positions {n_prompt}-{n_prompt + n_steps - 1}, {n_over} rows "
+           f"overwritten) median {float(np.median(walls)):.4f} s; steps "
+           f"{held} at {[round(ratios[s], 4) for s in held]} of the "
+           f"tolerance (must be <= 1), the unwindowed forward "
+           f"{apart:.1f} of it at the last step (must be > 1); cache rows "
+           f"{s_after}, {rows_over} of the first {n_over} changed, the rest "
+           f"below {n_prompt} kept {rows_kept}; KV {kv_ring:.3f} GB against "
+           f"{kv_full:.3f} GB for a {n_prompt + n_steps}-row cache without "
+           f"ring; max_memory_allocated {peak}; {seconds:.1f} s", card)
+    del params, cache, logits, k0, k1
+    _release_any(on_card)
+    if max(ratios.values()) > 1.0:
+        fail(f"ring: a decode step missed the windowed forward by "
+             f"{max(ratios.values()):.4f} of the tolerance")
+    if apart <= 1.0:
+        fail("ring: the unwindowed forward is within the tolerance of the "
+             "windowed one, so the check cannot see the window")
+    if s_after != S or rows_over != n_over or not rows_kept:
+        fail(f"ring: the cache has {s_after} rows, {rows_over} of the "
+             f"first {n_over} changed, the others kept {rows_kept}")
+    return seconds
+
+
+def phase_qserve_init(cfg, sums, card: str, device: str = "cuda"):
+    """15c: ``init_params`` of ``cfg`` with ``quantized_serve`` from
+    scratch (seed 0, phase 5's), with no model resident: each period of
+    ``wi`` and ``wo`` is quantized as it is drawn, so the init's own peak
+    (the peak less what was allocated before it: earlier phases leave a
+    few hundred MB on the card) stays at most ``P15_INIT_PEAK_GB`` (the
+    float tree alone is 28.6 GB), and every flat leaf's checksum must
+    equal 15a's (``sums``), quantized from the float init.  Returns the
+    seconds."""
+    from repro_torch.models.model import init_params
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    _peak_reset(on_card)
+    before = torch.cuda.memory_allocated() / 1e9 if on_card else 0.0
+    qparams = init_params(dataclasses.replace(cfg, quantized_serve=True),
+                          seed=0, device=device)
+    _sync_any(on_card)
+    t_init = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 1e9 - before) if on_card \
+        else None
+    peak_say = _peak_gb(on_card)
+    got = _checksums(qparams)
+    size = _tree_gb(_leaves(qparams))
+    same = [k for k in sums if got.get(k) == sums[k]]
+    seconds = time.perf_counter() - t0
+    _say15(f"15c init_params({cfg.name}, quantized_serve=True, seed=0): "
+           f"{size:.2f} GB tree in {t_init:.2f} s; max_memory_allocated "
+           f"{peak_say} with {before:.2f} GB allocated before the init, "
+           f"whose own peak is "
+           f"{'not measured (CPU)' if peak is None else f'{peak:.2f} GB'} "
+           f"(must be <= {P15_INIT_PEAK_GB:.0f} GB); {len(same)} of "
+           f"{len(sums)} flat leaves' checksums equal 15a's; {seconds:.1f} "
+           f"s", card)
+    del qparams
+    _release_any(on_card)
+    if set(got) != set(sums) or len(same) != len(sums):
+        fail(f"qserve init: checksums differ from 15a's: "
+             f"{sorted(set(sums) - set(same))}")
+    if peak is not None and peak > P15_INIT_PEAK_GB:
+        fail(f"qserve init: peak {peak:.2f} GB over {P15_INIT_PEAK_GB} GB")
+    return seconds
+
+
+def phase_serving_variants_a(cfg, params, prompts, device: str = "cuda"):
+    """Phase 15's first half (after 8a, over phase 5's params, so it
+    builds no model): 15a' ``phase_k1_flat_wo`` on the card, then 15a
+    ``phase_qserve``.  Returns the seconds, K1's launches in 15a and the
+    flat leaves' checksums."""
+    on_card = device == "cuda"
+    card = smi_name_power() if on_card else "none (CPU)"
+    t0 = time.perf_counter()
+    if on_card:
+        phase_k1_flat_wo(cfg, card)
+        _release()
+    _, k1, sums = phase_qserve(cfg, params, prompts, card, device)
+    return time.perf_counter() - t0, k1, sums
+
+
+def phase_serving_variants_b(cfg, sums, t_a: float, device: str = "cuda",
+                             ring=None, ring_prompt: int = P15_RING_PROMPT,
+                             ring_steps: int = P15_RING_STEPS):
+    """Phase 15's second half (after 14, with no other model resident):
+    15b ``phase_ring`` (``ring`` defaults to ``starcoder2-3b`` whole in
+    f32), 15c ``phase_qserve_init`` of ``cfg``.  Fails on the card when
+    the phase, ``t_a`` seconds of its first half included, passes
+    ``P15_BUDGET_S``.  Returns the seconds of both halves."""
+    from repro_torch.configs.base import get_config
+
+    on_card = device == "cuda"
+    card = smi_name_power() if on_card else "none (CPU)"
+    t_b = phase_ring(ring or dataclasses.replace(get_config(P15_RING),
+                                                 dtype="float32"),
+                     card, device, n_prompt=ring_prompt, n_steps=ring_steps)
+    t_c = phase_qserve_init(cfg, sums, card, device)
+    seconds = t_a + t_b + t_c
+    _say15(f"15a'+15a {t_a:.1f} s, 15b {t_b:.1f} s, 15c {t_c:.1f} s: phase "
+           f"15 adds {seconds:.1f} s to the run (host clock; budget "
+           f"{P15_BUDGET_S:.0f} s)", card)
+    if on_card and seconds > P15_BUDGET_S:
+        fail(f"phase 15 took {seconds:.1f} s, over its {P15_BUDGET_S:.0f} s "
+             "budget")
+    return seconds
+
+
 def _scheme_configs(cfg):
     """Phase 6's two serving schemes, both with quantized execution and a
     slice cache of a quarter of the store: Fig. 9's ``buddy_highbit``, and
@@ -4350,6 +4839,9 @@ def main() -> None:
     _release()
     t_11a = phase_serving_extras(cfg, params, prompts, p5)
     t_8a = phase_paper_full_width(cfg, params)
+    _release()
+    t_15a, k1_15a, sums_15a = phase_serving_variants_a(cfg, params, prompts)
+    launches["k_major"] += k1_15a       # K1 on the flat tree's wi and wo
     # Phase 6 trains and serves a model of its own: release the params.
     del params, prompts
     _release()
@@ -4363,6 +4855,8 @@ def main() -> None:
     phase_ssm_archs()
     _release()
     phase_prefix_encdec()
+    _release()
+    phase_serving_variants_b(cfg, sums_15a, t_15a)
     _release()
     small, trained = phase_train_serve(cfg)
     _release()

@@ -16,6 +16,7 @@ The LSB slice ``q_high & (2**shift - 1)`` is the upgrade payload:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -49,6 +50,44 @@ def amat_quantize(w: torch.Tensor, cfg: MatConfig) -> QuantizedTensor:
     """Quantize ``w`` at the *high* bit-width; the low-bit view is free."""
     return quantize(w, bits=cfg.high_bits, group_size=cfg.group_size,
                     asymmetric=True)
+
+
+def empty_stacked(shape, cfg: MatConfig, device) -> QuantizedTensor:
+    """An uninitialized AMAT tensor of weight shape ``[..., K, N]``."""
+    *lead, K, N = shape
+    g_shape = (*lead, K // cfg.group_size, N)
+    return QuantizedTensor(
+        torch.empty(shape, dtype=torch.uint8, device=device),
+        torch.empty(g_shape, dtype=torch.float32, device=device),
+        torch.empty(g_shape, dtype=torch.uint8, device=device),
+        cfg.high_bits, cfg.group_size, True)
+
+
+@torch.no_grad()
+def amat_quantize_stacked(w: torch.Tensor, cfg: MatConfig,
+                          out: Optional[QuantizedTensor] = None
+                          ) -> QuantizedTensor:
+    """AMAT-quantize a stack ``[..., K, N]`` one ``[K, N]`` matrix at a
+    time, into ``out`` when given (contiguous, of ``w``'s shape).
+
+    The reference casts the whole stack to f32 first; for
+    Qwen1.5-MoE-A2.7B at full width that is a 33 GB temporary for ``wi``
+    alone, and one period of Jamba's ``wi`` (16 x 4096 x 28672) is 7.5 GB
+    in f32.  Groups run along K inside each matrix, so quantizing matrix
+    by matrix gives identical codes, scales and zero-points, with a
+    temporary of one matrix in f32.
+    """
+    K, N = w.shape[-2:]
+    if out is None:
+        out = empty_stacked(w.shape, cfg, w.device)
+    G = K // cfg.group_size
+    codes = out.codes.view(-1, K, N)
+    scales = out.scales.view(-1, G, N)
+    zps = out.zero_points.view(-1, G, N)
+    for j, m in enumerate(w.reshape(-1, K, N)):
+        qt = amat_quantize(m, cfg)
+        codes[j], scales[j], zps[j] = qt.codes, qt.scales, qt.zero_points
+    return out
 
 
 def truncate(qt: QuantizedTensor, *, low_bits: int, truncate_zp: bool = True,

@@ -14,7 +14,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from repro_torch.core.amat import MatConfig, amat_quantize, slice_nbytes
+from repro_torch.core.amat import (MatConfig, amat_quantize,
+                                   amat_quantize_stacked, slice_nbytes)
 from repro_torch.quant.groupquant import QuantizedTensor
 
 
@@ -102,33 +103,6 @@ class ExpertSliceStore:
         return torch.as_tensor(resident_lsb, dtype=torch.bool, device=dev)
 
 
-@torch.no_grad()
-def _quantize_stacked(w: torch.Tensor, mat: MatConfig) -> QuantizedTensor:
-    """AMAT-quantize a ``[n_periods, E, K, N]`` stack one expert matrix at
-    a time.
-
-    The reference casts the whole stack to f32 first; for Qwen1.5-MoE-A2.7B
-    at full width that is a 33 GB temporary for ``wi`` alone, and one
-    period of Jamba's ``wi`` (16 x 4096 x 28672) is 7.5 GB in f32.  Groups
-    run along K inside each [K, N] matrix, so quantizing matrix by matrix
-    gives identical codes, scales and zero-points, with a temporary of one
-    matrix in f32.
-    """
-    P, E, K, N = w.shape
-    G = K // mat.group_size
-    dev = w.device
-    codes = torch.empty((P, E, K, N), dtype=torch.uint8, device=dev)
-    scales = torch.empty((P, E, G, N), dtype=torch.float32, device=dev)
-    zps = torch.empty((P, E, G, N), dtype=torch.uint8, device=dev)
-    for p in range(P):
-        for e in range(E):
-            qt = amat_quantize(w[p, e], mat)
-            codes[p, e], scales[p, e], zps[p, e] = (
-                qt.codes, qt.scales, qt.zero_points)
-    return QuantizedTensor(codes, scales, zps, mat.high_bits,
-                           mat.group_size, True)
-
-
 def quantize_moe_params(params: dict, cfg, mat: MatConfig, *,
                         quant_execution: bool = False):
     """Replace float expert weights in a model param tree by AMAT tensors.
@@ -158,8 +132,8 @@ def quantize_moe_params(params: dict, cfg, mat: MatConfig, *,
             continue
         blk = dict(new_blocks[f"pos{i}"])
         experts = blk["moe"]["experts"]
-        wi_q = _quantize_stacked(experts["wi"], mat)
-        wo_q = _quantize_stacked(experts["wo"], mat)
+        wi_q = amat_quantize_stacked(experts["wi"], mat)
+        wo_q = amat_quantize_stacked(experts["wo"], mat)
         moe_p = dict(blk["moe"])
         moe_p["experts"] = {"wi_q": wi_q, "wo_q": wo_q}
         if quant_execution:

@@ -58,8 +58,18 @@ dtype before each decode attention.  An SSM position's cache entry holds
 ``A_log``, ``D`` and ``dt_bias`` leaves stay f32 in a bf16 model, as in
 the reference.  The reference wraps each period of ``forward`` in
 ``jax.checkpoint`` (remat); that changes memory, not values, and is not
-ported.  ``ring_kv`` and ``quantized_serve`` are not ported yet and
-raise (ROADMAP.md queue 1, 'remaining architectures').
+ported.
+
+Two serving variants.  ``quantized_serve`` stores every MoE layer's
+experts as flat AMAT leaves ``{wi,wo}_{codes,scales,zps}``
+(:func:`repro_torch.models.moe.quantize_params_for_serve`, MAT84 in
+``init_params``), which ``forward``, ``prefill`` and ``decode_step`` read
+with their ``mat``.  ``ring_kv`` makes the KV cache a ring buffer:
+``decode_step`` writes position ``pos`` at row ``pos % S`` and attends
+over every resident row (at most ``pos + 1``), with no window mask; a
+caller that sizes the cache at ``sliding_window`` rows or fewer gets the
+windowed model with O(window) memory.  ``prefill`` writes rows from 0 as
+without ring, and a prompt longer than the cache raises in both.
 
 Departures from the functional reference: ``decode_step`` writes the new
 KV row, and an SSM position's new ``state`` and ``conv`` window, into the
@@ -74,12 +84,14 @@ the process).
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.core.amat import MAT84, amat_quantize_stacked, empty_stacked
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -93,13 +105,6 @@ LOSS_CHUNKS = 16
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.ring_kv or cfg.quantized_serve:
-        raise NotImplementedError(
-            f"{cfg.name}: ring KV and quantized_serve are not ported yet "
-            "(ROADMAP.md queue 1, 'remaining architectures')")
 
 
 def _window(cfg: ModelConfig, use_window: bool) -> Optional[int]:
@@ -144,6 +149,9 @@ def _block_shapes(cfg: ModelConfig, spec: BlockSpec, decoder: bool) -> dict:
         sh["mlp_norm"] = (cfg.d_model,)
     elif spec.ffn == "moe":
         sh["moe"] = M.moe_param_shapes(cfg.d_model, cfg.moe)
+        if cfg.quantized_serve:
+            sh["moe"]["experts"] = M.quantized_expert_shapes(cfg.d_model,
+                                                             cfg.moe)
         sh["moe_norm"] = (cfg.d_model,)
     return sh
 
@@ -155,7 +163,6 @@ def _stack(shapes: dict, n: int) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of shape-tuples mirroring the param tree."""
-    _check_supported(cfg)
     blocks = {f"pos{i}": _stack(_block_shapes(cfg, spec, decoder=True),
                                 cfg.n_periods)
               for i, spec in enumerate(cfg.block_pattern)}
@@ -201,6 +208,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     Stacked leaves are drawn one period at a time in f32 and cast into a
     preallocated tensor of the model dtype, so the peak temporary is one
     period of one leaf, never a whole stack in f32.
+
+    With ``quantized_serve`` the result equals ``quantize_params_for_serve(
+    init_params(replace(cfg, quantized_serve=False), seed), cfg, MAT84)``
+    leaf for leaf, as in the reference, but each period of ``wi`` and
+    ``wo`` is quantized as it is drawn and its floats dropped, so the
+    float experts are never held whole.
     """
     dev = resolve_device(device)
     dtype = _dt(cfg)
@@ -212,7 +225,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         out = {}
         for k in sorted(shapes):
             v = shapes[k]
-            if isinstance(v, dict):
+            if isinstance(v, dict) and k == "experts" and cfg.quantized_serve:
+                out[k] = amat_experts(v)
+            elif isinstance(v, dict):
                 out[k] = init_tree(v, ssm=k == "ssm")
             elif ssm and k in ssm_init:
                 out[k] = ssm_init[k](v)
@@ -220,14 +235,35 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                 out[k] = init_one(v)
         return out
 
+    def draws(shape, std):
+        """A leaf's normal draws in f32, one period at a time for a stack:
+        the order the generator is read in."""
+        per = [shape[1:]] * shape[0] if len(shape) >= 3 else [shape]
+        for chunk_shape in per:
+            yield torch.randn(chunk_shape, generator=gen, device=dev,
+                              dtype=f32).mul_(std)
+
     def normal(shape, std, dt):
         t = torch.zeros(shape, dtype=dt, device=dev)
         chunks = list(t) if len(shape) >= 3 else [t]
-        for chunk in chunks:
-            draw = torch.randn(chunk.shape, generator=gen, device=dev,
-                               dtype=f32)
-            chunk.copy_(draw.mul_(std))
+        for chunk, draw in zip(chunks, draws(shape, std)):
+            chunk.copy_(draw)
         return t
+
+    def amat_experts(shapes: dict) -> dict:
+        # The float experts' draws (``init_one``), each period rounded to
+        # the model dtype and quantized before the next is drawn.
+        out = {}
+        for name in sorted(shapes):
+            shape = shapes[name]
+            qt = empty_stacked(shape, MAT84, dev)
+            for period, draw in enumerate(draws(shape, shape[-2] ** -0.5)):
+                amat_quantize_stacked(draw.to(dtype), MAT84,
+                                      out=qt.index(period))
+            out[f"{name}_codes"] = qt.codes
+            out[f"{name}_scales"] = qt.scales
+            out[f"{name}_zps"] = qt.zero_points
+        return out
 
     def init_one(shape):
         if len(shape) == 1 or shape[-1] == 1:
@@ -243,7 +279,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                                             device=dev),
         "conv_w": lambda shape: normal(shape, 0.2, dtype),
     }
-    return init_tree(param_shapes(cfg))
+    return init_tree(param_shapes(replace(cfg, quantized_serve=False)))
 
 
 def _index(tree, i: int):
@@ -417,7 +453,6 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``mat``; ``quant_execution`` runs them through the batched expert
     kernels.  Differentiable over float weights unless run under
     ``torch.no_grad()``."""
-    _check_supported(cfg)
     x = embed_inputs(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     window = _window(cfg, use_window)
@@ -535,7 +570,6 @@ def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 dev: torch.device, encoder_seq: int) -> dict:
     """``init_cache`` with the cross K/V ``encoder_seq`` rows long (the
     frames' length, in ``prefill``)."""
-    _check_supported(cfg)
     int8_kv = cfg.kv_dtype == "int8"
     cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
     kv_shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -579,13 +613,19 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             quant_execution: Optional[bool] = None, policy=None):
     """Forward over the prompt, returning (last-token logits, cache, aux).
     The cache position counts the prefix; an encoder-decoder's cache
-    holds each decoder block's cross K/V of ``encoder_frames``.
+    holds each decoder block's cross K/V of ``encoder_frames``.  The
+    prompt fills rows from 0, ring buffer or not; a prompt longer than
+    ``max_seq`` raises a ``ValueError`` when the model has attention.
 
     ``policy``: optional *state-free* RoutingPolicy (cumsum) to route the
     prompt with; compute stays high-bit for every routed expert.
     """
     x = embed_inputs(params, cfg, tokens, prefix_embeds)
     b, s, d = x.shape
+    if s > max_seq and cfg.has_attention:
+        # The reference's pad to max_seq rows raises here too.
+        raise ValueError(f"{cfg.name}: a prompt of {s} positions does not "
+                         f"fit a KV cache of max_seq={max_seq} rows")
     dev = x.device
     positions = torch.arange(s, device=dev)[None, :]
     window = _window(cfg, use_window)
@@ -656,15 +696,20 @@ def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
     ``arange(B)``)."""
     b = x.shape[0]
     vector_pos = pos.ndim == 1
+    ring = cfg.ring_kv
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(p, h, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    s_cache = entry["k"].shape[2]
+    pos_w = pos % s_cache if ring else pos
 
     def write_row(name, val):
         # val: [B, 1, ...], the new token's row per sequence.
         buf = entry[name][period]                           # [B, S, ...]
-        if vector_pos:
+        if vector_pos and ring:
+            buf[rows, pos_w] = val[:, 0].to(buf.dtype)
+        elif vector_pos:
             # A row at or past the cache's end (an idle slot's position
             # keeps counting) is dropped, as the reference's scatter
             # drops it; no host sync.
@@ -674,7 +719,7 @@ def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
             buf[rows, at] = torch.where(
                 keep, val[:, 0].to(buf.dtype), buf[rows, at])
         else:
-            buf[:, pos.reshape(1)] = val.to(buf.dtype)
+            buf[:, pos_w.reshape(1)] = val.to(buf.dtype)
         return buf
 
     if cfg.kv_dtype == "int8":
@@ -684,13 +729,17 @@ def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
     else:
         bufs = [write_row("k", k), write_row("v", v)]
 
-    # A windowed step at aligned positions reads only the last `window`
-    # cache rows (O(window) traffic, not a masked full read); per-sequence
-    # positions read the full cache and let decode_attention's per-row
-    # mask bound each window.
-    s_cache = bufs[0].shape[1]
+    # A ring buffer holds only rows within the window: attend over every
+    # resident row (attention is permutation-invariant, so the wrap's
+    # order does not matter).  Otherwise a windowed step at aligned
+    # positions reads only the last `window` cache rows (O(window)
+    # traffic, not a masked full read); per-sequence positions read the
+    # full cache and let decode_attention's per-row mask bound each
+    # window.
     cur, win_mask = pos + 1, window
-    if not vector_pos and window is not None and s_cache > window:
+    if ring:
+        cur, win_mask = torch.clamp(pos + 1, max=s_cache), None
+    elif not vector_pos and window is not None and s_cache > window:
         start = torch.clamp(pos + 1 - window, 0, s_cache - window)
         idx = start + torch.arange(window, device=x.device)
         bufs = [t.index_select(1, idx) for t in bufs]
@@ -741,7 +790,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     (``use_window`` or ``always_swa``) and a scalar position, attention
     reads only the last ``sliding_window`` cache rows when the cache is
     longer than that; with vector positions it reads the whole cache
-    under the window's mask.
+    under the window's mask.  With ``ring_kv`` a sequence's row is
+    ``pos % S`` (every slot's, idle ones too, as in the reference), and
+    attention reads every resident row with no window mask.
     """
     b = token.shape[0]
     pos = cache["pos"]

@@ -1,14 +1,20 @@
 """Mixture-of-Experts layer with capacity-based dispatch (port of
 ``repro.models.moe``).
 
-Two expert-weight representations share one dispatch/combine path:
+Three expert-weight representations share one dispatch/combine path:
 
 * ``float``     — plain bf16/f32 expert weights ``experts/{wi, wo}``;
 * ``quantized`` — AMAT codes ``experts/{wi_q, wo_q}`` (QuantizedTensor),
-  optionally with the output-major ``wo_codes_t``.  With
-  ``quant_execution`` the expert FFN runs on the packed codes through the
-  Hopper kernel; otherwise the weights are dequantized first (the eager
-  oracle path).
+  optionally with the output-major ``wo_codes_t`` (the engine's tree,
+  :func:`repro_torch.core.slices.quantize_moe_params`);
+* ``flat``      — the same AMAT codes as plain leaves
+  ``experts/{wi,wo}_{codes,scales,zps}`` (``quantized_serve``,
+  :func:`quantize_params_for_serve`), read with ``mat``'s bits and group
+  size; it has no ``wo_codes_t``, so ``wo`` runs on its K-major codes.
+
+With ``quant_execution`` the expert FFN of either quantized form runs on
+the packed codes through the Hopper kernel; otherwise the weights are
+dequantized first (the eager oracle path).
 
 Dispatch is the Switch/GShard capacity scheme: per-k-slot one-hot
 position ranking, scatter into an ``[E, C, d]`` buffer, batched expert
@@ -30,7 +36,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import routing as R
-from repro_torch.core.amat import MatConfig, dequant_mixed
+from repro_torch.core.amat import (MatConfig, amat_quantize_stacked,
+                                   dequant_mixed)
 from repro_torch.kernels.amat_matmul.ops import (amat_expert_matmul_qt,
                                                  amat_expert_matmul_t)
 from repro_torch.models.layers import (ffn_activation, mlp_apply,
@@ -325,10 +332,16 @@ def moe_apply(
     experts = params["experts"]
     quant_exec = quant_execution if quant_execution is not None else \
         (policy.quant_execution if policy is not None else False)
-    if "wi_q" in experts:
+    if "wi_q" in experts or "wi_codes" in experts:
         if mat is None:
             raise ValueError("quantized experts need a MatConfig (mat=)")
-        wi_qt, wo_qt = experts["wi_q"], experts["wo_q"]
+        if "wi_q" in experts:
+            wi_qt, wo_qt = experts["wi_q"], experts["wo_q"]
+        else:
+            wi_qt, wo_qt = (QuantizedTensor(
+                experts[f"{n}_codes"], experts[f"{n}_scales"],
+                experts[f"{n}_zps"], mat.high_bits, mat.group_size, True)
+                for n in ("wi", "wo"))
         if quant_exec:
             ye = _expert_ffn_quant(xe, wi_qt, wo_qt, experts.get("wo_codes_t"),
                                    use_lsb, mat.shift, cfg.mlp_type)
@@ -358,6 +371,49 @@ def moe_apply(
         aux["active"] = active if active is not None \
             else torch.ones(ids.shape, dtype=torch.bool, device=x.device)
     return y, aux
+
+
+def quantize_params_for_serve(params: dict, cfg, mat: MatConfig) -> dict:
+    """Replace float expert weights by flat-dict AMAT tensors (the
+    ``quantized_serve`` form): each MoE block's ``experts`` becomes
+    ``{wi,wo}_{codes,scales,zps}`` (codes and zero-points ``uint8``,
+    scales f32), quantized one expert matrix at a time
+    (:func:`repro_torch.core.amat.amat_quantize_stacked`: the reference's
+    codes, scales and zero-points, without its whole-stack f32 copy).
+    Every other leaf is the same tensor, not a copy."""
+    new_blocks = {}
+    for pos, blk in params["blocks"].items():
+        if "moe" in blk:
+            blk = dict(blk)
+            moe = dict(blk["moe"])
+            e = moe["experts"]
+            out = {}
+            for name in ("wi", "wo"):
+                qt = amat_quantize_stacked(e[name], mat)
+                out[f"{name}_codes"] = qt.codes
+                out[f"{name}_scales"] = qt.scales
+                out[f"{name}_zps"] = qt.zero_points
+            moe["experts"] = out
+            blk["moe"] = moe
+        new_blocks[pos] = blk
+    new_params = dict(params)
+    new_params["blocks"] = new_blocks
+    return new_params
+
+
+def quantized_expert_shapes(d_model: int, cfg: MoECfg,
+                            group_size: int = 32) -> dict:
+    """Shapes of the flat-dict AMAT experts of one MoE layer."""
+    wi_cols = 2 * cfg.d_ff if cfg.mlp_type in ("swiglu", "geglu") else cfg.d_ff
+    E = cfg.n_experts
+    return {
+        "wi_codes": (E, d_model, wi_cols),
+        "wi_scales": (E, d_model // group_size, wi_cols),
+        "wi_zps": (E, d_model // group_size, wi_cols),
+        "wo_codes": (E, cfg.d_ff, d_model),
+        "wo_scales": (E, cfg.d_ff // group_size, d_model),
+        "wo_zps": (E, cfg.d_ff // group_size, d_model),
+    }
 
 
 def moe_param_shapes(d_model: int, cfg: MoECfg) -> dict:

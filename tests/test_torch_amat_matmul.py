@@ -17,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.amat import MatConfig, amat_quantize_stacked
 from repro_torch.kernels.amat_matmul import ops as TOPS
-from repro_torch.kernels.amat_matmul.ref import amat_matmul_ref
+from repro_torch.kernels.amat_matmul.ref import (amat_batched_matmul_ref,
+                                                 amat_matmul_ref)
 from repro_torch.quant.groupquant import quantize
 
 # One intra-op thread per test process: parallel test workers would
@@ -366,3 +368,33 @@ def test_cuda_wrapper_raises_on_bad_input(cuda_device):
                      device=cuda_device)[1:].view(3, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         TOPS.amat_matmul(xb, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xd", sorted(X_DTYPES))
+@pytest.mark.parametrize("M", [8, 69])
+def test_cuda_k1_at_the_flat_wo_shape(cuda_device, M, xd):
+    """K1 on K-major ``wo`` codes, the route of the ``quantized_serve``
+    tree (no output-major copy): qwen15-moe-a2.7b's ``wo`` (E=60, K=1408,
+    N=2048) at the decode (M=8) and 4 x 128-token prefill (M=69)
+    capacities, the weights quantized the way ``quantize_params_for_serve``
+    quantizes them, half the experts MSB-only."""
+    E, K, N = 60, 1408, 2048
+    rng = np.random.default_rng(29)
+    w = torch.from_numpy((rng.standard_normal((E, K, N)) * K ** -0.5)
+                         .astype(np.float32)).to(cuda_device)
+    qt = amat_quantize_stacked(w, MatConfig(8, 4))
+    del w
+    x = torch.from_numpy(rng.standard_normal((E, M, K)).astype(np.float32))
+    x = x.to(X_DTYPES[xd]).to(cuda_device)
+    use_lsb = torch.arange(E, device=cuda_device) % 2 == 0
+    plain = amat_batched_matmul_ref(x, qt.codes, qt.scales, qt.zero_points,
+                                    use_lsb, group_size=32, shift=4)
+    before = TOPS.LAUNCHES.by_key["k_major"]
+    got = TOPS.amat_expert_matmul_qt(x, qt, use_lsb, shift=4)
+    torch.cuda.synchronize()
+    assert TOPS.LAUNCHES.by_key["k_major"] == before + 1
+    assert got.shape == (E, M, N) and got.dtype == torch.float32
+    # f32 accumulation in another order than the plain version's bmm.
+    err = (got - plain).abs()
+    assert bool((err <= 1e-4 + 1e-4 * plain.abs()).all()), float(err.max())

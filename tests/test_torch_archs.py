@@ -28,10 +28,10 @@ through the six configurations they unlock: ``smollm-360m``,
   reference's ``launch/serve.py:314``); ``llama4-scout`` (top-1, one
   shared expert) served by both packages' SliceMoE servers with
   quantized execution (tokens, cache stats exact; ledger rtol 1e-6).
-* The settings still unported (``ring_kv``, ``quantized_serve``) raise
-  ``NotImplementedError`` naming 'remaining architectures'; the four that
-  raised before prefix embeddings and the encoder-decoder were ported
-  give the reference's ``param_shapes`` and ``init_cache``.
+* ``ring_kv`` and ``quantized_serve``, the last settings ported (their
+  parity is ``tests/test_torch_{ring_kv,serve_variants}.py``), and the
+  four that raised before prefix embeddings and the encoder-decoder were
+  ported give the reference's ``param_shapes`` and ``init_cache``.
 """
 
 import dataclasses
@@ -490,21 +490,31 @@ def test_llama4_scout_served_by_both_packages():
     assert all(c["decode_totals"]["total_energy_j"] > 0 for c in port)
 
 
-# ----------------------------------------------------------------- unported
+# ------------------------------------------------ once unported settings
 def _over_id(d):
     return next(iter(d)) + "=" + str(next(iter(d.values())))
+
+
+def _cache_view(cache):
+    """An ``init_cache`` tree's leaves as (shape, dtype name)."""
+    return {k: {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                for n, t in v.items()}
+            for k, v in cache.items() if k != "pos"}
 
 
 @pytest.mark.parametrize("over", [
     dict(ring_kv=True), dict(quantized_serve=True),
 ], ids=_over_id)
 def test_unported_settings_name_their_queue_item(over):
-    cfg = dataclasses.replace(TC.get_config("smollm-360m").reduced(), **over)
-    for fn in (lambda: TM.param_shapes(cfg),
-               lambda: TM.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="remaining architectures"):
-            fn()
+    """The two settings that raised until the serving variants were
+    ported (queue 1 item 1d): both now build, with the reference's
+    ``param_shapes`` and ``init_cache``, on a dense and a MoE config."""
+    for arch in ("smollm-360m", "llama4-scout-17b-a16e"):
+        jcfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        tcfg = dataclasses.replace(TC.get_config(arch).reduced(), **over)
+        assert TM.param_shapes(tcfg) == JM.param_shapes(jcfg)
+        assert _cache_view(TM.init_cache(tcfg, 1, 8, device="cpu")) == \
+            _cache_view(JM.init_cache(jcfg, 1, 8))
 
 
 @pytest.mark.parametrize("over", [
@@ -518,12 +528,6 @@ def test_prefix_and_encoder_settings_match_reference(over):
     jcfg = dataclasses.replace(get_config("smollm-360m").reduced(), **over)
     tcfg = dataclasses.replace(TC.get_config("smollm-360m").reduced(), **over)
     assert TM.param_shapes(tcfg) == JM.param_shapes(jcfg)
-
-    def view(cache):
-        return {k: {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
-                    for n, t in v.items()}
-                for k, v in cache.items() if k != "pos"}
-
     got = TM.init_cache(tcfg, 2, 8, device="cpu")
-    assert view(got) == view(JM.init_cache(jcfg, 2, 8))
+    assert _cache_view(got) == _cache_view(JM.init_cache(jcfg, 2, 8))
     assert ("ck" in got["pos0"]) == bool(over.get("encoder_layers"))

@@ -211,8 +211,18 @@ def test_batched_decode_vector_positions_and_token_mask(model):
 
 
 def test_unported_model_features_raise(model):
-    """All six architectures are ported; ring KV is not
-    (``tests/test_torch_archs.py`` lists every unported setting)."""
-    _, tcfg, _, _ = model
-    with pytest.raises(NotImplementedError, match="remaining architectures"):
-        TM.param_shapes(dataclasses.replace(tcfg, ring_kv=True))
+    """Nothing of the reference's model is left unported: ring KV, the
+    last setting this test pinned as a raise, builds the reference's
+    parameter shapes and cache (``tests/test_torch_ring_kv.py`` holds its
+    decode)."""
+    jcfg, tcfg, _, _ = model
+    jring = dataclasses.replace(jcfg, ring_kv=True)
+    tring = dataclasses.replace(tcfg, ring_kv=True)
+    assert TM.param_shapes(tring) == JM.param_shapes(jring)
+    got = TM.init_cache(tring, 2, MAX_SEQ, device="cpu")
+    want = JM.init_cache(jring, 2, MAX_SEQ)
+    assert set(got) == set(want)
+    for key, entry in got.items():
+        if key != "pos":
+            assert {n: tuple(t.shape) for n, t in entry.items()} == \
+                {n: a.shape for n, a in want[key].items()}

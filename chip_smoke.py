@@ -375,10 +375,37 @@ it goes, any failure exiting non-zero:
    "starcoder2-3b").reduced(), dtype="float32"), ring_prompt=60,
    ring_steps=10)`` (about 2 s).
 
+16. the launch layer and the dry-run, last, with no model resident
+   (``phase_launch``; ``[phase16]`` lines give each sub-phase's seconds
+   with the card's name and power limit; the phase fails past 60 s):
+   16a. ``launch.dryrun.run_pair`` in this process on the single-pod mesh
+       for every shape of smollm-360m and llama4-maverick-400b-a17b, each
+       step run on the ``meta`` device (``[dryrun]`` lines: argument bytes
+       a device, the H100 roofline terms, the meta run's seconds); fails
+       on any ``error``;
+   16b. four pairs through ``step_for_shape`` at full width and depth,
+       only the global batch cut: smollm-360m x train_4k (B=1),
+       starcoder2-3b x prefill_32k (B=1), gemma-7b x decode_32k (B=2, a
+       full 32768-row cache) and mamba2-2.7b x long_500k (B=1), each on
+       inputs made on the card from ``input_specs(cfg, shape,
+       make_host_mesh())`` (``[launch]`` lines).  Hard checks: the inputs'
+       bytes equal the spec tree's ``argument_size_in_bytes``; no K1-K5
+       launch (the reference's steps set no ``quant_execution``); every
+       output finite, every train loss finite, the prefill's cache at its
+       prompt's length, decode's token the argmax of its logits and its
+       cache position one further; the peak below 70 GB.  Printed: the
+       median wall of 3 calls after a warm-up (a pair whose first call
+       takes over 5 s: that call), the peak and the temp bytes over the
+       arguments, the H100 roofline of ``launch.costs.analytic_costs`` at
+       the cut shape and wall / bound.
+   Rehearse on the CPU with ``phase_launch(device="cpu", configs={arch:
+   get_config(arch).reduced() for arch, _, _ in P16_PAIRS}, seq_len=512)``
+   (about 40 s).
+
 ``--profile`` adds a phase run between 5 and 5b: a second round of the
 same traffic with its decode steps under ``torch.profiler`` (device time
 and launches per step by kernel, the engine's host ranges, the device's
-busy share).  Without arguments the script runs phases 1 to 15.
+busy share).  Without arguments the script runs phases 1 to 16.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
@@ -405,13 +432,6 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# Card peaks (NVIDIA H100 SXM data sheet, dense) for the bound of each
-# kernel: HBM3, and operations by the type of their operands: bf16 and
-# tf32 on the tensor cores (a bf16 x bf16 or tf32 x tf32 product is exact
-# in an f32 accumulator), f32 on the CUDA cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 494.7e12, "f32": 67e12}
 
 TOL_ABS, TOL_REL = 1e-4, 1e-4
 
@@ -555,11 +575,15 @@ def _kernel_inputs(E, M, K, N, *, seed, transposed, x_dtype, mat=None):
 def _bound(nbytes: float, flops: dict):
     """The least time the card could take: the largest of the bytes over
     HBM3's rate and, for each operand type, its operations (``flops``,
-    by key of :data:`PEAK_FLOPS`) over the card's peak for that type.
-    The tensor cores and the CUDA cores run side by side, so the types'
-    times do not add."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(n / PEAK_FLOPS[kind] * 1e3 for kind, n in flops.items())
+    by key of ``H100.peak_flops``: bf16 and tf32 on the tensor cores, f32
+    on the CUDA cores) over the card's peak for that type
+    (``repro_torch.hw.specs.H100``, the data sheet's dense rates).  The
+    tensor cores and the CUDA cores run side by side, so the types' times
+    do not add."""
+    from repro_torch.hw.specs import H100
+
+    t_bytes = nbytes / H100.hbm_bytes_per_s * 1e3
+    t_ops = max(n / H100.peak_flops[kind] * 1e3 for kind, n in flops.items())
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -4270,6 +4294,229 @@ def phase_serving_variants_b(cfg, sums, t_a: float, device: str = "cuda",
     return seconds
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the launch layer and the dry-run.
+# 16a's pairs: every shape of the smallest and the largest arch.  The 40
+# single-mesh pairs take 66.8 s of host time on the meta device on the
+# H100 machine's CPU, over three times 16a's share of the phase's budget.
+P16_DRY_ARCHS = ("smollm-360m", "llama4-maverick-400b-a17b")
+# 16b: (arch, shape, global batch) at full width and depth, only the
+# batch cut, to the largest power of two whose peak stays under
+# P16_PEAK_GB (train_4k at B=1 peaks at 49.2 GB on an H100 and B=2 runs
+# out of its 80 GB: 15 heads x 4096^2 f32 scores kept for backward in
+# each of 32 layers).
+P16_PAIRS = (("smollm-360m", "train_4k", 1),
+             ("starcoder2-3b", "prefill_32k", 1),
+             ("gemma-7b", "decode_32k", 2),
+             ("mamba2-2.7b", "long_500k", 1))
+P16_PEAK_GB = 70.0
+P16_TIMED = 3                    # after one warm-up call
+# A pair whose first call takes longer is timed by that call alone:
+# starcoder2-3b's 32k prefill read 23.02, 23.00, 23.00 and 23.00 s in
+# four calls on an H100, so a warm-up changes nothing there, and four
+# calls would take the whole budget.
+P16_LONG_CALL_S = 5.0
+P16_BUDGET_S = 60.0
+
+
+def _say16(msg: str, card: str) -> None:
+    say(f"[phase16] {msg}; card {card}")
+
+
+def _tensors(tree):
+    """The tensor leaves of a tree of dicts and tuples (named tuples
+    included)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _finite(t: torch.Tensor) -> bool:
+    """Every element finite; a large tensor is checked one slice of its
+    first dimension at a time (a whole KV stack's flags would take as
+    many bytes as its elements)."""
+    if not t.is_floating_point():
+        return True
+    if t.numel() <= 1 << 28:
+        return bool(torch.isfinite(t).all())
+    return all(_finite(c) for c in t)
+
+
+def phase_dryrun(card: str, archs=P16_DRY_ARCHS) -> float:
+    """16a: ``launch.dryrun.run_pair`` in this process over every shape of
+    ``archs`` on the single-pod mesh, the step of each pair run on the
+    ``meta`` device.  Fails on any ``error``.  Returns the seconds."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import run_pair
+
+    t0 = time.perf_counter()
+    counts = {"ok": 0, "skipped": 0, "error": 0}
+    for arch in archs:
+        for shape in SHAPES:
+            rec = run_pair(arch, shape, "single", save=False)
+            counts[rec["status"]] += 1
+            if rec["status"] == "ok":
+                rl = rec["roofline"]
+                say(f"[dryrun] {arch} {shape}: ok, args "
+                    f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB "
+                    f"a device of {rec['n_chips']}, compute "
+                    f"{rl['compute_s']:.3e} s, memory {rl['memory_s']:.3e} s "
+                    f"({rl['dominant']}), meta run {rec['compile_s']} s")
+            elif rec["status"] == "skipped":
+                say(f"[dryrun] {arch} {shape}: skipped ({rec['reason']})")
+            else:
+                say(f"[dryrun] {arch} {shape}: ERROR {rec['error']}")
+    seconds = time.perf_counter() - t0
+    _say16(f"16a dry-run of {', '.join(archs)} x {len(SHAPES)} shapes on "
+           f"the single-pod mesh: ok {counts['ok']}, skipped "
+           f"{counts['skipped']}, error {counts['error']} in {seconds:.1f} s",
+           card)
+    if counts["error"]:
+        fail(f"16a: {counts['error']} dry-run pairs failed")
+    return seconds
+
+
+def _launch_pair(cfg, shape, card: str, device: str) -> None:
+    """One 16b pair: the step of ``shape`` on inputs made on ``device``
+    from ``input_specs`` on the host mesh, one warm-up call and
+    ``P16_TIMED`` timed ones, each ending in a synchronize."""
+    from repro_torch.hw.specs import H100
+    from repro_torch.launch.costs import analytic_costs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import (argument_size_in_bytes,
+                                          input_specs, materialize)
+    from repro_torch.launch.steps import shape_supported, step_for_shape
+
+    on_card = device == "cuda"
+    tag = f"{cfg.name} x {shape.name} (B={shape.global_batch})"
+    supported, reason = shape_supported(cfg, shape)
+    if not supported:
+        fail(f"16b {tag}: {reason}")
+    specs = input_specs(cfg, shape, make_host_mesh(device))
+    want = argument_size_in_bytes(specs)
+    _release_any(on_card)
+    _peak_reset(on_card)
+    args = materialize(specs, device, seed=0)
+    got = sum(t.numel() * t.element_size() for t in _tensors(args))
+    if got != want:
+        fail(f"16b {tag}: the inputs hold {got} bytes, the spec tree "
+             f"{want}")
+    pos_in = None
+    if shape.kind == "train":
+        # The master copy starts as the parameters, as init_state makes it.
+        for p, m in zip(_tensors(args[0]), _tensors(args[1].master)):
+            m.copy_(p)
+    if shape.kind == "decode":
+        # A full cache: the step writes the last row and reads them all.
+        pos_in = shape.seq_len - 1
+        args[1]["pos"].fill_(pos_in)
+    step, _ = step_for_shape(cfg, shape)
+
+    def calls():
+        walls, losses, out = [], [], None
+        while len(walls) < 1 + P16_TIMED:
+            _sync_any(on_card)
+            t0 = time.perf_counter()
+            out = step(*args)
+            _sync_any(on_card)
+            walls.append(time.perf_counter() - t0)
+            if shape.kind == "train":
+                losses.append(float(out[2]["loss"]))
+            if walls[0] > P16_LONG_CALL_S:
+                break
+        return out, walls, losses
+
+    (out, walls, losses), launches = _counted(calls)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    if any(launches.values()):
+        fail(f"16b {tag}: kernel launches {launches}; the reference's steps "
+             "set no quant_execution")
+    if not all(_finite(t) for t in _tensors(out)):
+        fail(f"16b {tag}: an output is not finite")
+    if shape.kind == "train" and not all(np.isfinite(losses)):
+        fail(f"16b {tag}: losses {losses}")
+    if shape.kind == "prefill" and int(out[1]["pos"]) != shape.seq_len:
+        fail(f"16b {tag}: cache position {int(out[1]['pos'])} after the "
+             f"prefill, want {shape.seq_len}")
+    if shape.kind == "decode":
+        token, logits, cache = out
+        if not torch.equal(token, logits.argmax(-1).to(token.dtype)):
+            fail(f"16b {tag}: the next token is not the logits' argmax")
+        if int(cache["pos"]) != pos_in + 1:
+            fail(f"16b {tag}: cache position {int(cache['pos'])}, want "
+                 f"{pos_in + 1}")
+    timed = walls[1:] or walls
+    wall = float(np.median(timed))
+    ac = analytic_costs(cfg, shape)
+    compute_s = H100.compute_term_s(ac.flops, 1)
+    memory_s = H100.memory_term_s(ac.hbm_bytes, 1)
+    bound = max(compute_s, memory_s)
+    mem = "peak not measured (CPU)"
+    if peak is not None:
+        mem = (f"peak {peak / 1e9:.2f} GB, temp {(peak - want) / 1e9:.2f} "
+               "GB over the arguments")
+    extra = f"; losses {', '.join(f'{x:.4f}' for x in losses)}" \
+        if losses else ""
+    say(f"[launch] {tag}: arguments {want / 1e9:.3f} GB (= the spec tree's "
+        f"argument_size_in_bytes), wall median {wall:.4f} s of "
+        f"{len(timed)} (calls {', '.join(f'{w:.4f}' for w in walls)} s"
+        f"{', the first a warm-up' if len(walls) > 1 else ''}), {mem}; "
+        f"roofline compute {compute_s:.4e} s, "
+        f"memory {memory_s:.4e} s (analytic {ac.flops:.4e} FLOP, "
+        f"{ac.hbm_bytes:.4e} B), wall / bound {wall / bound:.2f}; K1-K5 "
+        f"launches 0; outputs finite{extra}; card {card}")
+    if peak is not None and peak > P16_PEAK_GB * 1e9:
+        fail(f"16b {tag}: peak {peak / 1e9:.2f} GB over the batch cut's "
+             f"{P16_PEAK_GB:.0f} GB")
+    del args, out
+
+
+def phase_launch_steps(card: str, device: str = "cuda", pairs=P16_PAIRS,
+                       configs=None, seq_len=None) -> float:
+    """16b: each of ``pairs`` through ``step_for_shape`` at full width and
+    depth (``configs``, arch -> config, and ``seq_len`` replace them to
+    rehearse on the CPU), the global batch cut.  Returns the seconds."""
+    from repro_torch.configs.base import SHAPES, get_config
+
+    t0 = time.perf_counter()
+    for arch, shape_name, batch in pairs:
+        cfg = (configs or {}).get(arch) or get_config(arch)
+        cut = {"global_batch": batch}
+        if seq_len:
+            cut["seq_len"] = seq_len
+        shape = dataclasses.replace(SHAPES[shape_name], **cut)
+        _launch_pair(cfg, shape, card, device)
+        _release_any(device == "cuda")
+    return time.perf_counter() - t0
+
+
+def phase_launch(device: str = "cuda", dry_archs=P16_DRY_ARCHS,
+                 pairs=P16_PAIRS, configs=None, seq_len=None) -> float:
+    """Phase 16 (last, with no model resident): 16a ``phase_dryrun``, 16b
+    ``phase_launch_steps``.  The comparison of ``torch_kernels_micro``
+    with its baseline (``python -m benchmarks.torch_run --compare --only
+    torch_kernels_micro``, a full run of the benchmark) runs as a command
+    of its own: with it the phase would pass its budget.  Fails on the
+    card past ``P16_BUDGET_S``.  Returns the seconds."""
+    on_card = device == "cuda"
+    card = smi_name_power() if on_card else "none (CPU)"
+    t_a = phase_dryrun(card, dry_archs)
+    t_b = phase_launch_steps(card, device, pairs, configs, seq_len)
+    seconds = t_a + t_b
+    _say16(f"16a {t_a:.1f} s, 16b {t_b:.1f} s: phase 16 adds "
+           f"{seconds:.1f} s to the run (host clock; budget "
+           f"{P16_BUDGET_S:.0f} s)", card)
+    if on_card and seconds > P16_BUDGET_S:
+        fail(f"phase 16 took {seconds:.1f} s, over its {P16_BUDGET_S:.0f} s "
+             "budget")
+    return seconds
+
+
 def _scheme_configs(cfg):
     """Phase 6's two serving schemes, both with quantized execution and a
     slice cache of a quarter of the store: Fig. 9's ``buddy_highbit``, and
@@ -4865,6 +5112,8 @@ def main() -> None:
     _release()
     say(f"[phase8] 8a {t_8a:.1f} s, 8b {t_8b:.1f} s: phase 8 adds "
         f"{t_8a + t_8b:.1f} s to the run (host clock)")
+    phase_launch()
+    _release()
     amat_src = "src/repro_torch/kernels/amat_matmul/csrc/amat_batched_matmul.cu"
     kernels = []
     for variant, key, source, replaces in (

@@ -15,6 +15,8 @@ paper-reproduction MoE models (``REPRO_IDS``) and the full-width
 (2 layers, or two periods of a longer pattern; d_model <= 256, <= 4
 experts, an SSM state of <= 16 with heads of 32 and chunks of 32, <= 2
 encoder layers over <= 16 frames, a prefix of <= 8) of the same family.
+``SHAPES`` holds the four input shapes of the dry-run and the launch
+layer (``ShapeConfig``: a train, a prefill and two decode shapes).
 """
 
 from __future__ import annotations
@@ -132,6 +134,26 @@ class ModelConfig:
             total += n
         return total
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        from repro_torch.models.moe import moe_param_shapes
+
+        es = moe_param_shapes(self.d_model, self.moe)["experts"]
+        per_expert = 0
+        for shape in es.values():
+            n = 1
+            for s in shape[1:]:
+                n *= s
+            per_expert += n
+        n_moe_layers = sum(
+            1 for b in self.block_pattern if b.ffn == "moe") * self.n_periods
+        inactive = per_expert * (self.moe.n_experts - self.moe.top_k) \
+            * n_moe_layers
+        return total - inactive
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims (the reference's
         rule)."""
@@ -170,6 +192,25 @@ class ModelConfig:
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else None,
         )
+
+
+# --------------------------------------------------------------------------
+# Input shapes (the reference's four, same names and numbers)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 ARCH_IDS = (

@@ -6,6 +6,11 @@ LPDDR4 DRAM + UFS 3.1 Flash), and ``TPU_OFFLOAD``, the reference's
 ``tpu_offload`` profile, whose constants are copied so that a trace
 recorded under it replays to the same totals here.  Both are simulated
 devices, not the card the port runs on.
+
+Two roofline records: ``TPU_V5E`` (``TPUSpec``), the reference's, copied
+under its name and read by nothing that describes the card, and
+``H100`` (``GPUSpec``), the card's peaks and HBM rate, which the dry-run
+(``launch/dryrun.py``) and ``chip_smoke.py``'s bounds read.
 """
 
 from __future__ import annotations
@@ -156,6 +161,79 @@ TPU_OFFLOAD = SystemSpec(
         energy_pj_per_bit=0.5,
         capacity_bytes=float("inf"),
     ),
+)
+
+# --- Roofline records ------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TPUSpec:
+    """The reference's TPU roofline record (``repro/hw/specs.py:134-151``),
+    copied under its name.  ``TPU_V5E`` describes no device this package
+    runs on; the port's dry-run and chip checks read :data:`H100`."""
+
+    name: str
+    peak_flops_bf16: float
+    hbm_bytes_per_s: float
+    ici_bytes_per_s_per_link: float
+    hbm_capacity_bytes: float
+    vmem_bytes: float
+
+    def compute_term_s(self, flops: float, chips: int) -> float:
+        return flops / (chips * self.peak_flops_bf16)
+
+    def memory_term_s(self, hbm_bytes: float, chips: int) -> float:
+        return hbm_bytes / (chips * self.hbm_bytes_per_s)
+
+    def collective_term_s(self, coll_bytes: float, chips: int) -> float:
+        return coll_bytes / (chips * self.ici_bytes_per_s_per_link)
+
+
+TPU_V5E = TPUSpec(
+    name="tpu_v5e",
+    peak_flops_bf16=197e12,
+    hbm_bytes_per_s=819e9,
+    ici_bytes_per_s_per_link=50e9,
+    hbm_capacity_bytes=16 * 2**30,
+    vmem_bytes=128 * 2**20,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPUSpec:
+    """The roofline constants of one card: dense peaks by operand type
+    (``peak_flops``: bf16 and tf32 on the tensor cores, f32 on the CUDA
+    cores) and the HBM rate.  No collective term: the port runs on one
+    card and has no partitioner that would insert collectives."""
+
+    name: str
+    peak_flops_bf16: float
+    peak_flops_tf32: float
+    peak_flops_f32: float
+    hbm_bytes_per_s: float
+    hbm_capacity_bytes: float
+
+    @property
+    def peak_flops(self) -> dict:
+        """Peak operations per second by operand type."""
+        return {"bf16": self.peak_flops_bf16, "tf32": self.peak_flops_tf32,
+                "f32": self.peak_flops_f32}
+
+    def compute_term_s(self, flops: float, chips: int) -> float:
+        return flops / (chips * self.peak_flops_bf16)
+
+    def memory_term_s(self, hbm_bytes: float, chips: int) -> float:
+        return hbm_bytes / (chips * self.hbm_bytes_per_s)
+
+
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit: bf16
+# and TF32 on the tensor cores (a bf16 x bf16 or tf32 x tf32 product is
+# exact in an f32 accumulator), f32 on the CUDA cores; 80 GB of HBM3.
+H100 = GPUSpec(
+    name="h100_sxm",
+    peak_flops_bf16=989e12,
+    peak_flops_tf32=494.7e12,
+    peak_flops_f32=67e12,
+    hbm_bytes_per_s=3.35e12,
+    hbm_capacity_bytes=80e9,
 )
 
 SYSTEM_PROFILES = {

@@ -1,1 +1,2 @@
-"""Launch layer: the training entry point and its step function."""
+"""Launch layer: meshes, sharding, input specs, step factories, the
+train and serve entry points and the shape dry-run."""

@@ -2,13 +2,16 @@
 ``python -m repro_torch.launch.train --arch qwen15-moe-repro ...``
 
 Trains on one device, ``cuda`` unless ``--device`` says otherwise, on the
-synthetic zipf-markov stream.  A prefix config (``internvl2-1b``) trains
+synthetic zipf-markov stream: the host mesh (``--mesh host``,
+``launch/mesh.py::make_host_mesh``), on whose one device
+``init_sharded_params`` places every parameter whole.  A prefix config (``internvl2-1b``) trains
 on the text after ``prefix_len`` tokens are cut off each batch, behind
 stub patch embeddings; an encoder-decoder (``whisper-small``) on stub
 encoder frames; both stubs are numpy draws seeded by the step, scaled by
-0.02, as the reference draws them.  The reference's ``--mesh
-pod|multipod`` lowers onto a TPU pod mesh and raises here (ROADMAP.md
-queue 1, 'Launch and dry-run, last').
+0.02, as the reference draws them.  ``--mesh pod|multipod`` builds the
+production mesh over the visible CUDA devices and raises ``ValueError``
+when fewer than its 256 or 512 are visible, as the reference's
+``jax.make_mesh`` does.
 """
 
 from __future__ import annotations
@@ -24,28 +27,31 @@ from repro_torch.checkpoint import ckpt as CKPT
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as MDL
 from repro_torch.optim import adamw as OPT
 
 
 def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
-               opt_cfg=None, log_every: int = 10,
+               opt_cfg=None, mesh=None, log_every: int = 10,
                ckpt_dir: str | None = None, seed: int = 0,
                collect_history: bool = False, device=None):
     """Returns final (params, opt_state, history).  Params start from the
-    port's init with ``seed``; ``history`` holds the metrics of every
-    logged step (of every step with ``collect_history``) with ``step``
-    and ``wall_s``, the seconds since the loop began, read after the
-    step's loss reached the host."""
-    dev = resolve_device(device)
+    port's init with ``seed`` on ``mesh`` (default: the host mesh of
+    ``device``); ``history`` holds the metrics of every logged step (of
+    every step with ``collect_history``) with ``step`` and ``wall_s``,
+    the seconds since the loop began, read after the step's loss reached
+    the host."""
+    mesh = mesh or make_host_mesh(device)
+    dev = _mesh_device(mesh)
     opt_cfg = opt_cfg or OPT.AdamWConfig(total_steps=steps,
                                          warmup_steps=max(steps // 10, 1))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=seq_len,
                                   global_batch=global_batch, seed=seed))
     step_fn = make_train_step(cfg, opt_cfg)
-    params = MDL.init_params(cfg, seed=seed, device=dev)
+    params = init_sharded_params(cfg, mesh, seed)
     opt_state = OPT.init_state(params, opt_cfg)
 
     history = []
@@ -78,6 +84,21 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     if ckpt_dir:
         CKPT.save(ckpt_dir, {"params": params}, step=steps)
     return params, opt_state, history
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The one device of a mesh; the port places a tree on one device."""
+    if len(mesh.devices) != 1:
+        raise ValueError(
+            f"a mesh over {len(mesh.devices)} devices: the port places "
+            "parameters on one device and has no sharded runtime")
+    return mesh.devices[0]
+
+
+def init_sharded_params(cfg, mesh, seed: int):
+    """init_params with per-leaf device placement matching the rules: on a
+    one-device mesh, every shard is the whole leaf on that device."""
+    return MDL.init_params(cfg, seed=seed, device=_mesh_device(mesh))
 
 
 def _stub(cfg, shape, seed, device) -> torch.Tensor:
@@ -117,18 +138,18 @@ def main():
                     help="torch device (default: cuda)")
     args = ap.parse_args()
 
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} lowers onto a TPU pod mesh, which is not "
-            "ported (ROADMAP.md queue 1, 'Launch and dry-run, last')")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = {"host": lambda: make_host_mesh(args.device),
+            "pod": lambda: make_production_mesh(multi_pod=False),
+            "multipod": lambda: make_production_mesh(multi_pod=True)}[
+        args.mesh]()
     opt_cfg = OPT.AdamWConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 10, 1))
     _, _, history = train_loop(
         cfg, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
-        opt_cfg=opt_cfg, ckpt_dir=args.ckpt, device=args.device)
+        opt_cfg=opt_cfg, mesh=mesh, ckpt_dir=args.ckpt)
     print(json.dumps(history[-1]))
 
 

@@ -14,6 +14,7 @@ cross-attention are ``attention`` with ``causal=False``
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -60,6 +61,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+
+    @property
+    def q_rep(self) -> int:
+        return self.n_heads // self.n_kv_heads
 
 
 def _expand_kv(k: torch.Tensor, rep: int) -> torch.Tensor:

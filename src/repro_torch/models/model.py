@@ -84,7 +84,7 @@ the process).
 
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from typing import Iterator, Optional
 
 import numpy as np
@@ -528,6 +528,12 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # ==========================================================================
 # Decode cache
 # ==========================================================================
+@dataclass(frozen=True)
+class CacheDims:
+    batch: int
+    max_seq: int
+
+
 KV_SCALE_FLOOR = 1e-8
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
 

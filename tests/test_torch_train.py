@@ -197,7 +197,9 @@ def test_train_or_load_caches(tmp_path, monkeypatch):
 
 
 def test_unported_launch_settings_name_their_queue_item(monkeypatch):
+    # --mesh pod builds the 16 x 16 production mesh over the visible CUDA
+    # devices and raises, as jax.make_mesh does, when fewer are visible.
     monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen15-moe-repro",
                                       "--mesh", "pod", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Launch and dry-run"):
+    with pytest.raises(ValueError, match="spans 256 devices"):
         TT.main()

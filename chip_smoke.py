@@ -92,7 +92,13 @@ it goes, any failure exiting non-zero:
    Qwen1.5-MoE-A2.7B at its published widths with its depth cut to 2 of
    24 layers (training holds 16 B per parameter: 1.76 B parameters, 28
    GB, where 24 layers would need 229 GB), bf16 from the port's init
-   with seed 0, trained for 40 steps with ``train_or_load``'s settings
+   with seed 0.  First one train step's loss and gradients on three
+   routes in turn: un-checkpointed, ``remat_policy`` "full" and "dots"
+   (``[remat]`` lines: loss, wall, peak, and the worst gradient leaf
+   against the un-checkpointed route's; hard checks: the losses equal,
+   every leaf within 1e-2 of its largest plain entry, ``P6_REMAT_TOL``).
+   Then trained, each period checkpointed ("full"), for 40 steps with
+   ``train_or_load``'s settings
    (batch 8, seq 64, lr 2e-3, cosine, warmup 4) on ``SyntheticLM``
    (``[train]`` lines: every loss, the wall per step, the peak memory;
    every loss finite and the last below the first and ln(vocab)); the
@@ -383,8 +389,10 @@ it goes, any failure exiting non-zero:
        step run on the ``meta`` device (``[dryrun]`` lines: argument bytes
        a device, the H100 roofline terms, the meta run's seconds); fails
        on any ``error``;
-   16b. four pairs through ``step_for_shape`` at full width and depth,
-       only the global batch cut: smollm-360m x train_4k (B=1),
+   16b. five pairs through ``step_for_shape`` at full width and depth,
+       only the global batch cut: smollm-360m x train_4k (B=8, the
+       batch activation checkpointing frees, and B=1, printed beside its
+       un-checkpointed peak and wall),
        starcoder2-3b x prefill_32k (B=1), gemma-7b x decode_32k (B=2, a
        full 32768-row cache) and mamba2-2.7b x long_500k (B=1), each on
        inputs made on the card from ``input_specs(cfg, shape,
@@ -395,7 +403,7 @@ it goes, any failure exiting non-zero:
        prompt's length, decode's token the argmax of its logits and its
        cache position one further; the peak below 70 GB.  Printed: the
        median wall of 3 calls after a warm-up (a pair whose first call
-       takes over 5 s: that call), the peak and the temp bytes over the
+       takes over 4 s: that call), the peak and the temp bytes over the
        arguments, the H100 roofline of ``launch.costs.analytic_costs`` at
        the cut shape and wall / bound.
    Rehearse on the CPU with ``phase_launch(device="cpu", configs={arch:
@@ -4302,20 +4310,28 @@ def phase_serving_variants_b(cfg, sums, t_a: float, device: str = "cuda",
 P16_DRY_ARCHS = ("smollm-360m", "llama4-maverick-400b-a17b")
 # 16b: (arch, shape, global batch) at full width and depth, only the
 # batch cut, to the largest power of two whose peak stays under
-# P16_PEAK_GB (train_4k at B=1 peaks at 49.2 GB on an H100 and B=2 runs
-# out of its 80 GB: 15 heads x 4096^2 f32 scores kept for backward in
-# each of 32 layers).
+# P16_PEAK_GB.  train_4k runs with each period checkpointed
+# (remat_policy "full"): on an H100 its peak reads 10.25, 14.61, 23.32
+# and 40.75 GB at B = 1, 2, 4 and 8, and B=16 runs out of the 80 GB, so
+# B=8; B=1 runs too, beside its un-checkpointed figures (49.63 GB, and
+# B=2 out of memory then: 15 heads x 4096^2 f32 scores kept for
+# backward in each of 32 layers).
 P16_PAIRS = (("smollm-360m", "train_4k", 1),
+             ("smollm-360m", "train_4k", 8),
              ("starcoder2-3b", "prefill_32k", 1),
              ("gemma-7b", "decode_32k", 2),
              ("mamba2-2.7b", "long_500k", 1))
 P16_PEAK_GB = 70.0
+# The same pair before each period was checkpointed: peak GB and median
+# wall s of this phase on an NVIDIA H100 80GB HBM3 at 700 W.
+P16_UNCHECKPOINTED = {("smollm-360m", "train_4k", 1): (49.63, 0.4963)}
 P16_TIMED = 3                    # after one warm-up call
 # A pair whose first call takes longer is timed by that call alone:
 # starcoder2-3b's 32k prefill read 23.02, 23.00, 23.00 and 23.00 s in
-# four calls on an H100, so a warm-up changes nothing there, and four
-# calls would take the whole budget.
-P16_LONG_CALL_S = 5.0
+# four calls on an H100, and smollm-360m's train_4k at B=8 4.6864-4.6968
+# s, so a warm-up changes nothing there, and four calls of both would
+# take the whole budget.
+P16_LONG_CALL_S = 4.0
 P16_BUDGET_S = 60.0
 
 
@@ -4470,6 +4486,14 @@ def _launch_pair(cfg, shape, card: str, device: str) -> None:
         f"memory {memory_s:.4e} s (analytic {ac.flops:.4e} FLOP, "
         f"{ac.hbm_bytes:.4e} B), wall / bound {wall / bound:.2f}; K1-K5 "
         f"launches 0; outputs finite{extra}; card {card}")
+    before = P16_UNCHECKPOINTED.get((cfg.name, shape.name,
+                                     shape.global_batch))
+    if before and peak is not None:
+        say(f"[launch] {tag}, each period checkpointed (remat_policy "
+            f"{cfg.remat_policy!r}): peak {peak / 1e9:.2f} GB, wall median "
+            f"{wall:.4f} s; un-checkpointed: peak {before[0]:.2f} GB, wall "
+            f"median {before[1]:.4f} s (NVIDIA H100 80GB HBM3, 700 W); "
+            f"card {card}")
     if peak is not None and peak > P16_PEAK_GB * 1e9:
         fail(f"16b {tag}: peak {peak / 1e9:.2f} GB over the batch cut's "
              f"{P16_PEAK_GB:.0f} GB")
@@ -4563,10 +4587,115 @@ def _serve_schemes(cfg, params, prompts, tag: str, device: str) -> dict:
     return out
 
 
+# Phase 6's check of activation checkpointing: each gradient leaf of
+# "full" and "dots" against the un-checkpointed route's, its worst entry
+# as a share of the plain leaf's largest.  Recomputation runs the same
+# kernels on the same shapes, so equality is expected; 1e-2 leaves room
+# for about two bf16 ulps (2^-8 relative) at the leaf's largest entry,
+# should the card sum in another order, and is far below what a flipped
+# top-k choice on a near-tie would move.
+P6_REMAT_TOL = 1e-2
+
+
+def _named_leaves(tree, path=""):
+    """(path, tensor) of a dict tree, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def phase_remat_routes(cfg, device: str = "cuda") -> dict:
+    """Phase 6's model, one train step's loss and gradients (``lm_loss``
+    and ``torch.autograd.grad``, as ``make_train_step`` takes them) on
+    three routes in turn, twice over (the first checkpoint pays torch's
+    lazy imports, about 2.5 s), from one init (seed 0) and one
+    ``SyntheticLM`` batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ``:
+    un-checkpointed (``_remat=False``), ``remat_policy`` "full" and
+    "dots".  For each ``[remat]`` line: the loss, the wall, the peak
+    (reset before each route; the first plain route's gradients are then
+    held on the host), and for every route but the first the worst
+    gradient leaf against the first plain route's; hard checks: every
+    loss equal and finite, every leaf within ``P6_REMAT_TOL``.  Returns
+    {route: (loss, wall s, peak bytes or None)} of the second turn."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as MDL
+
+    on_card = device == "cuda"
+    params = MDL.init_params(cfg, seed=0, device=device)
+    named = list(_named_leaves(params))
+    for _, p in named:
+        p.requires_grad_(True)
+    full = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  seed=0)).sample_batch(0, TRAIN_BATCH)
+    tokens = torch.as_tensor(full[:, :-1], device=device).long()
+    labels = torch.as_tensor(full[:, 1:], device=device).long()
+    say(f"[remat] {cfg.name} at {cfg.n_layers} layers, batch {TRAIN_BATCH}"
+        f" x seq {TRAIN_SEQ}: one step's loss and gradients, un-checkpointed"
+        " and under remat_policy 'full' and 'dots', in turns")
+    out, plain = {}, None
+    for turn in (1, 2):
+        for route in ("plain", "full", "dots"):
+            rcfg = dataclasses.replace(
+                cfg, remat_policy="dots" if route == "dots" else "full")
+            _release_any(on_card)
+            _peak_reset(on_card)
+            t0 = time.perf_counter()
+            loss, _ = MDL.lm_loss(params, rcfg, tokens, labels,
+                                  _remat=route != "plain")
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+            _sync_any(on_card)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            loss = float(loss.detach())
+            out[route] = (loss, wall, peak)
+            line = (f"[remat] turn {turn}, {route}: loss {loss!r}, wall "
+                    f"{wall:.4f} s, " + (f"peak {peak / 1e9:.2f} GB"
+                                         if on_card else
+                                         "peak not measured (CPU)"))
+            if not np.isfinite(loss):
+                fail(f"remat {route}: loss {loss}")
+            if plain is None:
+                plain = (loss, [g.cpu() for g in grads])
+                del grads
+                say(line)
+                continue
+            worst = (0.0, 0.0, named[0][0])
+            for (name, _), got, want in zip(named, grads, plain[1]):
+                want = want.to(device)
+                diff = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                share = diff / scale if scale else (
+                    0.0 if diff == 0 else float("inf"))
+                if share > worst[0] or (share == worst[0]
+                                        and diff > worst[1]):
+                    worst = (share, diff, name)
+            del got, want, grads
+            say(f"{line}; against the first plain route's gradients: "
+                + ("every leaf equal (max abs diff 0)" if worst[1] == 0
+                   else f"worst leaf {worst[2]}, max abs diff "
+                   f"{worst[1]:.3e}, {worst[0]:.3e} of its largest entry")
+                + f" (tolerance {P6_REMAT_TOL})")
+            if loss != plain[0]:
+                fail(f"remat {route}: loss {loss!r} != the plain route's "
+                     f"{plain[0]!r}")
+            if worst[0] > P6_REMAT_TOL:
+                fail(f"remat {route}: gradient leaf {worst[2]} off by "
+                     f"{worst[0]:.3e} of its largest entry")
+    del params, named, plain
+    _release_any(on_card)
+    return out
+
+
 def phase_train_serve(cfg, device: str = "cuda"):
     """Phase 6: train, checkpoint, serve.  ``cfg`` at its published widths,
-    cut to ``TRAIN_LAYERS`` layers, trained from the port's init (seed 0)
-    with ``train_or_load``'s settings on ``SyntheticLM``; the weights go
+    cut to ``TRAIN_LAYERS`` layers; ``phase_remat_routes`` first, then
+    trained from the port's init (seed 0) under its default
+    ``remat_policy`` with ``train_or_load``'s settings on ``SyntheticLM``;
+    the weights go
     through the port's checkpoint writer and reader (bit for bit), and the
     restored model is served under two schemes.  The same model at its
     untrained init is served beside it (descriptive only)."""
@@ -4595,6 +4724,7 @@ def phase_train_serve(cfg, device: str = "cuda"):
         f"{n_small / 1e9:.3f} B params x 16 B = {16 * n_small / 1e9:.1f} GB "
         f"at {TRAIN_LAYERS} layers against {16 * n_full / 1e9:.0f} GB at "
         f"{cfg.n_layers}, which one card cannot hold")
+    phase_remat_routes(small, device)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,

@@ -165,8 +165,8 @@ class SliceCache:
 
         ``stats`` resets at every epoch boundary (request boundaries
         under persistent serving), so a monotonic consumer — the
-        metrics registry (``repro.obs``, not ported yet) — must read the archived epochs
-        folded back in, not the open window alone.
+        metrics registry (``repro_torch.obs.metrics``) — must read the
+        archived epochs folded back in, not the open window alone.
         """
         acc = self.stats.accesses
         miss = self.stats.misses

@@ -56,9 +56,21 @@ dtype before each decode attention.  An SSM position's cache entry holds
 ``state`` [n_periods, B, H, head_dim, d_state] in f32 and ``conv``
 [n_periods, B, d_conv - 1, conv_channels] in the model dtype; its
 ``A_log``, ``D`` and ``dt_bias`` leaves stay f32 in a bf16 model, as in
-the reference.  The reference wraps each period of ``forward`` in
-``jax.checkpoint`` (remat); that changes memory, not values, and is not
-ported.
+the reference.
+
+Activation checkpointing, as the reference's ``jax.checkpoint`` of each
+period: while gradients are recorded, ``forward`` runs each period body
+(``_period``) under ``torch.utils.checkpoint.checkpoint`` (non-reentrant),
+so backward recomputes the period from its input instead of keeping its
+activations.  ``cfg.remat_policy == "dots"`` keeps the outputs of the
+matrix products with no batch dimension (``aten.mm`` / ``aten.addmm``:
+the attention, router, dense-MLP and SSM projections), as
+``checkpoint_dots_with_no_batch_dims`` does, and recomputes the rest
+(attention's and the routed experts' batched products, elementwise ops);
+any other value recomputes everything.  Without gradients (serving runs
+under ``torch.no_grad()``) nothing is checkpointed: the values are the
+same either way.  The encoder, ``prefill`` and ``decode_step`` run
+straight, as in the reference.
 
 Two serving variants.  ``quantized_serve`` stores every MoE layer's
 experts as flat AMAT leaves ``{wi,wo}_{codes,scales,zps}``
@@ -84,11 +96,13 @@ the process).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as CK
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.amat import MAT84, amat_quantize_stacked, empty_stacked
@@ -438,10 +452,62 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
+def _period(x: torch.Tensor, period_params: dict, *, cfg: ModelConfig,
+            positions: torch.Tensor, window: Optional[int],
+            enc_out: Optional[torch.Tensor], collect: bool, mat,
+            quant_execution: Optional[bool]):
+    """One period of the decoder stack (the reference's ``period_body``):
+    each position's mixer (with the cross-attention of an
+    encoder-decoder) and FFN.  Returns (x, row): the MoE positions' aux
+    dicts, in order."""
+    row = []
+    for i, spec in enumerate(cfg.block_pattern):
+        p = period_params[f"pos{i}"]
+        if spec.mixer == "attn":
+            x, _ = _self_attn_block(p, x, cfg, causal=True,
+                                    positions=positions, window=window)
+            if enc_out is not None:
+                ek, ev = _enc_kv(p, enc_out, cfg)
+                x = _cross_attn_block(p, x, ek, ev, cfg)
+        else:
+            x = _ssm_block(p, x, cfg)
+        x, aux = _ffn_block(p, x, cfg, spec, collect=collect, mat=mat,
+                            quant_execution=quant_execution)
+        if aux is not None:
+            row.append(aux)
+    return x, row
+
+
+# The products ``checkpoint_dots_with_no_batch_dims`` saves: a matrix
+# product of a 2-D (or folded 3-D) activation by a 2-D weight.  Batched
+# products (``aten.bmm``: attention's einsums, the routed experts) and
+# everything else are recomputed.
+_NO_BATCH_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                                torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _NO_BATCH_PRODUCTS:
+        return CK.CheckpointPolicy.MUST_SAVE
+    return CK.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(body, remat_policy: str):
+    """``body`` under non-reentrant activation checkpointing with the
+    reference's policy: ``"dots"`` saves the no-batch products, any other
+    value saves nothing."""
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            CK.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(CK.checkpoint, body, use_reentrant=False, **kw)
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_embeds=None, encoder_frames=None,
             collect_trace: bool = False, use_window: bool = False,
-            mat=None, quant_execution: Optional[bool] = None):
+            mat=None, quant_execution: Optional[bool] = None,
+            _remat: bool = True):
     """Full-sequence forward.  tokens: [B, S_text] int; ``prefix_embeds``
     [B, prefix_len, d] for a prefix config, ``encoder_frames`` [B,
     enc_seq, d] for an encoder-decoder (required there).  Returns (hidden
@@ -452,29 +518,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     gates) stacked ``[n_periods, n_moe_pos, ...]``.  AMAT experts need
     ``mat``; ``quant_execution`` runs them through the batched expert
     kernels.  Differentiable over float weights unless run under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``; while gradients are recorded each period is
+    checkpointed under ``cfg.remat_policy`` (``_remat=False``, for tests,
+    runs the periods straight)."""
     x = embed_inputs(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    window = _window(cfg, use_window)
-    enc_out = _encoder_output(params, cfg, encoder_frames)
+    body = functools.partial(
+        _period, cfg=cfg, positions=positions,
+        window=_window(cfg, use_window),
+        enc_out=_encoder_output(params, cfg, encoder_frames),
+        collect=collect_trace, mat=mat, quant_execution=quant_execution)
+    if _remat and torch.is_grad_enabled():
+        body = _checkpointed(body, cfg.remat_policy)
     aux_rows = []
     for period in range(cfg.n_periods):
-        period_params = _index(params["blocks"], period)
-        row = []
-        for i, spec in enumerate(cfg.block_pattern):
-            p = period_params[f"pos{i}"]
-            if spec.mixer == "attn":
-                x, _ = _self_attn_block(p, x, cfg, causal=True,
-                                        positions=positions, window=window)
-                if enc_out is not None:
-                    ek, ev = _enc_kv(p, enc_out, cfg)
-                    x = _cross_attn_block(p, x, ek, ev, cfg)
-            else:
-                x = _ssm_block(p, x, cfg)
-            x, aux = _ffn_block(p, x, cfg, spec, collect=collect_trace,
-                                mat=mat, quant_execution=quant_execution)
-            if aux is not None:
-                row.append(aux)
+        x, row = body(x, _index(params["blocks"], period))
         aux_rows.append(row)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     stacked = _stack_aux(aux_rows)
@@ -498,15 +556,16 @@ def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, *, prefix_embeds=None,
-            encoder_frames=None, aux_weight: float = 0.01):
+            encoder_frames=None, aux_weight: float = 0.01,
+            _remat: bool = True):
     """Mean next-token cross-entropy over the flattened token stream,
     plus ``aux_weight`` times the load-balance loss; returns (loss, aux).
     The prefix positions are dropped before the loss (``labels`` cover
     the text only).  The logits are formed ``LOSS_CHUNKS`` token chunks
     at a time (one chunk when the token count does not divide), never as
-    one [T, V]."""
+    one [T, V].  ``_remat`` goes to ``forward``."""
     h, aux = forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
-                     encoder_frames=encoder_frames)
+                     encoder_frames=encoder_frames, _remat=_remat)
     if cfg.prefix_len and prefix_embeds is not None:
         h = h[:, cfg.prefix_len:]
     d = h.shape[-1]

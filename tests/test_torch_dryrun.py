@@ -134,6 +134,36 @@ def test_variant_applies_and_qserve_prefill_errs_as_in_the_reference(
     assert rec["status"] == "error" and "MatConfig" in rec["error"]
 
 
+@pytest.mark.parametrize("variant", ["baseline", "seqpar_dots"])
+def test_train_pair_checkpoints_each_period_on_meta(variant, monkeypatch):
+    """A train pair's step on ``meta`` runs each period under activation
+    checkpointing: the default policy (``"full"``) and ``seqpar_dots``'s
+    ``"dots"``, whose selective policy then sees the meta tensors."""
+    from repro_torch.models import model as TM
+
+    _reduced(monkeypatch)
+    n = {"checkpoint": 0, "policy": 0}
+    checkpoint, policy = TM.CK.checkpoint, TM._dots_policy
+
+    def checkpoint_(*a, **kw):
+        n["checkpoint"] += 1
+        return checkpoint(*a, **kw)
+
+    def policy_(ctx, op, *args, **kw):
+        n["policy"] += 1
+        assert all(t.device.type == "meta" for t in args
+                   if isinstance(t, TM.torch.Tensor))
+        return policy(ctx, op, *args, **kw)
+
+    monkeypatch.setattr(TM.CK, "checkpoint", checkpoint_)
+    monkeypatch.setattr(TM, "_dots_policy", policy_)
+    rec = TD.run_pair("smollm-360m", "train_4k", "single", save=False,
+                      variant=variant)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert n["checkpoint"] == TC.get_config("smollm-360m").reduced().n_periods
+    assert (n["policy"] > 0) == (variant == "seqpar_dots")
+
+
 def test_records_saved_and_resumed(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(TD, "RESULTS_DIR", str(tmp_path))
     _reduced(monkeypatch)

@@ -41,10 +41,14 @@ routing (``policy.kind="buddy"``) calibrates its expert pairs from the
 dense weights when the engine is built.
 
 ``run_prefill`` and ``decode_batch`` mark their model forward and their
-charge path as ``torch.profiler`` ranges (``slicemoe.prefill_forward``,
-``slicemoe.prefill_charge``, ``slicemoe.decode_forward``,
-``slicemoe.decode_charge``); the charge ranges include the wait for the
-device, since moving the routing trace to the host synchronizes.
+charge path as spans (:mod:`repro_torch.obs.spans`: a ``torch.profiler``
+range and a host-clock record per scheduler step;
+``slicemoe.prefill_forward``, ``slicemoe.prefill_charge``,
+``slicemoe.decode_forward``, ``slicemoe.decode_charge``); the charge
+ranges include the wait for the device, since moving the routing trace
+to the host synchronizes.  Inside ``slicemoe.decode_charge``,
+``slicemoe.decode_charge.to_host`` holds that wait and copy and
+``slicemoe.decode_charge.replay`` the cache and ledger replay.
 """
 
 from __future__ import annotations
@@ -54,7 +58,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.amat import MatConfig
@@ -73,6 +76,7 @@ from repro_torch.hw.energy import (CostLedger, ShardedCostLedger,
 from repro_torch.hw.specs import SYSTEM_PROFILES
 from repro_torch.models import model as MDL
 from repro_torch.models.moe import RoutingPolicy
+from repro_torch.obs.spans import span
 from repro_torch.obs.timeline import export_chrome_trace
 
 
@@ -504,13 +508,13 @@ class PersistentEngine:
         self._begin_request(label, inflight, tenant=tenant)
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                  device=self.device)
-        with record_function("slicemoe.prefill_forward"):
+        with span("slicemoe.prefill_forward"):
             logits, kv_cache, aux = MDL.prefill(
                 self.qparams, self.cfg, tokens, self.ecfg.max_seq,
                 collect_trace=True, mat=self.ecfg.mat,
                 quant_execution=self.ecfg.policy.quant_execution,
                 policy=self._prefill_policy, **model_kwargs)
-        with record_function("slicemoe.prefill_charge"):
+        with span("slicemoe.prefill_charge"):
             keys = ("ids", "gates") + (("active",) if "active" in aux["moe"]
                                        else ())
             h = aux_to_host(aux["moe"], keys)
@@ -687,10 +691,10 @@ class PersistentEngine:
         """
         mask = None if slot_active is None else torch.as_tensor(
             np.asarray(slot_active, bool), device=self.device)
-        with record_function("slicemoe.decode_forward"):
+        with span("slicemoe.decode_forward"):
             logits, kv_cache, aux = self._decode(token, kv_cache, alpha, mask,
                                                  **model_kwargs)
-        with record_function("slicemoe.decode_charge"):
+        with span("slicemoe.decode_charge"):
             charge = self.charge_decode_step(aux, slot_active=slot_active,
                                              slot_tenants=slot_tenants)
         return logits, kv_cache, charge
@@ -700,8 +704,9 @@ class PersistentEngine:
                            slot_tenants: Optional[list] = None
                            ) -> StepCharge:
         """Replay one decode step's slice demand into cache + ledger."""
-        return self.charge_step_trace(
-            _StepTrace.from_aux(aux, slot_active, slot_tenants))
+        with span("slicemoe.decode_charge.to_host"):
+            tr = _StepTrace.from_aux(aux, slot_active, slot_tenants)
+        return self.charge_step_trace(tr)
 
     def charge_step_trace(self, tr: _StepTrace) -> StepCharge:
         """Charge an already-assembled :class:`_StepTrace`.
@@ -745,7 +750,8 @@ class PersistentEngine:
         tr.slot_critical_low = np.zeros(T, np.int64)
         replay = self._charge_async if self.ecfg.async_io \
             else self._charge_sync
-        charge = replay(tr)
+        with span("slicemoe.decode_charge.replay"):
+            charge = replay(tr)
         if ctl is not None:
             actions = ctl.observe_step(charge.per_tenant or {},
                                        charge.ledger_delta)

@@ -8,7 +8,11 @@ stdlib only).
   JSONL time series + Prometheus text exposition, sampled per decode
   step via ``scheduler.attach_metrics(MetricsRegistry())``;
 * :mod:`repro_torch.obs.report` — stall/overlap/waste analysis of an
-  exported trace (CLI: ``scripts/torch_trace_report.py``).
+  exported trace (CLI: ``scripts/torch_trace_report.py``);
+* :mod:`repro_torch.obs.spans` — host wall-clock spans of the serving
+  path, one record per scheduler step, each also a ``torch.profiler``
+  range while a profiler is active (imports torch, so it is not
+  re-exported here; docs/torch_spans.md).
 
 See docs/observability.md for the trace schema, span model and
 metrics catalog.

@@ -23,6 +23,10 @@ admission; an engine's SLO controller is wired into the telemetry and,
 absent a hook, into admission.  ``attach_metrics`` samples a
 :class:`~repro_torch.obs.metrics.MetricsRegistry` per decode step, and an
 engine with a timeline tracer attached gets the request and step spans.
+Each ``step()`` opens one record of the host-clock spans in
+``self.spans`` (:mod:`repro_torch.obs.spans`), and the decode step's own
+host work is three of them: ``slicemoe.sched.prepare``, ``.sample`` and
+``.update``.
 ``SchedulerConfig.truncate_prompts`` admits over-budget prompts clipped
 to their tail, and ``bucket_prompts`` rounds admitted prompts down to a
 multiple of its length; a clipped request is flagged ``truncated`` on
@@ -42,6 +46,7 @@ import torch
 from repro_torch.core.engine import PersistentEngine
 from repro_torch.device import resolve_device
 from repro_torch.obs.metrics import MetricsSampler
+from repro_torch.obs.spans import SPANS, close_step, span
 from repro_torch.serving.telemetry import (FleetTelemetry, RequestRecord,
                                            StepRecord)
 
@@ -144,6 +149,9 @@ class ContinuousBatchingScheduler:
         # after the device finished (a synchronize ends each span).
         self.wall_prefill_s: List[float] = []
         self.wall_step_s: List[float] = []
+        # Record k of self.spans is this scheduler's step k: the
+        # process-wide SPANS where no other live scheduler holds it.
+        self.spans = SPANS.claim(self)
 
     def attach_recorder(self, recorder):
         """Wire a :class:`repro_torch.sim.trace.TraceRecorder` into the
@@ -303,59 +311,63 @@ class ContinuousBatchingScheduler:
         if not active:
             return
         t0 = time.perf_counter()
-        tokens = np.zeros(self.cfg.max_batch, np.int64)
-        slot_mask = np.zeros(self.cfg.max_batch, bool)
-        slot_tenants: List[Optional[str]] = [None] * self.cfg.max_batch
-        for seq in active:
-            tokens[seq.slot] = seq.last_token
-            slot_mask[seq.slot] = True
-            slot_tenants[seq.slot] = seq.request.tenant
-        alpha = float(np.mean([seq.alpha for seq in active]))
+        with span("slicemoe.sched.prepare"):
+            tokens = np.zeros(self.cfg.max_batch, np.int64)
+            slot_mask = np.zeros(self.cfg.max_batch, bool)
+            slot_tenants: List[Optional[str]] = [None] * self.cfg.max_batch
+            for seq in active:
+                tokens[seq.slot] = seq.last_token
+                slot_mask[seq.slot] = True
+                slot_tenants[seq.slot] = seq.request.tenant
+            alpha = float(np.mean([seq.alpha for seq in active]))
+            step_t0 = self.sim_time
+            token = torch.as_tensor(tokens, device=self.engine.device)
 
-        step_t0 = self.sim_time
         logits, self.batch_cache, charge = self.engine.decode_batch(
-            torch.as_tensor(tokens, device=self.engine.device),
-            self.batch_cache, alpha=alpha, slot_active=slot_mask,
+            token, self.batch_cache, alpha=alpha, slot_active=slot_mask,
             slot_tenants=slot_tenants)
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
-        self._sync()
+        with span("slicemoe.sched.sample"):
+            next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+            self._sync()
         self.wall_step_s.append(time.perf_counter() - t0)
-        step_latency = self._advance_clock()
-        trc = self.engine.tracer
-        if trc is not None:
-            # One span per batched decode step on the shared steps
-            # track; trc.step is the engine's step index, the id every
-            # channel event of this step carries.
-            trc.span("decode_step", "steps", step_t0, self.sim_time,
-                     step=trc.step, n_active=len(active),
-                     miss_rate=charge.miss_rate)
-        self.telemetry.on_step(StepRecord(
-            t=self.sim_time, n_active=len(active),
-            miss_rate=charge.miss_rate, latency_s=step_latency,
-            energy_j=charge.ledger_delta["total_energy_j"],
-            io_stall_s=max(0.0, charge.ledger_delta.get("io_stall_s", 0.0)),
-            overlap_saved_s=max(0.0, charge.ledger_delta.get(
-                "overlap_saved_s", 0.0)),
-            per_tenant=charge.per_tenant))
+        with span("slicemoe.sched.update"):
+            step_latency = self._advance_clock()
+            trc = self.engine.tracer
+            if trc is not None:
+                # One span per batched decode step on the shared steps
+                # track; trc.step is the engine's step index, the id every
+                # channel event of this step carries.
+                trc.span("decode_step", "steps", step_t0, self.sim_time,
+                         step=trc.step, n_active=len(active),
+                         miss_rate=charge.miss_rate)
+            self.telemetry.on_step(StepRecord(
+                t=self.sim_time, n_active=len(active),
+                miss_rate=charge.miss_rate, latency_s=step_latency,
+                energy_j=charge.ledger_delta["total_energy_j"],
+                io_stall_s=max(0.0, charge.ledger_delta.get("io_stall_s",
+                                                            0.0)),
+                overlap_saved_s=max(0.0, charge.ledger_delta.get(
+                    "overlap_saved_s", 0.0)),
+                per_tenant=charge.per_tenant))
 
-        for seq in active:
-            tok = int(next_tokens[seq.slot])
-            seq.generated.append(tok)
-            seq.last_token = tok
-            if len(seq.generated) == 1:
-                seq.record.first_token_t = self.sim_time
-                self.telemetry.on_first_token(seq.record)
-            seq.record.n_generated = len(seq.generated)
-            slot_miss = float(charge.per_slot_miss[seq.slot])
-            seq.record.miss_sum += slot_miss
-            seq.record.miss_steps += 1
-            if seq.controller is not None:
-                seq.alpha = seq.controller.update(slot_miss)
-            done = len(seq.generated) >= seq.request.max_new_tokens or \
-                (seq.request.eos_token is not None
-                 and tok == seq.request.eos_token)
-            if done:
-                self._retire(seq)
+            for seq in active:
+                tok = int(next_tokens[seq.slot])
+                seq.generated.append(tok)
+                seq.last_token = tok
+                if len(seq.generated) == 1:
+                    seq.record.first_token_t = self.sim_time
+                    self.telemetry.on_first_token(seq.record)
+                seq.record.n_generated = len(seq.generated)
+                slot_miss = float(charge.per_slot_miss[seq.slot])
+                seq.record.miss_sum += slot_miss
+                seq.record.miss_steps += 1
+                if seq.controller is not None:
+                    seq.alpha = seq.controller.update(slot_miss)
+                done = len(seq.generated) >= seq.request.max_new_tokens or \
+                    (seq.request.eos_token is not None
+                     and tok == seq.request.eos_token)
+                if done:
+                    self._retire(seq)
 
     def _retire(self, seq: ActiveSeq) -> None:
         seq.record.finish_t = self.sim_time
@@ -394,11 +406,15 @@ class ContinuousBatchingScheduler:
     # ------------------------------------------------------------------ run
     def step(self) -> bool:
         """One scheduler tick.  Returns False when fully idle."""
-        self._admit()
-        if self.n_active() == 0:
-            return bool(self.queue)
-        self._decode_step()
-        return True
+        self.spans.open_step()
+        try:
+            self._admit()
+            if self.n_active() == 0:
+                return bool(self.queue)
+            self._decode_step()
+            return True
+        finally:
+            close_step()
 
     def run(self) -> List[Completion]:
         """Drive until the queue drains and every sequence retires."""

@@ -57,6 +57,25 @@ it goes, any failure exiting non-zero:
 3d. the f32 path: the public entry points of K3 and K5 driven once each
    with f32 inputs at the same widths (the three-plane and 3xTF32
    kernels), counted the same way;
+3e. the decode-attention kernel (``kernels/decode_attn``: RoPE, the KV
+   append and split-KV attention of one attention layer of a decode
+   step) through both wrappers at phase 5's decode shape (4 sequences,
+   a cache of 145 rows, 16 heads of 128): ``decode_attention_fused`` at
+   per-sequence positions (the last row, an idle slot past the cache's
+   end) and at a scalar position, and the attend-only
+   ``decode_attention`` over the same rows, each against its plain route
+   (``kernels/decode_attn/ref.py``) on the same inputs; then the
+   attend-only route of a ring cache (positions past the cache, written
+   at ``pos % S``) and of int8 KV (rows quantized, written, dequantized)
+   against the same route with the plain attention.  The caches must
+   equal the plain route's bit for bit (the rows written and every other
+   row), the outputs lie within one bf16 ulp of the plain route's (or
+   within 1e-6 where the value is that near 0), and each call launch 1-2
+   kernels; the fused call is timed beside the plain route, SDPA over the
+   same cache and mask (a yardstick the port never calls) and the bound
+   of its valid K and V bytes (``[decode-attn]`` lines); phase 5 then
+   counts the kernel's launches on the main path (1-2 per attention
+   layer per decode step, 0 in prefill);
 4. a small reference check: the qwen15-moe-repro model (2 layers, f32)
    served on the card through the kernel (K1/K2 on three bf16 planes of
    x) and on the CPU through the plain dense-dequant path must agree
@@ -73,7 +92,8 @@ it goes, any failure exiting non-zero:
    60 experts, bf16, random weights from seed 0), cache-prior + DBSC
    routing with quantized execution, 4 requests of 128 prompt tokens and
    16 new tokens through the continuous-batching scheduler; the kernel's
-   launch count must be 2 x 24 x (prefills + decode steps) and every
+   launch count must be 2 x 24 x (prefills + decode steps), the
+   decode-attention kernel's 24 or 48 a decode step, and every
    logit finite.  The run is recorded (``repro_torch.sim.TraceRecorder``);
    the trace, written to ``build/`` and read back, must equal the record
    and replay (``repro_torch.sim.replay_trace``) to the live run: epoch
@@ -416,12 +436,13 @@ and launches per step by kernel, the engine's host ranges, the device's
 busy share).  Without arguments the script runs phases 1 to 16.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels' JSON record (K1-K5, and the f32 routes of K1, K2, K3
-and K5 as rows of their own; ``launches`` counts phase 5's run for K1
-(plus 15a's quantized route) and K2, phase 3c's for K3-K5, phase 3d's
-for the f32 rows of K3 and K5 and phase 4's bf16-KV run for the f32 rows
-of K1 and K2; ``graph_ms`` and ``library_graph_ms`` beside ``ms`` and
-``library_ms``).
+holds the kernels' JSON record (K1-K5, the f32 routes of K1, K2, K3 and
+K5 as rows of their own, and the decode-attention kernel, timed at phase
+5's decode shape in phase 3e; ``launches`` counts phase 5's run for K1
+(plus 15a's quantized route), K2 and the decode-attention kernel, phase
+3c's for K3-K5, phase 3d's for the f32 rows of K3 and K5 and phase 4's
+bf16-KV run for the f32 rows of K1 and K2; ``graph_ms`` and
+``library_graph_ms`` beside ``ms`` and ``library_ms``).
 """
 
 from __future__ import annotations
@@ -531,6 +552,7 @@ def phase_build():
 
     from repro_torch.kernels._build import build_library
     from repro_torch.kernels.amat_matmul.ops import SOURCE as AMAT_SOURCE
+    from repro_torch.kernels.decode_attn.ops import SOURCE as DA_SOURCE
     from repro_torch.kernels.flash_attn.ops import SOURCE as FLASH_SOURCE
 
     def build(source):
@@ -538,7 +560,7 @@ def phase_build():
         lib, log = build_library(source, force=True)
         return lib, log, time.perf_counter() - t0
 
-    sources = (AMAT_SOURCE, FLASH_SOURCE)
+    sources = (AMAT_SOURCE, FLASH_SOURCE, DA_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build, sources))
     spills = []
@@ -1216,6 +1238,138 @@ def phase_f32_path(cfg):
             "flash_f32": launches["flash"]}
 
 
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 ulps between ``a`` and ``b``, elementwise (int64)."""
+    def key(t):
+        u = t.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - u, u)
+    return (key(a) - key(b)).abs()
+
+
+def _da_held(tag, got, want, caches, want_caches, calls) -> float:
+    """Fail unless every cache equals the plain route's bit for bit, the
+    output lies within one bf16 ulp of the plain route's (or within 1e-6
+    of it where it is that near 0) and each wrapper call launched 1-2
+    kernels (``calls``: the launches counted over that many calls).
+    Returns the output's largest absolute difference."""
+    from repro_torch.kernels import decode_attn as DA
+
+    torch.cuda.synchronize()
+    same = [torch.equal(c, w) for c, w in zip(caches, want_caches)]
+    ulps = _bf16_ulps(got, want)
+    near0 = (got.float() - want.float()).abs() <= 1e-6
+    beyond = int(((ulps > 1) & ~near0).sum())
+    err = float((got.float() - want.float()).abs().max())
+    n = DA.LAUNCHES.count
+    say(f"[decode-attn] {tag}: caches equal to the plain route's bit for "
+        f"bit {same}; output {int((ulps > 0).sum())} of {ulps.numel()} "
+        f"values differ, max {int(ulps.max())} ulp (max |diff| {err:.3e}), "
+        f"{beyond} beyond one ulp and 1e-6; {n} launches in {calls} "
+        "call(s)")
+    if not all(same) or beyond or not calls <= n <= 2 * calls \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"decode-attn {tag}: the kernel disagrees with its plain route")
+    return err
+
+
+def phase_decode_attn(cfg):
+    """Phase 3e (module docstring): both decode-attention wrappers at
+    phase 5's decode shape against their plain routes, the attend-only
+    route of a ring cache and of int8 KV, and the fused call timed.
+    Returns the fused call's timings for the kernels line."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attn as DA
+    from repro_torch.kernels.decode_attn.ref import (
+        Int8KV, decode_attention_fused_ref)
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as TM
+
+    B, S = SERVE_REQ, SERVE_PROMPT + SERVE_NEW + 1
+    H, Hkv, D, theta = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.rope_theta
+    g = torch.Generator(device="cuda")
+    g.manual_seed(500)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    q, k, v = r(B, H, D, scale=2.0), r(B, Hkv, D), r(B, Hkv, D)
+    kc, vc = r(B, S, Hkv, D), r(B, S, Hkv, D)
+    positions = {
+        "per-sequence positions (a cache's last row, an idle slot past "
+        "its end)": torch.tensor([SERVE_PROMPT, SERVE_PROMPT + 9, S - 1,
+                                  S + 5], device="cuda"),
+        "a scalar position": torch.tensor(SERVE_PROMPT + 3, device="cuda")}
+    errs = []
+    for what, pos in positions.items():
+        caches = [kc.clone(), vc.clone()]
+        want_caches = [kc.clone(), vc.clone()]
+        want = decode_attention_fused_ref(q, k, v, *want_caches, pos, theta)
+        DA.LAUNCHES.reset()
+        got = DA.decode_attention_fused(q, k, v, *caches, pos, theta)
+        errs.append(_da_held(f"decode_attention_fused, {what}", got, want,
+                             caches, want_caches, 1))
+        # The attend-only wrapper over the rows just written.
+        cur = pos + 1
+        want = L.decode_attention(q, *want_caches, cur)
+        DA.LAUNCHES.reset()
+        got = DA.decode_attention(q, *caches, cur)
+        errs.append(_da_held(f"decode_attention (attend-only), {what}",
+                             got, want, caches, want_caches, 1))
+
+    # The attend-only routes: the rows written by the plain ops, then the
+    # kernel's attention against the plain attention.
+    pos = positions[next(iter(positions))]
+    int8_of = {}
+    for n, t in (("k", kc), ("v", vc)):
+        int8_of[n] = TM._quant_kv(t)
+    dequant = functools.partial(TM._dequant_kv, dtype=torch.bfloat16)
+    for what, ring in (("ring cache, positions past its end", True),
+                       ("int8 KV", False)):
+        sides = []
+        for attend in (L.decode_attention, DA.decode_attention):
+            if ring:
+                bufs = [kc.clone(), vc.clone()]
+                int8 = None
+            else:
+                bufs = [int8_of["k"][0].clone(), int8_of["v"][0].clone()]
+                int8 = Int8KV(int8_of["k"][1].clone(),
+                              int8_of["v"][1].clone(), TM._quant_kv, dequant)
+            DA.LAUNCHES.reset()
+            out = decode_attention_fused_ref(
+                q, k, v, *bufs, pos + (S if ring else 0), theta, ring=ring,
+                int8=int8, attend=attend)
+            sides.append((out, bufs + ([] if int8 is None
+                                       else [int8.k_scale, int8.v_scale])))
+        (want, want_bufs), (got, bufs) = sides
+        errs.append(_da_held(f"attend-only route, {what}", got, want, bufs,
+                             want_bufs, 1))
+
+    # The fused call at per-sequence positions, timed.
+    pos = positions[next(iter(positions))]
+    rows = int(torch.clamp(pos + 1, max=S).sum())
+    caches = [kc.clone(), vc.clone()]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < torch.clamp(pos + 1, max=S)[:, None])[:, None, None]
+    t = _timed(
+        "decode_attention_fused (phase 5's decode)",
+        lambda: DA.decode_attention_fused(q, k, v, *caches, pos, theta),
+        lambda: decode_attention_fused_ref(q, k, v, *caches, pos, theta),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], caches[0].transpose(1, 2),
+            caches[1].transpose(1, 2), attn_mask=mask, scale=D ** -0.5,
+            enable_gqa=H != Hkv),
+        "SDPA over the same cache and mask",
+        rows * Hkv * D * 2 * 2, {"f32": 4 * H * D * rows},
+        f"B={B}, S={S}, {H}/{Hkv} heads of {D}, {rows} valid rows")
+    t["max_abs_err"] = max(errs)
+    return t
+
+
 def _small_engine(cfg, params, device: str):
     """Phase 4's engine over ``params`` on ``device``: the kernel path on
     the card, the plain dense path on the CPU."""
@@ -1368,7 +1522,9 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
     layer per forward.  Returns the run's engine, scheduler, trace and
     figures."""
     from repro_torch.core.engine import PersistentEngine
+    from repro_torch.kernels import decode_attn as DA
     from repro_torch.kernels.amat_matmul import ops
+    from repro_torch.models import model as TM
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                Request, SchedulerConfig)
     from repro_torch.sim import TraceRecorder
@@ -1435,16 +1591,28 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
 
     sync()
     ops.LAUNCHES.reset()
+    DA.LAUNCHES.reset()
     t0 = time.perf_counter()
     completions = sched.run()
     sync()
     wall = time.perf_counter() - t0
     launches = {k: ops.LAUNCHES.by_key[k]
                 for k in ("k_major", "output_major")}
+    launches["decode_attn"] = DA.LAUNCHES.count
     n_prefill, n_steps = len(sched.wall_prefill_s), len(sched.wall_step_s)
     want = _n_moe_layers(cfg) * (n_prefill + n_steps)
-    say(f"[{tag}] kernel launches: {launches} (want {want} each, "
-        f"{2 * want} in all)")
+    # The decode-attention kernel: 1-2 launches per attention layer per
+    # decode step where the model's route takes it, none in prefill.
+    route = DA.route(TM._dt(cfg), device, ring=cfg.ring_kv,
+                     kv_dtype=cfg.kv_dtype)
+    want_da = 0 if route == "plain" else _n_attn_layers(cfg) * n_steps
+    say(f"[{tag}] kernel launches: {launches} (want K1 and K2 {want} each, "
+        f"{2 * want} in all; decode attention on the {route} route, "
+        f"{want_da} to {2 * want_da})")
+    if not want_da <= launches["decode_attn"] <= 2 * want_da:
+        fail(f"{tag}: the decode-attention kernel launched "
+             f"{launches['decode_attn']} times, not {want_da} to "
+             f"{2 * want_da}")
     if len(completions) != len(prompts) or any(
             len(c.tokens) != new for c in completions):
         fail(f"{tag}: not every request was served in full")
@@ -1500,6 +1668,12 @@ def _check_replay(run, tag: str, path: str):
         fail(f"{tag}: replayed ledger differs from the live one at "
              f"{off}")
     return rep
+
+
+def _n_attn_layers(cfg) -> int:
+    """Attention layers in the stack: the pattern's attention positions
+    times the periods."""
+    return cfg.n_periods * sum(b.mixer == "attn" for b in cfg.block_pattern)
 
 
 def _n_moe_layers(cfg) -> int:
@@ -5191,10 +5365,11 @@ def main() -> None:
     phase_sweep_splits(cfg)
     launches = phase_slice_path(cfg)
     launches.update(phase_f32_path(cfg))
+    timings["decode_attn"] = phase_decode_attn(cfg)
     launches.update(phase_small_reference())
     serve_launches, engine, new_requests, wall_step, params, prompts, p5 = \
         phase_serving(cfg)
-    launches.update(serve_launches)     # k_major and output_major
+    launches.update(serve_launches)     # k_major, output_major, decode_attn
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, new_requests, wall_step)
     # Phase 5b builds its engine over the same params: release phase 5's
@@ -5269,7 +5444,12 @@ def main() -> None:
              "src/repro/kernels/flash_attn/kernel.py:115"),
             ("flash_attention, f32 inputs (3xTF32)", "flash_f32",
              "src/repro_torch/kernels/flash_attn/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attn/kernel.py:115")):
+             "src/repro/kernels/flash_attn/kernel.py:115"),
+            ("decode_attention_fused (RoPE, KV append, split-KV attention "
+             "of a bf16 decode step)", "decode_attn",
+             "src/repro_torch/kernels/decode_attn/csrc/decode_attention.cu",
+             "none (the reference's decode attention is plain jnp: "
+             "src/repro/models/layers.py:204)")):
         t = timings[key]
         kernels.append({
             "name": variant, "route": "cuda", "source": source,

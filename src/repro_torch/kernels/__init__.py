@@ -1,4 +1,5 @@
-"""Kernels written by hand for NVIDIA Hopper, one per ported TPU kernel.
+"""Kernels written by hand for NVIDIA Hopper: one per ported TPU kernel,
+and the decode step's attention.
 
 Each kernel ships as ``ops.py`` (the public wrapper: checks, launch,
 launch counter), ``ref.py`` (the plain PyTorch version the CPU path and
@@ -12,5 +13,8 @@ Subpackages:
   * :mod:`repro_torch.kernels.expert_matmul` — the per-expert sliced
     matmul, on the batched K-major kernel of ``amat_matmul``;
   * :mod:`repro_torch.kernels.flash_attn` — causal GQA flash attention
-    with an optional sliding window.
+    with an optional sliding window;
+  * :mod:`repro_torch.kernels.decode_attn` — one attention layer of a
+    decode step (RoPE, the KV append, split-KV attention over the bf16
+    cache), which replaces no TPU kernel.
 """

@@ -52,7 +52,12 @@ unembeds with the embedding table (no ``unembed`` leaf); ``pad_vocab_to``
 pads the vocabulary and masks the pad columns to -1e30.  With
 ``kv_dtype="int8"`` the KV cache holds per-(token, head) int8 codes and
 f32 scales (``_quant_kv`` / ``_dequant_kv``), dequantized to the model
-dtype before each decode attention.  An SSM position's cache entry holds
+dtype before each decode attention.  On the card a bf16 decode step's
+attention runs in the hand-written decode-attention kernel
+(:mod:`repro_torch.kernels.decode_attn`: RoPE, the KV append and
+attention over each sequence's valid rows; a ring or int8 cache keeps its
+plain writes and only attends there); f32 models and the CPU run the
+plain ops.  An SSM position's cache entry holds
 ``state`` [n_periods, B, H, head_dim, d_state] in f32 and ``conv``
 [n_periods, B, d_conv - 1, conv_channels] in the model dtype; its
 ``A_log``, ``D`` and ``dt_bias`` leaves stay f32 in a bf16 model, as in
@@ -107,6 +112,8 @@ import torch.utils.checkpoint as CK
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.amat import MAT84, amat_quantize_stacked, empty_stacked
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_attn as DA
+from repro_torch.kernels.decode_attn import ref as DA_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -753,69 +760,33 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # Decode step
 # ==========================================================================
 def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
-                 period: int, pos: torch.Tensor, positions: torch.Tensor,
-                 rows: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+                 period: int, pos: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
     """One attention position of a decode step with its residual: writes
     the new K/V row of period ``period`` into ``entry`` in place, then
-    attends over the cache (``pos``: scalar or ``[B]``; ``rows``:
-    ``arange(B)``)."""
+    attends over the cache (``pos``: scalar or ``[B]``).  The route
+    (``kernels.decode_attn.route``): bf16 on the card runs the rotation,
+    the write and the attention in the decode-attention kernel (a ring or
+    int8 cache keeps its plain writes and only attends there); everything
+    else runs the plain ops of ``kernels/decode_attn/ref.py``."""
     b = x.shape[0]
-    vector_pos = pos.ndim == 1
-    ring = cfg.ring_kv
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(p, h, cfg)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    s_cache = entry["k"].shape[2]
-    pos_w = pos % s_cache if ring else pos
-
-    def write_row(name, val):
-        # val: [B, 1, ...], the new token's row per sequence.
-        buf = entry[name][period]                           # [B, S, ...]
-        if vector_pos and ring:
-            buf[rows, pos_w] = val[:, 0].to(buf.dtype)
-        elif vector_pos:
-            # A row at or past the cache's end (an idle slot's position
-            # keeps counting) is dropped, as the reference's scatter
-            # drops it; no host sync.
-            at = pos.clamp(max=buf.shape[1] - 1)
-            keep = (pos < buf.shape[1]).reshape(
-                (b,) + (1,) * (buf.ndim - 2))
-            buf[rows, at] = torch.where(
-                keep, val[:, 0].to(buf.dtype), buf[rows, at])
-        else:
-            buf[:, pos_w.reshape(1)] = val.to(buf.dtype)
-        return buf
-
-    if cfg.kv_dtype == "int8":
-        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
-        bufs = [write_row(n, t) for n, t in (
-            ("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))]
+    args = (q[:, 0], k[:, 0], v[:, 0], entry["k"][period],
+            entry["v"][period], pos, cfg.rope_theta)
+    kw = dict(sliding_window=window, logit_softcap=cfg.logit_softcap)
+    route = DA.route(_dt(cfg), x.device, ring=cfg.ring_kv,
+                     kv_dtype=cfg.kv_dtype)
+    if route == "fused":
+        o = DA.decode_attention_fused(*args, **kw)
     else:
-        bufs = [write_row("k", k), write_row("v", v)]
-
-    # A ring buffer holds only rows within the window: attend over every
-    # resident row (attention is permutation-invariant, so the wrap's
-    # order does not matter).  Otherwise a windowed step at aligned
-    # positions reads only the last `window` cache rows (O(window)
-    # traffic, not a masked full read); per-sequence positions read the
-    # full cache and let decode_attention's per-row mask bound each
-    # window.
-    cur, win_mask = pos + 1, window
-    if ring:
-        cur, win_mask = torch.clamp(pos + 1, max=s_cache), None
-    elif not vector_pos and window is not None and s_cache > window:
-        start = torch.clamp(pos + 1 - window, 0, s_cache - window)
-        idx = start + torch.arange(window, device=x.device)
-        bufs = [t.index_select(1, idx) for t in bufs]
-        cur, win_mask = pos + 1 - start, None
-    if cfg.kv_dtype == "int8":
-        kc = _dequant_kv(bufs[0], bufs[2], _dt(cfg))
-        vc = _dequant_kv(bufs[1], bufs[3], _dt(cfg))
-    else:
-        kc, vc = bufs
-    o = L.decode_attention(q[:, 0], kc, vc, cur, sliding_window=win_mask,
-                           logit_softcap=cfg.logit_softcap)
+        int8 = None if cfg.kv_dtype != "int8" else DA_ref.Int8KV(
+            entry["k_scale"][period], entry["v_scale"][period], _quant_kv,
+            functools.partial(_dequant_kv, dtype=_dt(cfg)))
+        o = DA_ref.decode_attention_fused_ref(
+            *args, ring=cfg.ring_kv, int8=int8,
+            attend=DA.decode_attention if route == "attend"
+            else L.decode_attention, **kw)
     return x + (o.reshape(b, -1) @ p["wo"])[:, None, :]
 
 
@@ -859,12 +830,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     ``pos % S`` (every slot's, idle ones too, as in the reference), and
     attention reads every resident row with no window mask.
     """
-    b = token.shape[0]
     pos = cache["pos"]
-    vector_pos = pos.ndim == 1
     x = params["embed"][token].to(_dt(cfg))[:, None, :]       # [B, 1, d]
-    positions = pos[:, None] if vector_pos else pos.reshape(1, 1)
-    rows = torch.arange(b, device=x.device)
     window = _window(cfg, use_window)
 
     def per_period(overrides, key, period):
@@ -885,8 +852,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             p = period_params[key]
             entry = cache[key]
             if spec.mixer == "attn":
-                x = _attn_decode(p, x, cfg, entry, period, pos, positions,
-                                 rows, window)
+                x = _attn_decode(p, x, cfg, entry, period, pos, window)
                 if cfg.is_encdec:
                     x = _cross_attn_block(p, x, entry["ck"][period],
                                           entry["cv"][period], cfg)

@@ -5,7 +5,12 @@ The benchmark's description is data: ``BENCHMARK.json`` at the root names
 each cell's configuration and traffic mix, and each metric and the cells
 it is reported in; ``portbench/configs/<config>.json``,
 ``portbench/traffic/<traffic>.json``, ``portbench/checks/<cell>.json``
-and ``portbench/metrics/<metric>.py`` hold the rest, found by name.
+and ``portbench/metrics/<metric>.py`` hold the rest, found by name.  A
+configuration's layers are its model module's, ``portbench/models/
+<model>.py``, named by the configuration file's ``"model"`` key
+(``portbench.lib.loader``): the program's config, the weight draw, the
+plain reference's layer loop, the routing records' layout and the
+non-expert work counts.
 """
 
 from __future__ import annotations
@@ -17,11 +22,13 @@ import json
 import pathlib
 import sys
 import time
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from portbench.lib import counts as C
+from portbench.lib import loader
 from portbench.lib.traffic import Mix
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
@@ -39,6 +46,7 @@ class Cell:
     check: dict
     chips: int
     metrics: Dict[bool, List[dict]]      # trace flag -> metric entries
+    model: ModuleType                    # the configuration's model module
 
 
 def _json(path: pathlib.Path) -> dict:
@@ -58,13 +66,14 @@ def load_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
     w = cells[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     cfg = _json(root / conf["file"])
+    model = loader.model_module(cfg, conf["file"], root)
     engine = _json((root / conf["file"]).parent / cfg["engine"])
     mix = Mix.from_json(_json(HERE / "traffic" / f"{w['traffic']}.json"))
     check = _json(HERE / "checks" / f"{name}.json")
     e2e = [m for m in bench["end_to_end"] if _listed(m, name)]
     layer = [m for m in bench["per_layer"] if _listed(m, name)]
     return Cell(name, cfg, engine, mix, check, int(w["chips"]),
-                {False: e2e, True: layer})
+                {False: e2e, True: layer}, model)
 
 
 def metric_reader(name: str):
@@ -102,6 +111,10 @@ class Run:
         return self.cell.cfg
 
     @property
+    def model(self) -> ModuleType:
+        return self.cell.model
+
+    @property
     def window_s(self) -> float:
         return self.t_close - self.t_open
 
@@ -120,12 +133,12 @@ class Run:
         r = self.decodes[k]
         return C.decode_work(self.cfg, r.ids, r.active, r.critical,
                              r.slot_mask, [v[1] for v in r.slots.values()],
-                             self.mat_bits())
+                             self.mat_bits(), model=self.model)
 
     def prefill_work(self, i: int) -> C.Work:
         p = self.prefills[i]
         return C.prefill_work(self.cfg, p.ids, p.active, p.n_tokens,
-                              self.mat_bits())
+                              self.mat_bits(), model=self.model)
 
 
 def _sync(device) -> None:
@@ -145,7 +158,8 @@ def serve_window(cell: Cell, seed: int, seconds: float, trace: bool,
     from portbench.lib import serve
 
     engine, sched, probe, loop = serve.build(cell.cfg, cell.engine,
-                                             cell.mix, seed, device)
+                                             cell.mix, seed, device,
+                                             cell.model)
     t_warm = time.perf_counter()
     for _ in range(cell.mix.warmup_steps):
         loop.step()
@@ -264,8 +278,7 @@ class Served:
         toks = np.asarray(self.finished[rid][1], np.int64)
         t0 = int(np.asarray(p.t0).reshape(-1)[0])
         fed = np.concatenate([[t0], toks[:-1]]).astype(np.int64)
-        npos = sum(s["ffn"] == "moe" for s in cfg["pattern"])
-        P = cfg["n_layers"] // len(cfg["pattern"])
+        layout = tuple(run.model.moe_layout(cfg))
         E = cfg["moe"]["n_experts"]
         ctxs = []
         for j, tok in enumerate(fed):
@@ -275,7 +288,7 @@ class Served:
                 return None, None, f"request {rid}: decode step " \
                     f"{p.step + j} does not feed its token"
             ctxs.append(DecodeContext(
-                cached=r.cached.reshape(P, npos, E), alpha=r.alpha,
+                cached=r.cached.reshape(layout + (E,)), alpha=r.alpha,
                 ids=r.ids.astype(np.int64), active=r.active,
                 critical=r.critical, slot_mask=r.slot_mask, slot=slot[0]))
         chosen = np.concatenate([[t0], toks])
@@ -332,7 +345,7 @@ def over_budget(run: Run) -> int:
 
     eng = run.cell.engine
     msb, lsb = slice_bytes(run.cfg, eng)
-    budget = store_bytes(run.cfg, eng) * eng["cache_fraction"]
+    budget = store_bytes(run.cfg, eng, run.model) * eng["cache_fraction"]
     return sum(int(r.cached.sum()) * msb + r.n_lsb * lsb
                > budget * (1 + 1e-9) for r in run.decodes[:run.d_close])
 
@@ -352,13 +365,13 @@ def check(run: Run, served: Served, seed: int, device,
     lies far below, and is too rare to move the mean."""
     import torch
 
-    from portbench.lib.reference import logit_gaps, served_logits
-    from portbench.lib.weights import make_weights
+    from portbench.lib.reference import logit_gaps
 
     lim = run.cell.check
     theta = run.cell.engine["policy"]["theta"]
+    model = run.model
     ids = served.sample(int(lim["sample_requests"]), seed)
-    weights = make_weights(run.cfg, seed, device)
+    weights = model.make_weights(run.cfg, seed, device)
     gaps, ctl_gaps, flips, broken = [], [], [], 0 if ids else 1
     for rid in ids:
         req, chosen, why = served.ref_request(rid)
@@ -367,14 +380,15 @@ def check(run: Run, served: Served, seed: int, device,
             broken += 1
             continue
         fl = np.zeros(len(req.fed), np.int64) if control else None
-        logits = served_logits(run.cfg, weights, req, theta=theta, flips=fl)
+        logits = model.served_logits(run.cfg, weights, req, theta=theta,
+                                     flips=fl)
         if control:
             flips.append(np.concatenate([[0], fl]))
         gaps.append(logit_gaps(logits, torch.as_tensor(
             chosen, device=logits.device)).cpu().numpy())
         if control:
-            low = served_logits(run.cfg, weights, req, fp8=True,
-                                theta=theta)
+            low = model.served_logits(run.cfg, weights, req, fp8=True,
+                                      theta=theta)
             ctl_gaps.append(logit_gaps(logits, low.argmax(dim=-1))
                             .cpu().numpy())
             del low

@@ -5,7 +5,8 @@ Peaks: NVIDIA's H100 SXM data sheet, dense bf16 989 TFLOP/s, HBM3
 3.35 TB/s (at the card's 700 W limit).
 
 Counts follow the routing each forward really had (the program's routing
-arrays ``ids``/``active``/``critical``, ``[P, n_moe, T, k]``):
+arrays ``ids``/``active``/``critical``, ``[*layout, T, k]``, where
+``layout`` is the model module's ``moe_layout``):
 
 * only experts that kept at least one row after the capacity limit, and
   only the rows they kept, never the padding of the ``[E, C, d]`` buffer;
@@ -17,8 +18,12 @@ arrays ``ids``/``active``/``critical``, ``[P, n_moe, T, k]``):
   in (bf16) and out (f32, as the kernels write them);
 * for a whole forward: the non-expert weights once (the embedding only
   for the rows looked up), the expert codes above, each sequence's KV rows
-  up to its position and the one row written, an SSD mixer's state and
-  conv window read and written, and the logits written (f32).
+  up to its position and the one row written, a recurrent mixer's state
+  read and written, and the logits written (f32).
+
+The expert half is here; the non-expert terms (``LayerWork``) are each
+configuration's model module's (``portbench/models/<model>.py``,
+``layer_work``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from portbench.lib import loader
 from portbench.lib.reference import capacity, keep_mask
 
 PEAK_FLOPS_BF16 = 989e12
@@ -51,13 +57,25 @@ class Work:
         return max(self.flops / PEAK_FLOPS_BF16, self.bytes / PEAK_HBM_BYTES)
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerWork:
+    """A forward's non-expert terms, summed over the model's layers."""
+
+    mm: int                  # matrix elements per token (no embeddings)
+    weight_bytes: int        # their resident bytes, vectors included
+    attn_flops_row: float    # attention flops per (query, context row)
+    kv_bytes_row: int        # cached bytes per context row
+    state_bytes: int         # recurrent state bytes per sequence
+    scan_flops: int          # recurrent scan flops per token
+
+
 def _gated(t: str) -> bool:
     return t in ("swiglu", "geglu")
 
 
 def expert_rows(cfg: dict, ids: np.ndarray, active: np.ndarray,
                 slot_mask: Optional[np.ndarray]) -> np.ndarray:
-    """Kept rows per expert, [P, n_moe, E], under the capacity rule over
+    """Kept rows per expert, [*layout, E], under the capacity rule over
     the forward's T tokens."""
     moe = cfg["moe"]
     E, k = moe["n_experts"], moe["top_k"]
@@ -72,10 +90,10 @@ def expert_rows(cfg: dict, ids: np.ndarray, active: np.ndarray,
 def expert_high(cfg: dict, ids: np.ndarray, active: np.ndarray,
                 critical: Optional[np.ndarray],
                 slot_mask: Optional[np.ndarray]) -> np.ndarray:
-    """[P, n_moe, E] bool: the experts that ran on both slices."""
+    """[*layout, E] bool: the experts that ran on both slices."""
     E = cfg["moe"]["n_experts"]
     if critical is None:
-        return np.ones(ids.shape[:2] + (E,), bool)
+        return np.ones(ids.shape[:-2] + (E,), bool)
     act = active if slot_mask is None else active & slot_mask[:, None]
     crit = critical & act
     onehot = (ids[..., None] == np.arange(E)) & crit[..., None]
@@ -110,56 +128,6 @@ def kernel_work(cfg: dict, rows: np.ndarray, high: np.ndarray,
     return tuple(out)
 
 
-def _weight_elems(cfg: dict):
-    """(matrix elements per token, resident bytes) of the non-expert
-    weights, the embedding and unembedding apart."""
-    d, H, KV, hd = (cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"],
-                    cfg["head_dim"])
-    mm, vec = 0, 0
-    for spec in cfg["pattern"]:
-        if spec["mixer"] == "attn":
-            mm += d * (H + 2 * KV) * hd + H * hd * d
-            vec += d + (H + 2 * KV) * hd * cfg.get("qkv_bias", False)
-        else:
-            s = cfg["ssm"]
-            di = s["expand"] * d
-            nh = di // s["head_dim"]
-            mm += d * (2 * di + 2 * s["d_state"] + nh) + di * d
-            vec += d + s["d_conv"] * (di + 2 * s["d_state"]) \
-                + (di + 2 * s["d_state"]) + di + 3 * nh * 2
-        if spec["ffn"] == "dense":
-            n = 2 * cfg["d_ff"] if _gated(cfg["mlp_type"]) else cfg["d_ff"]
-            mm += d * n + cfg["d_ff"] * d
-            vec += d
-        elif spec["ffn"] == "moe":
-            moe = cfg["moe"]
-            mm += d * moe["n_experts"]
-            if moe.get("n_shared_experts", 0):
-                fs = moe.get("d_ff_shared") or moe["d_ff"]
-                n = 2 * fs if _gated(moe["mlp_type"]) else fs
-                mm += d * n + fs * d
-            vec += d
-    P = cfg["n_layers"] // len(cfg["pattern"])
-    return mm * P, (mm + vec) * P * BF16 + d * BF16
-
-
-def _mixer_state(cfg: dict):
-    """(attention layers, KV bytes per row and layer, SSD layers,
-    state bytes per sequence and layer, scan flops per token and layer)."""
-    P = cfg["n_layers"] // len(cfg["pattern"])
-    n_attn = sum(s["mixer"] == "attn" for s in cfg["pattern"]) * P
-    n_ssm = sum(s["mixer"] == "ssm" for s in cfg["pattern"]) * P
-    kv_row = 2 * cfg["n_kv_heads"] * cfg["head_dim"] * BF16
-    st, scan = 0, 0
-    if n_ssm:
-        s = cfg["ssm"]
-        di = s["expand"] * cfg["d_model"]
-        st = di * s["d_state"] * F32 \
-            + (s["d_conv"] - 1) * (di + 2 * s["d_state"]) * BF16
-        scan = 4 * di * s["d_state"]
-    return n_attn, kv_row, n_ssm, st, scan
-
-
 def _experts(cfg, rows_all, high_all, mat_bits) -> Work:
     """Expert products of a forward: their flops, and the bytes of the
     used experts' codes and metadata (the rows are activations)."""
@@ -172,20 +140,25 @@ def _experts(cfg, rows_all, high_all, mat_bits) -> Work:
     return w
 
 
+def _layers(cfg: dict, model) -> LayerWork:
+    return (model or loader.model_module(cfg)).layer_work(cfg)
+
+
 def decode_work(cfg: dict, ids, active, critical, slot_mask,
-                kv_lens: Sequence[int], mat_bits=(8, 4)) -> Work:
+                kv_lens: Sequence[int], mat_bits=(8, 4), model=None) -> Work:
     """One batched decode step over the active sequences, each of whose
-    KV holds ``kv_lens[b]`` rows after the step's row is written."""
+    KV holds ``kv_lens[b]`` rows after the step's row is written.
+    ``model``: the configuration's model module (found by its name in
+    ``cfg`` when not given)."""
     B = int(np.asarray(slot_mask).sum())
-    mm, wbytes = _weight_elems(cfg)
-    n_attn, kv_row, n_ssm, st, scan = _mixer_state(cfg)
+    L = _layers(cfg, model)
     d, V = cfg["d_model"], cfg["vocab_size"]
     w = Work()
-    w.flops = 2.0 * B * (mm + d * V) + B * n_ssm * scan
+    w.flops = 2.0 * B * (L.mm + d * V) + B * L.scan_flops
     ctx = float(sum(kv_lens))
-    w.flops += n_attn * 4.0 * cfg["n_heads"] * cfg["head_dim"] * ctx
-    w.bytes = wbytes + d * V * BF16 + B * d * BF16 + B * V * F32
-    w.bytes += n_attn * kv_row * (ctx + B) + n_ssm * st * 2 * B
+    w.flops += L.attn_flops_row * ctx
+    w.bytes = L.weight_bytes + d * V * BF16 + B * d * BF16 + B * V * F32
+    w.bytes += L.kv_bytes_row * (ctx + B) + L.state_bytes * 2 * B
     w += _experts(cfg, expert_rows(cfg, ids, active, slot_mask),
                   expert_high(cfg, ids, active, critical, slot_mask),
                   mat_bits)
@@ -193,19 +166,18 @@ def decode_work(cfg: dict, ids, active, critical, slot_mask,
 
 
 def prefill_work(cfg: dict, ids, active, n_tokens: int,
-                 mat_bits=(8, 4)) -> Work:
+                 mat_bits=(8, 4), model=None) -> Work:
     """One request's prefill over ``n_tokens`` prompt tokens: last-token
     logits, every expert at 8 bits."""
     S = float(n_tokens)
-    mm, wbytes = _weight_elems(cfg)
-    n_attn, kv_row, n_ssm, st, scan = _mixer_state(cfg)
+    L = _layers(cfg, model)
     d, V = cfg["d_model"], cfg["vocab_size"]
     w = Work()
-    w.flops = 2.0 * S * mm + 2.0 * d * V + S * n_ssm * scan
-    w.flops += n_attn * 4.0 * cfg["n_heads"] * cfg["head_dim"] \
-        * S * (S + 1) / 2
-    w.bytes = wbytes + d * V * BF16 + S * d * BF16 + S * 8 + V * F32
-    w.bytes += n_attn * kv_row * S + n_ssm * st
+    w.flops = 2.0 * S * L.mm + 2.0 * d * V + S * L.scan_flops
+    w.flops += L.attn_flops_row * S * (S + 1) / 2
+    w.bytes = L.weight_bytes + d * V * BF16 + S * d * BF16 + S * 8 \
+        + V * F32
+    w.bytes += L.kv_bytes_row * S + L.state_bytes
     w += _experts(cfg, expert_rows(cfg, ids, active, None),
                   expert_high(cfg, ids, active, None, None), mat_bits)
     return w

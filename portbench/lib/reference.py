@@ -1,4 +1,5 @@
-"""Plain PyTorch reference of a served request, in float32.
+"""Plain PyTorch reference of a served request, in float32: what every
+MoE model shares.
 
 It imports nothing of the program.  It reads the configuration as the
 benchmark's JSON dict, the float weights the benchmark made, a request's
@@ -10,13 +11,13 @@ zero-point and scales by 16).
 
 One request is one causal sequence: the prompt, then the token the
 prefill produced, then each served token but the last.  Every layer runs
-over the whole sequence at once:
+over the whole sequence at once.  The layer loop and the layers that
+differ between architectures (embedding, attention, recurrent mixers,
+dense FFNs, logits) are each configuration's model module's
+(``portbench/models/<model>.py``, its ``served_logits``).  Here, the
+parts they share:
 
-* embedding; RMSNorm ``x * rsqrt(mean(x^2) + eps) * (1 + w)``; attention
-  with half-split RoPE, grouped KV heads and a causal mask; the SSD mixer
-  as its plain recurrence (``h = exp(dt*A) h + dt * x B``,
-  ``y = h C + D x``, after a causal depthwise conv and SiLU, with the
-  gated RMSNorm before ``out_proj``); SwiGLU FFNs; logits;
+* RMSNorm ``x * rsqrt(mean(x^2) + eps) * (1 + w)``; SwiGLU FFNs;
 * the MoE layer of a prompt position: softmax router, top-k (lower index
   first among equals), gates renormalized, capacity over the prompt's
   tokens in GShard order (slot k before slot k+1, token order within a
@@ -36,8 +37,9 @@ output column.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 import torch
@@ -50,10 +52,11 @@ F32 = torch.float32
 class DecodeContext:
     """One decode step of the program, as the reference needs it.
 
-    ``cached``: [P, n_moe, E] bool, experts whose MSB slice was resident;
+    ``cached``: [*layout, E] bool, experts whose MSB slice was resident;
     ``alpha``: the Cache-Prior boost; ``ids``/``active``/``critical``:
-    [P, n_moe, T, k] routing of the step's batch; ``slot_mask``: [T];
-    ``slot``: this request's row of the batch."""
+    [*layout, T, k] routing of the step's batch; ``slot_mask``: [T];
+    ``slot``: this request's row of the batch.  ``layout`` is the model
+    module's ``moe_layout``: the leading axes over the MoE layers."""
 
     cached: np.ndarray
     alpha: float
@@ -88,17 +91,6 @@ def _mm(a: torch.Tensor, w: torch.Tensor, fp8: bool) -> torch.Tensor:
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) \
         * (1.0 + w.to(F32))
-
-
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [L, H, D]; positions 0..L-1."""
-    L, _, D = x.shape
-    inv = 1.0 / theta ** (torch.arange(0, D, 2, dtype=F32,
-                                       device=x.device) / D)
-    ang = torch.arange(L, dtype=F32, device=x.device)[:, None] * inv
-    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
-    x1, x2 = x[..., :D // 2], x[..., D // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 def _swiglu(x, wi, wo, fp8):
@@ -146,60 +138,6 @@ def keep_mask(ids: np.ndarray, E: int, cap: int) -> np.ndarray:
     return np.swapaxes(keep, -1, -2)
 
 
-# ------------------------------------------------------------------- mixers
-def _attention(p, x, cfg, fp8):
-    L = x.shape[0]
-    H, KV, D = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-    h = _rms(x, p["norm"], cfg["norm_eps"])
-    q, k, v = (_mm(h, p[n], fp8) for n in ("wq", "wk", "wv"))
-    if cfg.get("qkv_bias", False):
-        q, k, v = q + p["bq"].to(F32), k + p["bk"].to(F32), \
-            v + p["bv"].to(F32)
-    q = _rope(q.reshape(L, H, D), cfg["rope_theta"])
-    k = _rope(k.reshape(L, KV, D), cfg["rope_theta"])
-    v = v.reshape(L, KV, D)
-    rep = H // KV
-    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-    s = torch.einsum("qhd,khd->hqk", q, k) * D ** -0.5
-    mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-    s = s.masked_fill(~mask, float("-inf"))
-    o = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), v)
-    return x + _mm(o.reshape(L, H * D), p["wo"], fp8)
-
-
-def _ssm(p, x, cfg, fp8):
-    s = cfg["ssm"]
-    L, d = x.shape
-    di, N, Pd, K = s["expand"] * d, s["d_state"], s["head_dim"], s["d_conv"]
-    H = di // Pd
-    u = _rms(x, p["ssm_norm"], cfg["norm_eps"])
-    m = p["ssm"]
-    proj = _mm(u, m["in_proj"], fp8)
-    z, xc, Bc, Cc, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
-    cin = torch.cat([xc, Bc, Cc], dim=-1)
-    cin = F.pad(cin, (0, 0, K - 1, 0))
-    w = m["conv_w"].to(F32)
-    conv = sum(cin[i:i + L] * w[i] for i in range(K)) + m["conv_b"].to(F32)
-    conv = F.silu(conv)
-    xs, Bs, Cs = torch.split(conv, [di, N, N], dim=-1)
-    xs = xs.reshape(L, H, Pd)
-    A = -torch.exp(m["A_log"].to(F32))
-    dt = dt + m["dt_bias"].to(F32)
-    dt = dt.clamp_min(0.0) + torch.log1p(torch.exp(-dt.abs()))
-    dA = torch.exp(dt * A)                                   # [L, H]
-    h = torch.zeros(H, Pd, N, dtype=F32, device=x.device)
-    ys = []
-    for t in range(L):
-        h = h * dA[t, :, None, None] \
-            + (dt[t, :, None] * xs[t])[..., None] * Bs[t]
-        ys.append(h @ Cs[t])
-    y = torch.stack(ys) + xs * m["D"].to(F32)[None, :, None]
-    yf = y.reshape(L, di) * F.silu(z)
-    yn = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-5) \
-        * (1.0 + m["norm_scale"].to(F32))
-    return x + _mm(yn, m["out_proj"], fp8)
-
-
 # ---------------------------------------------------------------------- MoE
 def _route_prefill(probs, moe):
     E, k = moe["n_experts"], moe["top_k"]
@@ -212,12 +150,12 @@ def _route_prefill(probs, moe):
     return g, ids, keep, hi
 
 
-def _route_decode(probs, moe, ctxs: List[DecodeContext], period, pidx,
+def _route_decode(probs, moe, ctxs: List[DecodeContext], at: tuple,
                   theta, flips=None):
     E, k = moe["n_experts"], moe["top_k"]
     n = probs.shape[0]
     dev = probs.device
-    cached = torch.as_tensor(np.stack([c.cached[period, pidx] for c in ctxs]),
+    cached = torch.as_tensor(np.stack([c.cached[at] for c in ctxs]),
                              device=dev).to(F32)
     alpha = torch.tensor([c.alpha for c in ctxs], dtype=F32, device=dev)
     _, ids = top_k(probs * (1.0 + alpha[:, None] * cached), k)
@@ -228,9 +166,9 @@ def _route_decode(probs, moe, ctxs: List[DecodeContext], period, pidx,
     keep = np.zeros((n, k), bool)
     hi = np.zeros((n, k), bool)
     for j, c in enumerate(ctxs):
-        act = c.active[period, pidx] & c.slot_mask[:, None]
-        bids = np.where(act, c.ids[period, pidx], E)
-        bcrit = c.critical[period, pidx] & act
+        act = c.active[at] & c.slot_mask[:, None]
+        bids = np.where(act, c.ids[at], E)
+        bcrit = c.critical[at] & act
         bids[c.slot], bcrit[c.slot] = own[j], crit[j]
         T = bids.shape[0]
         keep[j] = keep_mask(bids[None], E,
@@ -240,19 +178,22 @@ def _route_decode(probs, moe, ctxs: List[DecodeContext], period, pidx,
         np.logical_or.at(lsb, bids[bcrit], True)
         hi[j] = lsb[own[j]]
         if flips is not None:
-            flips[j] += set(own[j]) != set(c.ids[period, pidx][c.slot])
+            flips[j] += set(own[j]) != set(c.ids[at][c.slot])
     return g, ids, keep, hi
 
 
-def _moe(p, x, cfg, period, pidx, n_prompt, ctxs, fp8, theta, flips):
+def _moe(p, x, cfg, at: tuple, n_prompt, ctxs, fp8, theta, flips):
+    """The MoE layer at index ``at`` of the routing layout, over the
+    prompt's ``n_prompt`` positions and then one decode position per
+    context."""
     moe = cfg["moe"]
     m = p["moe"]
     h = _rms(x, p["moe_norm"], cfg["norm_eps"])
     probs = torch.softmax(_mm(h, m["w_router"], fp8), dim=-1)
     parts = [_route_prefill(probs[:n_prompt], moe)]
     if ctxs:
-        parts.append(_route_decode(probs[n_prompt:], moe, ctxs, period,
-                                   pidx, theta, flips))
+        parts.append(_route_decode(probs[n_prompt:], moe, ctxs, at, theta,
+                                   flips))
     g = torch.cat([q[0] for q in parts])
     ids = torch.cat([q[1] for q in parts]).cpu().numpy()
     keep = np.concatenate([q[2] for q in parts])
@@ -276,47 +217,15 @@ def _moe(p, x, cfg, period, pidx, n_prompt, ctxs, fp8, theta, flips):
     return x + y
 
 
-def _index(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-# ------------------------------------------------------------------ forward
-@torch.no_grad()
-def served_logits(cfg: dict, weights: dict, req: RefRequest, *,
-                  theta: float = 0.5, fp8: bool = False,
-                  flips: Optional[np.ndarray] = None) -> torch.Tensor:
-    """Logits [1 + len(fed), V] (f32) at the positions that chose a served
-    token: the prompt's last position, then each fed token's.  ``flips``
-    ([len(fed)] ints), when given, counts at each decode position the MoE
-    layers whose selection differs from the program's."""
+@contextlib.contextmanager
+def no_tf32():
+    """Matrix products in full float32 on the card, TF32 off."""
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        dev = weights["embed"].device
-        tokens = torch.as_tensor(np.concatenate([req.prompt, req.fed]),
-                                 dtype=torch.long, device=dev)
-        S = len(req.prompt)
-        x = weights["embed"][tokens].to(F32)
-        pattern = cfg["pattern"]
-        n_periods = cfg["n_layers"] // len(pattern)
-        moe_pos = [i for i, s in enumerate(pattern) if s["ffn"] == "moe"]
-        for period in range(n_periods):
-            for i, spec in enumerate(pattern):
-                p = _index(weights["blocks"][f"pos{i}"], period)
-                x = _attention(p, x, cfg, fp8) if spec["mixer"] == "attn" \
-                    else _ssm(p, x, cfg, fp8)
-                if spec["ffn"] == "dense":
-                    h = _rms(x, p["mlp_norm"], cfg["norm_eps"])
-                    x = x + _swiglu(h, p["mlp"]["wi"], p["mlp"]["wo"], fp8)
-                elif spec["ffn"] == "moe":
-                    x = _moe(p, x, cfg, period, moe_pos.index(i), S,
-                             req.contexts, fp8, theta, flips)
-        h = _rms(x[S - 1:], weights["final_norm"], cfg["norm_eps"])
-        return _mm(h, weights["unembed"], fp8)
+        yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev

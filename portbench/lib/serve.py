@@ -18,6 +18,7 @@ benchmark sees the program through its public surface only:
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 import time
 from typing import Dict, List, Optional
@@ -25,28 +26,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from portbench.lib import loader
 from portbench.lib.traffic import Mix, Stream
-
-
-def model_config(cfg: dict):
-    """The program's ``ModelConfig`` for a configuration file."""
-    from repro_torch.configs.base import BlockSpec, ModelConfig
-    from repro_torch.models.moe import MoECfg
-    from repro_torch.models.ssm import SSMCfg
-
-    return ModelConfig(
-        name=cfg["name"], arch_type=cfg["arch_type"],
-        n_layers=cfg["n_layers"], d_model=cfg["d_model"],
-        n_heads=cfg["n_heads"], n_kv_heads=cfg["n_kv_heads"],
-        head_dim=cfg["head_dim"], d_ff=cfg["d_ff"],
-        vocab_size=cfg["vocab_size"], mlp_type=cfg["mlp_type"],
-        moe=MoECfg(**cfg["moe"]),
-        ssm=SSMCfg(**cfg["ssm"]) if "ssm" in cfg else None,
-        pattern=tuple(BlockSpec(p["mixer"], p["ffn"])
-                      for p in cfg["pattern"]),
-        rope_theta=cfg["rope_theta"], norm_eps=cfg["norm_eps"],
-        qkv_bias=cfg.get("qkv_bias", False), dtype=cfg["dtype"],
-        source=cfg["source"])
 
 
 def slice_bytes(cfg: dict, engine_cfg: dict):
@@ -63,23 +44,24 @@ def slice_bytes(cfg: dict, engine_cfg: dict):
             sum(n * (hi - lo) / 8 for n in sizes))
 
 
-def store_bytes(cfg: dict, engine_cfg: dict) -> float:
+def store_bytes(cfg: dict, engine_cfg: dict, model=None) -> float:
     """The slice store's size: both slices of every expert of every MoE
-    layer."""
-    n_moe = sum(p["ffn"] == "moe" for p in cfg["pattern"]) \
-        * cfg["n_layers"] // len(cfg["pattern"])
+    layer (the layers of the model module's ``moe_layout``; ``model`` is
+    found by its name in ``cfg`` when not given)."""
+    model = model or loader.model_module(cfg)
+    n_moe = math.prod(model.moe_layout(cfg))
     return sum(slice_bytes(cfg, engine_cfg)) * n_moe \
         * cfg["moe"]["n_experts"]
 
 
-def engine_config(cfg: dict, engine_cfg: dict, max_seq: int):
+def engine_config(cfg: dict, engine_cfg: dict, max_seq: int, model):
     from repro_torch.core.amat import MatConfig
     from repro_torch.core.engine import EngineConfig
     from repro_torch.models.moe import RoutingPolicy
 
     return EngineConfig(
         mat=MatConfig(**engine_cfg["mat"]),
-        cache_bytes=store_bytes(cfg, engine_cfg)
+        cache_bytes=store_bytes(cfg, engine_cfg, model)
         * engine_cfg["cache_fraction"],
         policy=RoutingPolicy(**engine_cfg["policy"]),
         miss_rate_target=engine_cfg["miss_rate_target"],
@@ -225,22 +207,22 @@ class ClosedLoop:
         return t
 
 
-def build(cfg: dict, engine_cfg: dict, mix: Mix, seed: int, device):
+def build(cfg: dict, engine_cfg: dict, mix: Mix, seed: int, device, model):
     """Weights from the seed, the engine (AMAT quantization included), the
-    scheduler, the probe and the closed loop with its first wave sent."""
-    from portbench.lib.weights import make_weights
+    scheduler, the probe and the closed loop with its first wave sent.
+    ``model``: the configuration's model module."""
     from repro_torch.core.engine import PersistentEngine
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                SchedulerConfig)
 
-    mcfg = model_config(cfg)
+    mcfg = model.program_config(cfg)
     t0 = time.perf_counter()
-    params = make_weights(cfg, seed, device)
+    params = model.make_weights(cfg, seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     engine = PersistentEngine(mcfg, params, engine_config(
-        cfg, engine_cfg, mix.max_seq), device=device)
+        cfg, engine_cfg, mix.max_seq, model), device=device)
     del params
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -4,19 +4,20 @@ traced segment: the KV bytes of the rows the attention layers need, at
 (the split and merge kernels of ``csrc/decode_attention.cu``, matched by
 name below) launched in the forward, in percent.
 
-The bytes: for each traced decode step, each attention layer reads each
-sequence's valid K and V rows once, ``2 * n_kv_heads * head_dim`` bf16
-values a row, over ``kv_lens`` rows (``DecodeRec.slots``: the rows after
-the step's row is written, as ``counts.decode_work`` counts them), cut to
-the window where a configuration has one.  None where the trace holds no
-such kernel (a program without it)."""
+The bytes: for each traced decode step, the attention layers read each
+sequence's valid cached rows once, ``kv_bytes_row`` bytes a row over all
+of them (the model module's ``layer_work``: for ``periodic``,
+``2 * n_kv_heads * head_dim`` bf16 values a row and layer), over
+``kv_lens`` rows (``DecodeRec.slots``: the rows after the step's row is
+written, as ``counts.decode_work`` counts them), cut to the window where a
+configuration has one.  None where the trace holds no such kernel (a
+program without it)."""
 
 import re
 
 KERNEL = re.compile(r"decode_attn_(split|merge)_kernel")
 RANGE = "slicemoe.decode_forward"
 HBM_BYTES_S = 3.35e12
-BF16 = 2
 
 
 def read(run):
@@ -27,12 +28,10 @@ def read(run):
     if dev_s <= 0:
         return None
     cfg = run.cfg
-    periods = cfg["n_layers"] // len(cfg["pattern"])
-    n_attn = periods * sum(p["mixer"] == "attn" for p in cfg["pattern"])
-    row = 2 * cfg["n_kv_heads"] * cfg["head_dim"] * BF16
+    row = run.model.layer_work(cfg).kv_bytes_row
     window = cfg.get("sliding_window")
     rows = 0
     for k in range(*run.traced_decodes):
         for _, kv_len in run.decodes[k].slots.values():
             rows += kv_len if window is None else min(kv_len, window)
-    return 100.0 * n_attn * row * rows / HBM_BYTES_S / dev_s
+    return 100.0 * row * rows / HBM_BYTES_S / dev_s

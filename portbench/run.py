@@ -8,8 +8,10 @@ on, and print one JSON result line as the last line of standard output.
 per-layer metrics (a profiled segment of ``trace_steps`` scheduler steps
 follows the window).  Both decide ``correct`` the same way: once the
 window has closed, a sample of the requests it finished is run through
-the plain reference (``portbench/lib/reference.py``) and each served
-token's logit must lie within the cell's limit of the reference's best.
+the plain reference (the configuration's model module under
+``portbench/models/``, over the shared layers of
+``portbench/lib/reference.py``) and each served token's logit must lie
+within the cell's limit of the reference's best.
 The numbers compared are printed, each beside its limit, as the last
 lines of standard error and under ``checks`` in the result.
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import json
 import pathlib
 
+from portbench.lib import loader
 from portbench.lib.bench import Cell
 from portbench.lib.traffic import Mix
 
@@ -13,7 +14,8 @@ HERE = pathlib.Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
 
 QWEN_REPRO = {
-    "name": "qwen15-moe-repro", "source": "test", "arch_type": "moe",
+    "name": "qwen15-moe-repro", "source": "test", "model": "periodic",
+    "arch_type": "moe",
     "n_layers": 4, "d_model": 256, "n_heads": 8, "n_kv_heads": 8,
     "head_dim": 32, "d_ff": 512, "vocab_size": 2048, "mlp_type": "swiglu",
     "moe": {"n_experts": 60, "top_k": 4, "d_ff": 64, "n_shared_experts": 4,
@@ -24,7 +26,8 @@ QWEN_REPRO = {
     "dtype": "float32"}
 
 TINY_HYBRID = {
-    "name": "tiny-hybrid", "source": "test", "arch_type": "hybrid",
+    "name": "tiny-hybrid", "source": "test", "model": "periodic",
+    "arch_type": "hybrid",
     "n_layers": 8, "d_model": 128, "n_heads": 4, "n_kv_heads": 2,
     "head_dim": 32, "d_ff": 256, "vocab_size": 512, "mlp_type": "swiglu",
     "moe": {"n_experts": 8, "top_k": 2, "d_ff": 128, "n_shared_experts": 0,
@@ -58,4 +61,4 @@ def cell(cfg: dict, max_gap=None, mean_gap=None,
     return Cell(cfg["name"], cfg, engine, Mix.from_json(MIX),
                 {"sample_requests": 3, "max_logit_gap": max_gap,
                  "mean_logit_gap": mean_gap}, 1,
-                metrics)
+                metrics, loader.model_module(cfg))

@@ -6,13 +6,17 @@ import types
 
 import pytest
 
+from portbench.lib import loader
 from portbench.lib.bench import Run, metric_reader
 from portbench.lib.profile import STEP, Kernel, Trace
+from portbench.tests.cells import TINY_HYBRID
 
 FWD = "slicemoe.decode_forward"
-CFG = {"n_layers": 8, "n_kv_heads": 8, "head_dim": 128,
-       "pattern": [{"mixer": "attn"}, {"mixer": "ssm"},
-                   {"mixer": "attn"}, {"mixer": "ssm"}]}
+CFG = dict(TINY_HYBRID, n_layers=8, n_kv_heads=8, head_dim=128,
+           pattern=[{"mixer": "attn", "ffn": "dense"},
+                    {"mixer": "ssm", "ffn": "moe"},
+                    {"mixer": "attn", "ffn": "moe"},
+                    {"mixer": "ssm", "ffn": "dense"}])
 
 
 def _run(ops, cfg=CFG):
@@ -22,7 +26,8 @@ def _run(ops, cfg=CFG):
                   ranges={FWD: [(0.0, 400.0), (500.0, 900.0)],
                           STEP: [(0.0, 450.0), (500.0, 1000.0)]},
                   t0_us=0.0, t1_us=1000.0)
-    return Run(cell=types.SimpleNamespace(cfg=cfg), seconds=1.0,
+    cell = types.SimpleNamespace(cfg=cfg, model=loader.model_module(cfg))
+    return Run(cell=cell, seconds=1.0,
                setup_s=1.0, t_open=0.0, t_close=1.0, d_open=0, d_close=0,
                step_end=[], wall_step_s=[], wall_prefill_s=[],
                decodes=decodes, prefills=[], trace=trace,

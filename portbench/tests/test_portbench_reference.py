@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.lib import bench, reference as R, weights as W
+from portbench.lib import bench, loader, reference as R
 from portbench.tests.cells import QWEN_REPRO, ROOT, TINY_HYBRID, cell
 
 CFGS = {"qwen15-moe-repro": QWEN_REPRO, "tiny-hybrid": TINY_HYBRID}
@@ -43,11 +43,11 @@ def test_port_matches_reference_and_control_does_not(name):
 
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_weight_tree_is_the_programs_input_format(name):
-    from portbench.lib.serve import model_config
     from repro_torch.models.model import param_shapes
 
     cfg = CFGS[name]
-    assert W.shape_tree(cfg) == param_shapes(model_config(cfg))
+    model = loader.model_module(cfg)
+    assert model.shape_tree(cfg) == param_shapes(model.program_config(cfg))
 
 
 def test_capacity_rule_matches_the_programs_dispatch():

@@ -76,6 +76,28 @@ it goes, any failure exiting non-zero:
    of its valid K and V bytes (``[decode-attn]`` lines); phase 5 then
    counts the kernel's launches on the main path (1-2 per attention
    layer per decode step, 0 in prefill);
+3f. the absorbed-MLA decode kernel (``kernels/mla_decode``: RoPE, the
+   latent and rope rows appended and split-KV attention of one MLA layer
+   of a decode step) through ``mla_decode_fused`` at the
+   ``dsv2lite-longkv-c32`` cell's shape (B = 32, S = 12,289, 16 heads, a
+   latent of 512 and rope dims of 64 under DeepSeek-V2-Lite's YaRN, the
+   valid rows drawn as the cell's loop holds them in its steady state by
+   ``scripts/torch_mla_decode_bench.py``) and at one sequence of 12,288
+   rows, each against its plain route (``kernels/mla_decode/ref.py``) on
+   the same inputs: the rows written equal the plain route's bit for bit
+   and every other row is untouched, each output lies within one bf16 ulp
+   of the plain route's (or within 1e-6), or else no farther from the
+   plain route's arithmetic in float64 than the plain route is, plus
+   1e-6, and each call launches 1-2 kernels; the cell's shape is timed
+   beside the plain route, SDPA over a concatenated copy of the same
+   rows (a yardstick the port never calls) and the bound of its valid
+   rows' 1,152 bytes each (``[mla-decode]`` lines).  Then a small
+   DeepSeek-shaped model (the published widths, the leading dense layer
+   and two MoE layers of 8 experts) serves 4 prompts of 300 tokens and 16
+   new tokens through the engine and the scheduler, as phase 5 does: the
+   MLA kernel must launch 1-2 times per MLA layer per decode step (3
+   layers) and the decode-attention kernel not at all (``[mla-serve]``);
+   phase 5 holds Qwen's run to no MLA launches;
 4. a small reference check: the qwen15-moe-repro model (2 layers, f32)
    served on the card through the kernel (K1/K2 on three bf16 planes of
    x) and on the CPU through the plain dense-dequant path must agree
@@ -1370,6 +1392,181 @@ def phase_decode_attn(cfg):
     return t
 
 
+# Phase 3f: the absorbed-MLA decode kernel at the dsv2lite-longkv-c32 cell's
+# shape (valid rows drawn as the cell's loop holds them in its steady state,
+# by the kernel's timing script) and at one sequence of 12,288 rows.
+MLA_CELL = (32, 12289)
+MLA_LONG = (1, 12288)
+MLA_SERVE_PROMPT = 300      # the small serve's cache: two chunks of rows
+
+
+def _mla_held(tag, got, want, exact, caches, want_caches, old, pos) -> float:
+    """Fail unless the rows written equal the plain route's bit for bit,
+    every other row of the caches is untouched, and each output lies
+    within one bf16 ulp of the plain route's, or within 1e-6 of it, or,
+    where neither holds, no farther from ``exact`` (the plain route's
+    arithmetic in float64 on the same inputs) than the plain route is,
+    plus 1e-6 (``tests/test_torch_mla_decode_gpu.py`` says why: a score
+    sums 576 products).  Returns the output's largest absolute
+    difference."""
+    torch.cuda.synchronize()
+    B, S = caches[0].shape[:2]
+    written = torch.zeros((B, S), dtype=torch.bool, device=got.device)
+    for b, p in enumerate((pos.expand(B) if pos.ndim == 0 else pos).tolist()):
+        if p < S:
+            written[b, p] = True
+    same = [torch.equal(c[~written], o[~written])
+            and torch.equal(c[written], w[written])
+            for c, w, o in zip(caches, want_caches, old)]
+    ulps = _bf16_ulps(got, want)
+    bad = (ulps > 1) & ((got.float() - want.float()).abs() > 1e-6)
+    n_ulp = int(bad.sum())
+    if n_ulp:
+        bad &= (got.double() - exact).abs() > (want.double() - exact).abs() \
+            + 1e-6
+    err = float((got.float() - want.float()).abs().max())
+    say(f"[mla-decode] {tag}: {int(written.sum())} rows written, caches "
+        f"equal to the plain route's and untouched elsewhere {same}; output "
+        f"{int((ulps > 0).sum())} of {ulps.numel()} values differ, max "
+        f"{int(ulps.max())} ulp (max |diff| {err:.3e}), {n_ulp} beyond one "
+        f"ulp and 1e-6, {int(bad.sum())} of them farther from float64 than "
+        "the plain route")
+    if not all(same) or int(bad.sum()) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"mla-decode {tag}: the kernel disagrees with its plain route")
+    return err
+
+
+def _mla_exact(q_lat, q_pe, ckv, kpe, pos, freqs, rope_scale, scale):
+    """The plain route's attention in float64 on the same inputs (the
+    caches as written, q_pe rotated as the plain route rotates it)."""
+    from repro_torch.kernels.mla_decode import ref as MD_ref
+
+    q_pe = MD_ref.rope_at(q_pe, pos, freqs, rope_scale)
+    f = torch.float64
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.to(f), ckv.to(f))
+         + torch.einsum("bhe,bse->bhs", q_pe.to(f), kpe.to(f))) * scale
+    cur = (pos.expand(ckv.shape[0]) if pos.ndim == 0 else pos) + 1
+    valid = torch.arange(ckv.shape[1], device=ckv.device)[None] < cur[:, None]
+    s = s.masked_fill(~valid[:, None], float("-inf"))
+    return torch.einsum("bhs,bsr->bhr", torch.softmax(s, -1), ckv.to(f))
+
+
+def phase_mla_decode(device: str = "cuda"):
+    """Phase 3f (module docstring): the absorbed-MLA decode kernel against
+    its plain route at the cell's shape and at one long sequence, the
+    cell's shape timed, then a small DeepSeek-shaped model served with the
+    kernel's launches counted.  Returns (the timings for the kernels line,
+    the launches of the served run)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.amat import MatConfig
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.kernels import mla_decode as MD
+    from repro_torch.kernels.mla_decode.ref import mla_decode_fused_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe import RoutingPolicy
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from torch_mla_decode_bench import cell_kv_lens
+
+    full = get_config("deepseek-v2-lite")
+    m, H = full.mla, full.n_heads
+    R, E = m.kv_lora_rank, m.qk_rope_head_dim
+    freqs, rope_scale = MD.frequencies(m, full.rope_theta,
+                                       torch.device(device))
+    kw = dict(scale=L.mla_softmax_scale(m), rope_scale=rope_scale)
+    g = torch.Generator(device=device)
+    g.manual_seed(600)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=device).to(
+            torch.bfloat16)
+
+    rng = np.random.default_rng(601)
+    errs, timed = [], None
+    for what, (B, S), lens in (
+            ("the dsv2lite-longkv-c32 cell's shape", MLA_CELL,
+             cell_kv_lens(rng, *MLA_CELL)),
+            ("one sequence of 12,288 rows", MLA_LONG, np.array([12288]))):
+        # The query tensors as the model passes them: q_lat the transposed
+        # output of the W_UK product, q_pe and the new rope key strided
+        # views of their projections.
+        q_lat = r(H, B, R).transpose(0, 1)
+        q_pe = r(B, H, m.qk_nope_head_dim + E)[..., m.qk_nope_head_dim:]
+        ckv_new, kpe_new = r(B, R), r(B, R + E)[:, R:]
+        ckv, kpe = r(B, S, R), r(B, S, E)
+        pos = torch.tensor(lens - 1, device=device)
+        old = [ckv.clone(), kpe.clone()]
+        want_caches = [ckv.clone(), kpe.clone()]
+        want = mla_decode_fused_ref(q_lat, q_pe, ckv_new, kpe_new,
+                                    *want_caches, pos, freqs, **kw)
+        MD.LAUNCHES.reset()
+        got = MD.mla_decode_fused(q_lat, q_pe, ckv_new, kpe_new, ckv, kpe,
+                                  pos, freqs, **kw)
+        torch.cuda.synchronize()
+        n = MD.LAUNCHES.count
+        say(f"[mla-decode] {what}: B={B}, S={S}, {H} heads, latent {R} + "
+            f"rope {E}, valid rows mean {lens.mean():.1f}; {n} launches")
+        if not 1 <= n <= 2:
+            fail(f"mla-decode {what}: {n} launches in one call")
+        errs.append(_mla_held(
+            what, got, want,
+            _mla_exact(q_lat, q_pe, ckv, kpe, pos, freqs, rope_scale,
+                       kw["scale"]), [ckv, kpe], want_caches, old, pos))
+        if timed is None:
+            # SDPA over a concatenated copy of the same rows under the same
+            # mask (one shared key of 576 and value of 512 for all heads): a
+            # yardstick the port never calls.
+            rows = int(lens.sum())
+            kv = torch.cat([ckv, kpe], -1)[:, None]
+            mask = (torch.arange(S, device=device)[None, :]
+                    < torch.as_tensor(lens, device=device)[:, None]
+                    )[:, None, None]
+            q = torch.cat([q_lat, q_pe], -1)[:, :, None]
+            timed = _timed(
+                "mla_decode_fused (dsv2lite-longkv-c32's decode)",
+                lambda: MD.mla_decode_fused(q_lat, q_pe, ckv_new, kpe_new,
+                                            ckv, kpe, pos, freqs, **kw),
+                lambda: mla_decode_fused_ref(q_lat, q_pe, ckv_new, kpe_new,
+                                             ckv, kpe, pos, freqs, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q, kv, kv[..., :R], attn_mask=mask, scale=kw["scale"],
+                    enable_gqa=True),
+                "SDPA over a concatenated copy of the rows",
+                rows * (R + E) * 2, {"bf16": 2 * H * (R + E + R) * rows},
+                f"B={B}, S={S}, {H} heads, {rows} valid rows")
+            del kv, mask, q
+        del q_lat, q_pe, ckv, kpe, old, want_caches, want, got
+        torch.cuda.empty_cache()
+    timed["max_abs_err"] = max(errs)
+
+    # A small DeepSeek-shaped model served through the engine and the
+    # scheduler: the published widths, the leading dense layer and two MoE
+    # layers of 8 experts, a cache of two chunks of rows.
+    cfg = dataclasses.replace(
+        full, n_layers=3, vocab_size=1024,
+        moe=dataclasses.replace(full.moe, n_experts=8))
+    params = init_params(cfg, seed=0, device=device)
+    mat = MatConfig(8, 4)
+    ecfg = EngineConfig(
+        mat=mat, cache_bytes=_store_bytes(cfg, mat) / 4,
+        policy=RoutingPolicy(kind="cache_prior", slice_mode="dbsc",
+                             quant_execution=True),
+        miss_rate_target=0.05, warmup="pcw",
+        max_seq=MLA_SERVE_PROMPT + SERVE_NEW + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, MLA_SERVE_PROMPT).astype(
+        np.int32) for _ in range(SERVE_REQ)]
+    run = _serve(cfg, params, ecfg, prompts, "mla-serve", device)
+    del params, run["engine"]
+    torch.cuda.empty_cache()
+    return timed, run["launches"]["mla_decode"]
+
+
 def _small_engine(cfg, params, device: str):
     """Phase 4's engine over ``params`` on ``device``: the kernel path on
     the card, the plain dense path on the CPU."""
@@ -1523,6 +1720,7 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
     figures."""
     from repro_torch.core.engine import PersistentEngine
     from repro_torch.kernels import decode_attn as DA
+    from repro_torch.kernels import mla_decode as MD
     from repro_torch.kernels.amat_matmul import ops
     from repro_torch.models import model as TM
     from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
@@ -1592,6 +1790,7 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
     sync()
     ops.LAUNCHES.reset()
     DA.LAUNCHES.reset()
+    MD.LAUNCHES.reset()
     t0 = time.perf_counter()
     completions = sched.run()
     sync()
@@ -1599,20 +1798,29 @@ def _serve(cfg, params, ecfg, prompts, tag: str, device: str, *,
     launches = {k: ops.LAUNCHES.by_key[k]
                 for k in ("k_major", "output_major")}
     launches["decode_attn"] = DA.LAUNCHES.count
+    launches["mla_decode"] = MD.LAUNCHES.count
     n_prefill, n_steps = len(sched.wall_prefill_s), len(sched.wall_step_s)
     want = _n_moe_layers(cfg) * (n_prefill + n_steps)
-    # The decode-attention kernel: 1-2 launches per attention layer per
-    # decode step where the model's route takes it, none in prefill.
-    route = DA.route(TM._dt(cfg), device, ring=cfg.ring_kv,
-                     kv_dtype=cfg.kv_dtype)
-    want_da = 0 if route == "plain" else _n_attn_layers(cfg) * n_steps
+    # The decode-attention kernel (GQA) or the MLA kernel: 1-2 launches per
+    # attention layer per decode step where the model's route takes it,
+    # none in prefill.
+    if cfg.mla is None:
+        route = DA.route(TM._dt(cfg), device, ring=cfg.ring_kv,
+                         kv_dtype=cfg.kv_dtype)
+        kernel, n_attn = "decode_attn", _n_attn_layers(cfg)
+    else:
+        route = MD.route(TM._dt(cfg), device)
+        kernel = "mla_decode"
+        n_attn = cfg.lead_dense_layers + _n_attn_layers(cfg)
+    want_da = 0 if route == "plain" else n_attn * n_steps
     say(f"[{tag}] kernel launches: {launches} (want K1 and K2 {want} each, "
-        f"{2 * want} in all; decode attention on the {route} route, "
-        f"{want_da} to {2 * want_da})")
-    if not want_da <= launches["decode_attn"] <= 2 * want_da:
-        fail(f"{tag}: the decode-attention kernel launched "
-             f"{launches['decode_attn']} times, not {want_da} to "
-             f"{2 * want_da}")
+        f"{2 * want} in all; {kernel} on the {route} route, {want_da} to "
+        f"{2 * want_da}, the other attention kernel 0)")
+    other = "mla_decode" if kernel == "decode_attn" else "decode_attn"
+    if not want_da <= launches[kernel] <= 2 * want_da or launches[other]:
+        fail(f"{tag}: the attention kernels launched {launches[kernel]} "
+             f"({kernel}) and {launches[other]} ({other}) times, not "
+             f"{want_da} to {2 * want_da} and 0")
     if len(completions) != len(prompts) or any(
             len(c.tokens) != new for c in completions):
         fail(f"{tag}: not every request was served in full")
@@ -5366,10 +5574,12 @@ def main() -> None:
     launches = phase_slice_path(cfg)
     launches.update(phase_f32_path(cfg))
     timings["decode_attn"] = phase_decode_attn(cfg)
+    timings["mla_decode"], mla_launches = phase_mla_decode()
     launches.update(phase_small_reference())
     serve_launches, engine, new_requests, wall_step, params, prompts, p5 = \
         phase_serving(cfg)
     launches.update(serve_launches)     # k_major, output_major, decode_attn
+    launches["mla_decode"] = mla_launches       # phase 3f's served run
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, new_requests, wall_step)
     # Phase 5b builds its engine over the same params: release phase 5's
@@ -5449,7 +5659,11 @@ def main() -> None:
              "of a bf16 decode step)", "decode_attn",
              "src/repro_torch/kernels/decode_attn/csrc/decode_attention.cu",
              "none (the reference's decode attention is plain jnp: "
-             "src/repro/models/layers.py:204)")):
+             "src/repro/models/layers.py:204)"),
+            ("mla_decode_fused (RoPE, latent and rope rows appended, "
+             "split-KV absorbed MLA of a bf16 decode step)", "mla_decode",
+             "src/repro_torch/kernels/mla_decode/csrc/mla_decode.cu",
+             "none (the reference has no MLA)")):
         t = timings[key]
         kernels.append({
             "name": variant, "route": "cuda", "source": source,

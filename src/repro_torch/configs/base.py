@@ -15,6 +15,13 @@ paper-reproduction MoE models (``REPRO_IDS``) and the full-width
 (2 layers, or two periods of a longer pattern; d_model <= 256, <= 4
 experts, an SSM state of <= 16 with heads of 32 and chunks of 32, <= 2
 encoder layers over <= 16 frames, a prefix of <= 8) of the same family.
+
+Two fields of ``ModelConfig`` only the port has (``PORT_ONLY``, with the
+value every configuration of the reference takes): multi-head latent
+attention (``mla``, an ``MLACfg``: DeepSeek-V2's latent KV, its decoupled
+RoPE dims and YaRN on them) and leading dense layers that lie before the
+repeated periods (``lead_dense_layers``).  ``deepseek-v2-lite`` is the one
+port-only configuration.
 ``SHAPES`` holds the four input shapes of the dry-run and the launch
 layer (``ShapeConfig``: a train, a prefill and two decode shapes).
 """
@@ -35,6 +42,37 @@ class BlockSpec:
 
     mixer: str          # 'attn' | 'ssm'
     ffn: str            # 'dense' | 'moe' | 'none'
+
+
+@dataclasses.dataclass(frozen=True)
+class MLACfg:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434) without
+    a query LoRA, and YaRN on its RoPE dims.
+
+    Per head the query is ``qk_nope_head_dim`` dims without RoPE and
+    ``qk_rope_head_dim`` with it.  The cache keeps, per token, the latent
+    ``kv_lora_rank`` dims (after their RMSNorm) and one RoPE key of
+    ``qk_rope_head_dim`` dims shared by every head; ``kv_b`` lifts the
+    latent to each head's K-nope and V (``v_head_dim``).  ``rope_factor``
+    above 1 is YaRN over ``rope_original_max`` positions with the ramp
+    between ``beta_fast`` and ``beta_slow`` rotations and the mscales of
+    the cos/sin (``mscale`` over ``mscale_all_dim``) and of the softmax
+    scale (``mscale_all_dim``, squared)."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_factor: float = 1.0
+    rope_original_max: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +110,13 @@ class ModelConfig:
     remat_policy: str = "full"
     pad_vocab_to: int = 1
 
+    # Only the port has these (``PORT_ONLY``): ``mla`` makes every
+    # attention mixer multi-head latent attention, and the first
+    # ``lead_dense_layers`` of ``n_layers`` are attention with a dense FFN
+    # of ``d_ff``, run before the periods of ``block_pattern``.
+    mla: Optional[MLACfg] = None
+    lead_dense_layers: int = 0
+
     @property
     def padded_vocab(self) -> int:
         pv = self.pad_vocab_to
@@ -91,11 +136,13 @@ class ModelConfig:
     @property
     def n_periods(self) -> int:
         plen = len(self.block_pattern)
-        if self.n_layers % plen != 0:
+        n = self.n_layers - self.lead_dense_layers
+        if n % plen != 0:
             raise ValueError(
-                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"{self.name}: n_layers={self.n_layers} less "
+                f"{self.lead_dense_layers} leading layers not divisible by "
                 f"pattern length {plen}")
-        return self.n_layers // plen
+        return n // plen
 
     @property
     def has_attention(self) -> bool:
@@ -192,6 +239,11 @@ class ModelConfig:
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else None,
         )
+
+
+# The port-only fields of ``ModelConfig`` at the value every configuration
+# of the reference takes.
+PORT_ONLY = {"mla": None, "lead_dense_layers": 0}
 
 
 # --------------------------------------------------------------------------

@@ -16,5 +16,9 @@ Subpackages:
     with an optional sliding window;
   * :mod:`repro_torch.kernels.decode_attn` — one attention layer of a
     decode step (RoPE, the KV append, split-KV attention over the bf16
-    cache), which replaces no TPU kernel.
+    cache), which replaces no TPU kernel;
+  * :mod:`repro_torch.kernels.mla_decode` — the attention of one
+    multi-head latent attention layer of a decode step, absorbed (RoPE, the
+    latent and rope rows appended, split-KV attention of all heads over the
+    bf16 latent cache), which replaces no TPU kernel either.
 """

@@ -10,11 +10,19 @@ value mix run in f32 as in the reference; the GELUs are the reference's
 tanh approximation.  The encoder's self-attention and the decoder's
 cross-attention are ``attention`` with ``causal=False``
 (``models/model.py``).
+
+Multi-head latent attention (DeepSeek-V2) adds YaRN's RoPE frequencies
+(:func:`yarn_frequencies`) and mscale (:func:`yarn_mscale`), the MLA
+settings' frequencies, cos/sin scale and softmax scale (:func:`mla_rope`,
+:func:`mla_softmax_scale`), and :func:`attention`'s ``scale`` for a
+softmax scale other than the head dim's and a value head narrower than
+the query's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
@@ -50,14 +58,72 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale for a context ``factor`` times longer."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_frequencies(dim: int, theta: float, factor: float,
+                     original_max: int, beta_fast: float, beta_slow: float,
+                     device=None) -> torch.Tensor:
+    """YaRN's RoPE frequencies [dim/2]: each plain frequency ``e_i``,
+    its interpolation ``e_i / factor``, and between them a linear ramp
+    over the dims from the one that turns ``beta_fast`` times in
+    ``original_max`` positions (kept as ``e_i``) to the one that turns
+    ``beta_slow`` times (interpolated)."""
+    e = rope_frequencies(dim, theta, device)
+
+    def corr_dim(rotations: float) -> float:
+        return dim * math.log(original_max / (rotations * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    low = max(math.floor(corr_dim(beta_fast)), 0)
+    high = min(math.ceil(corr_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - low) / (high - low), 0.0, 1.0)
+    return e / factor * ramp + e * (1.0 - ramp)
+
+
+def mla_rope(mla, theta: float, device=None):
+    """(frequencies [qk_rope_head_dim / 2], cos/sin scale) of an
+    ``MLACfg``'s RoPE dims: YaRN's where ``rope_factor`` > 1."""
+    d = mla.qk_rope_head_dim
+    if mla.rope_factor <= 1:
+        return rope_frequencies(d, theta, device), 1.0
+    freqs = yarn_frequencies(d, theta, mla.rope_factor,
+                             mla.rope_original_max, mla.beta_fast,
+                             mla.beta_slow, device)
+    scale = yarn_mscale(mla.rope_factor, mla.mscale) \
+        / yarn_mscale(mla.rope_factor, mla.mscale_all_dim)
+    return freqs, scale
+
+
+def mla_softmax_scale(mla) -> float:
+    """``qk_head_dim ** -0.5``, times YaRN's mscale squared."""
+    m = yarn_mscale(mla.rope_factor, mla.mscale_all_dim) \
+        if mla.mscale_all_dim else 1.0
+    return mla.qk_head_dim ** -0.5 * m * m
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)             # [D/2]
+    return apply_rope_freqs(x, positions,
+                            rope_frequencies(x.shape[-1], theta, x.device))
+
+
+def apply_rope_freqs(x: torch.Tensor, positions: torch.Tensor,
+                     freqs: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """:func:`apply_rope` with the frequencies [D/2] given, and cos and sin
+    times ``scale`` (YaRN's) where it is not 1: each half of the last dim
+    rotated with the other, in f32, rounded to x's dtype."""
     angles = positions[..., None].to(torch.float32) * freqs   # [..., S, D/2]
     cos = torch.cos(angles)[..., None, :]                     # [..., S, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -90,28 +156,33 @@ def _soft_cap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_offset: Union[int, torch.Tensor] = 0,
               sliding_window: Optional[int] = None,
-              logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """Multi-head attention.  q: [B, Sq, H, D]; k/v: [B, Sk, Hkv, D].
+              logit_softcap: Optional[float] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention.  q/k: [B, Sq|Sk, H|Hkv, D]; v: [B, Sk, Hkv,
+    Dv] (Dv may differ from D); ``scale`` defaults to ``D ** -0.5``.
     Dispatches to :func:`blockwise_attention` above the threshold."""
     if k.shape[1] > BLOCKWISE_THRESHOLD:
         return blockwise_attention(
             q, k, v, causal=causal, q_offset=q_offset,
-            sliding_window=sliding_window, logit_softcap=logit_softcap)
+            sliding_window=sliding_window, logit_softcap=logit_softcap,
+            scale=scale)
     return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
                            sliding_window=sliding_window,
-                           logit_softcap=logit_softcap)
+                           logit_softcap=logit_softcap, scale=scale)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: Union[int, torch.Tensor] = 0,
                     sliding_window: Optional[int] = None,
-                    logit_softcap: Optional[float] = None) -> torch.Tensor:
+                    logit_softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """The dense body of :func:`attention`: the full (Sq x Sk) score
     matrix per head, masked and softmaxed in f32, at any length."""
     rep = q.shape[2] // k.shape[2]
     k = _expand_kv(k, rep)
     v = _expand_kv(v, rep)
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     scores = _soft_cap(scores, logit_softcap)
@@ -136,7 +207,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: Union[int, torch.Tensor] = 0,
                         sliding_window: Optional[int] = None,
                         logit_softcap: Optional[float] = None,
-                        block_kv: int = BLOCK_KV) -> torch.Tensor:
+                        block_kv: int = BLOCK_KV,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention over ``block_kv``-key blocks.
 
     Never materializes the (Sq x Sk) score matrix: peak memory is
@@ -153,13 +225,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     n_blocks = (sk + pad) // block_kv
-    scale = d ** -0.5
+    if scale is None:
+        scale = d ** -0.5
     qf = q.to(torch.float32)
     qpos = torch.arange(sq, device=q.device) + q_offset
     m = torch.full((b, h, sq), -torch.inf, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     for blk in range(n_blocks):
         sl = slice(blk * block_kv, (blk + 1) * block_kv)
         kblk = _expand_kv(k[:, sl], rep).to(torch.float32)

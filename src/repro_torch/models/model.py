@@ -88,6 +88,28 @@ caller that sizes the cache at ``sliding_window`` rows or fewer gets the
 windowed model with O(window) memory.  ``prefill`` writes rows from 0 as
 without ring, and a prompt longer than the cache raises in both.
 
+Multi-head latent attention, a port-only setting (``cfg.mla``,
+``configs.base.MLACfg``: DeepSeek-V2-Lite).  Every attention mixer is then
+MLA: leaves ``wq`` [d, H * (nope + rope)], ``wkv_a`` [d, R + rope],
+``kv_norm`` [R], ``wkv_b`` [R, H * (nope + v)], ``wo`` [H * v, d] and
+``norm``; RoPE (YaRN where the config says so) on the rope dims only, one
+rope key shared by every head; the cache entry holds the normed latent
+``ckv`` [n, B, S, R] and the rotated key ``kpe`` [n, B, S, rope] in the
+model dtype in place of ``k`` / ``v``.  ``forward`` and ``prefill`` run
+the non-absorbed form (each head's K-nope and V lifted from the latent,
+:func:`layers.attention` over q and k of nope + rope dims and v of its
+own width); ``decode_step`` the absorbed one: ``W_UK`` folded into the
+query, attention over the latent rows
+(:mod:`repro_torch.kernels.mla_decode`: the kernel for bf16 on the card,
+its plain route elsewhere), ``W_UV`` after it, each MLA layer inside the
+span ``slicemoe.decode_forward.mla``.  MLA takes no int8 or ring cache,
+window, soft-cap or encoder.  ``cfg.lead_dense_layers`` (port-only too)
+puts that many attention layers with a dense FFN of ``d_ff`` (and no
+cross-attention) before the periods: leaves under ``lead`` and a cache
+entry ``lead``, both stacked over those layers, outside the periods (not
+checkpointed in ``forward``), so the MoE records stay ``[n_periods,
+...]``.
+
 Departures from the functional reference: ``decode_step`` writes the new
 KV row, and an SSM position's new ``state`` and ``conv`` window, into the
 cache tensors in place and returns a dict holding those same tensors
@@ -113,10 +135,13 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.amat import MAT84, amat_quantize_stacked, empty_stacked
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_attn as DA
+from repro_torch.kernels import mla_decode as MD
 from repro_torch.kernels.decode_attn import ref as DA_ref
+from repro_torch.kernels.mla_decode import ref as MD_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.obs.spans import span
 from repro_torch.quant.groupquant import QuantizedTensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -130,6 +155,25 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 def _window(cfg: ModelConfig, use_window: bool) -> Optional[int]:
     return cfg.sliding_window if (use_window or cfg.always_swa) else None
+
+
+# The leading layers' block: attention and a dense FFN of ``d_ff``.
+LEAD_SPEC = BlockSpec("attn", "dense")
+MLA_SPAN = "slicemoe.decode_forward.mla"
+
+
+def _check_mla(cfg: ModelConfig) -> None:
+    if cfg.mla is None:
+        return
+    other = [n for n, on in (
+        ("int8 KV", cfg.kv_dtype == "int8"), ("a ring cache", cfg.ring_kv),
+        ("a sliding window", cfg.sliding_window is not None),
+        ("a logit soft-cap", cfg.logit_softcap is not None),
+        ("an encoder", cfg.is_encdec), ("a prefix", cfg.prefix_len > 0))
+        if on]
+    if other:
+        raise ValueError(f"{cfg.name}: multi-head latent attention does "
+                         f"not take {', '.join(other)}")
 
 
 # ==========================================================================
@@ -154,8 +198,22 @@ def _attn_shapes(cfg: ModelConfig, cross: bool = False) -> dict:
     return sh
 
 
+def _mla_shapes(cfg: ModelConfig) -> dict:
+    d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+    return {
+        "wq": (d, h * m.qk_head_dim),
+        "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_norm": (m.kv_lora_rank,),
+        "wkv_b": (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": (h * m.v_head_dim, d),
+        "norm": (d,),
+    }
+
+
 def _block_shapes(cfg: ModelConfig, spec: BlockSpec, decoder: bool) -> dict:
-    if spec.mixer == "attn":
+    if spec.mixer == "attn" and cfg.mla is not None:
+        sh = _mla_shapes(cfg)
+    elif spec.mixer == "attn":
         sh = dict(_attn_shapes(cfg))
         if decoder and cfg.is_encdec:
             sh.update(_attn_shapes(cfg, cross=True))
@@ -195,6 +253,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         sh["unembed"] = (cfg.d_model, cfg.padded_vocab)
+    if cfg.lead_dense_layers:
+        sh["lead"] = _stack(_block_shapes(cfg, LEAD_SPEC, decoder=False),
+                            cfg.lead_dense_layers)
     if cfg.is_encdec:
         enc_block = _block_shapes(cfg, BlockSpec("attn", "dense"),
                                   decoder=False)
@@ -330,12 +391,45 @@ def _attn_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+def _mla_proj(p: dict, h: torch.Tensor, cfg: ModelConfig):
+    """MLA's projections of the normed input h [..., d]: (q [..., H,
+    nope + rope] before RoPE, the normed latent c_kv [..., R], the rope
+    key k_pe [..., rope] before RoPE)."""
+    m = cfg.mla
+    q = (h @ p["wq"]).unflatten(-1, (cfg.n_heads, m.qk_head_dim))
+    c = h @ p["wkv_a"]
+    c_kv = L.rms_norm(c[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    return q, c_kv, c[..., m.kv_lora_rank:]
+
+
+def _mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor):
+    """Causal multi-head latent attention over the whole sequence in the
+    non-absorbed form, with its residual; returns (x, (c_kv, k_pe)): the
+    cache rows, k_pe after RoPE."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    dn = m.qk_nope_head_dim
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    q, c_kv, k_pe = _mla_proj(p, h, cfg)
+    freqs, rs = MD.frequencies(m, cfg.rope_theta, x.device)
+    q_pe = L.apply_rope_freqs(q[..., dn:], positions, freqs, rs)
+    k_pe = L.apply_rope_freqs(k_pe[:, :, None], positions, freqs, rs)
+    kv = (c_kv @ p["wkv_b"]).unflatten(-1, (cfg.n_heads, dn + m.v_head_dim))
+    k = torch.cat([kv[..., :dn], k_pe.expand(b, s, cfg.n_heads, -1)], -1)
+    o = L.attention(torch.cat([q[..., :dn], q_pe], -1), k, kv[..., dn:],
+                    causal=True, scale=L.mla_softmax_scale(m))
+    return x + o.reshape(b, s, -1) @ p["wo"], (c_kv, k_pe[:, :, 0])
+
+
 def _self_attn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      causal: bool, positions: torch.Tensor,
                      window: Optional[int]):
     """Self-attention over the whole sequence (causal in the decoder, not
     in the encoder) with its residual; returns (x, (k, v)) with ``k``/``v``
-    after RoPE (the cache rows)."""
+    after RoPE (the cache rows; MLA's (c_kv, k_pe))."""
+    if cfg.mla is not None:
+        return _mla_block(p, x, cfg, positions=positions)
     b, s, _ = x.shape
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(p, h, cfg)
@@ -537,6 +631,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         collect=collect_trace, mat=mat, quant_execution=quant_execution)
     if _remat and torch.is_grad_enabled():
         body = _checkpointed(body, cfg.remat_policy)
+    _check_mla(cfg)
+    x = _lead(params, cfg, x, positions, _window(cfg, use_window))
     aux_rows = []
     for period in range(cfg.n_periods):
         x, row = body(x, _index(params["blocks"], period))
@@ -547,6 +643,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         return x, {"moe": stacked, "aux_loss": torch.sum(stacked["aux_loss"])}
     return x, {"aux_loss": torch.zeros((), dtype=torch.float32,
                                        device=x.device)}
+
+
+def _lead(params: dict, cfg: ModelConfig, x: torch.Tensor,
+          positions: torch.Tensor, window: Optional[int],
+          cache: Optional[dict] = None) -> torch.Tensor:
+    """The leading dense layers over the whole sequence; with ``cache``,
+    their attention rows written into its ``lead`` entry."""
+    for i in range(cfg.lead_dense_layers):
+        p = _index(params["lead"], i)
+        x, rows = _self_attn_block(p, x, cfg, causal=True,
+                                   positions=positions, window=window)
+        if cache is not None:
+            _store_rows(cache["lead"], i, rows, cfg)
+        x, _ = _ffn_block(p, x, cfg, LEAD_SPEC, collect=False)
+    return x
 
 
 def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -642,23 +753,20 @@ def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 dev: torch.device, encoder_seq: int) -> dict:
     """``init_cache`` with the cross K/V ``encoder_seq`` rows long (the
     frames' length, in ``prefill``)."""
+    _check_mla(cfg)
     int8_kv = cfg.kv_dtype == "int8"
-    cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
-    kv_shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     kv_dt = torch.int8 if int8_kv else dtype
-    for i, spec in enumerate(cfg.block_pattern):
-        if spec.mixer != "attn":
-            ssm = cfg.ssm
-            cache[f"pos{i}"] = {
-                "state": torch.zeros(
-                    (cfg.n_periods, batch, ssm.n_heads(cfg.d_model),
-                     ssm.head_dim, ssm.d_state), dtype=torch.float32,
-                    device=dev),
-                "conv": torch.zeros(
-                    (cfg.n_periods, batch, ssm.d_conv - 1,
-                     ssm.conv_channels(cfg.d_model)), dtype=dtype,
-                    device=dev)}
-            continue
+
+    def attn_entry(n: int) -> dict:
+        """An attention position's entry, ``n`` layers deep."""
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"ckv": torch.zeros((n, batch, max_seq, m.kv_lora_rank),
+                                       dtype=dtype, device=dev),
+                    "kpe": torch.zeros((n, batch, max_seq,
+                                        m.qk_rope_head_dim), dtype=dtype,
+                                       device=dev)}
+        kv_shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         entry = {"k": torch.zeros(kv_shape, dtype=kv_dt, device=dev),
                  "v": torch.zeros(kv_shape, dtype=kv_dt, device=dev)}
         if int8_kv:
@@ -666,13 +774,53 @@ def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 entry[name] = torch.zeros(kv_shape[:-1], dtype=torch.float32,
                                           device=dev)
         if cfg.is_encdec:
-            cross_shape = (cfg.n_periods, batch, encoder_seq,
-                           cfg.n_kv_heads, cfg.head_dim)
+            cross_shape = (n, batch, encoder_seq, cfg.n_kv_heads,
+                           cfg.head_dim)
             for name in ("ck", "cv"):
                 entry[name] = torch.zeros(cross_shape, dtype=dtype,
                                           device=dev)
-        cache[f"pos{i}"] = entry
+        return entry
+
+    cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=dev)}
+    if cfg.lead_dense_layers:
+        cache["lead"] = attn_entry(cfg.lead_dense_layers)
+    for i, spec in enumerate(cfg.block_pattern):
+        if spec.mixer == "attn":
+            cache[f"pos{i}"] = attn_entry(cfg.n_periods)
+            continue
+        ssm = cfg.ssm
+        cache[f"pos{i}"] = {
+            "state": torch.zeros(
+                (cfg.n_periods, batch, ssm.n_heads(cfg.d_model),
+                 ssm.head_dim, ssm.d_state), dtype=torch.float32,
+                device=dev),
+            "conv": torch.zeros(
+                (cfg.n_periods, batch, ssm.d_conv - 1,
+                 ssm.conv_channels(cfg.d_model)), dtype=dtype,
+                device=dev)}
     return cache
+
+
+def _store_rows(entry: dict, idx: int, rows: tuple, cfg: ModelConfig
+                ) -> None:
+    """Write a prompt's attention rows (``_self_attn_block``'s) into layer
+    ``idx`` of a cache entry, from row 0."""
+    a, c = rows
+    s = a.shape[1]
+    if cfg.mla is not None:
+        entry["ckv"][idx, :, :s] = a.to(entry["ckv"].dtype)
+        entry["kpe"][idx, :, :s] = c.to(entry["kpe"].dtype)
+    elif cfg.kv_dtype == "int8":
+        for name, t in (("k", a), ("v", c)):
+            codes, scale = _quant_kv(t)
+            entry[name][idx, :, :s] = codes
+            entry[f"{name}_scale"][idx, :, :s] = scale
+            # The reference quantizes the zero-padded rows too; their
+            # scale is the floor.
+            entry[f"{name}_scale"][idx, :, s:] = KV_SCALE_FLOOR
+    else:
+        entry["k"][idx, :, :s] = a.to(entry["k"].dtype)
+        entry["v"][idx, :, :s] = c.to(entry["v"].dtype)
 
 
 # ==========================================================================
@@ -706,6 +854,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     cache = _init_cache(cfg, b, max_seq, _dt(cfg), dev,
                         cfg.encoder_seq if enc_out is None
                         else enc_out.shape[1])
+    x = _lead(params, cfg, x, positions, window, cache)
     aux_rows = []
     for period in range(cfg.n_periods):
         period_params = _index(params["blocks"], period)
@@ -721,21 +870,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 entry["state"][period] = state
                 entry["conv"][period] = tail.to(entry["conv"].dtype)
             else:
-                x, (k, v) = _self_attn_block(p, x, cfg, causal=True,
-                                             positions=positions,
-                                             window=window)
-                if cfg.kv_dtype == "int8":
-                    for name, t in (("k", k), ("v", v)):
-                        codes, scale = _quant_kv(t)
-                        entry[name][period, :, :s] = codes
-                        entry[f"{name}_scale"][period, :, :s] = scale
-                        # The reference quantizes the zero-padded rows
-                        # too; their scale is the floor.
-                        entry[f"{name}_scale"][period, :, s:] = \
-                            KV_SCALE_FLOOR
-                else:
-                    entry["k"][period, :, :s] = k.to(entry["k"].dtype)
-                    entry["v"][period, :, :s] = v.to(entry["v"].dtype)
+                x, rows = _self_attn_block(p, x, cfg, causal=True,
+                                           positions=positions,
+                                           window=window)
+                _store_rows(entry, period, rows, cfg)
                 if enc_out is not None:
                     ek, ev = _enc_kv(p, enc_out, cfg)
                     x = _cross_attn_block(p, x, ek, ev, cfg)
@@ -788,6 +926,44 @@ def _attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
             attend=DA.decode_attention if route == "attend"
             else L.decode_attention, **kw)
     return x + (o.reshape(b, -1) @ p["wo"])[:, None, :]
+
+
+def _mla_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
+                idx: int, pos: torch.Tensor) -> torch.Tensor:
+    """One MLA layer of a decode step, absorbed, with its residual: the
+    query's nope half through ``W_UK`` (``q_lat`` [B, H, R]), the new
+    latent and rope rows written into layer ``idx`` of ``entry`` in place,
+    attention over each sequence's latent rows
+    (``kernels.mla_decode.route``: the kernel for bf16 on the card, its
+    plain route elsewhere), then ``W_UV`` and ``wo``."""
+    m = cfg.mla
+    b, H, dn, dv = x.shape[0], cfg.n_heads, m.qk_nope_head_dim, m.v_head_dim
+    h = L.rms_norm(x[:, 0], p["norm"], cfg.norm_eps)
+    q, c_kv, k_pe = _mla_proj(p, h, cfg)                # q [B, H, dn + dr]
+    w_b = p["wkv_b"].unflatten(-1, (H, dn + dv))         # [R, H, dn + dv]
+    q_lat = torch.bmm(q[..., :dn].transpose(0, 1),
+                      w_b[..., :dn].permute(1, 2, 0))     # [H, B, R]
+    freqs, rs = MD.frequencies(m, cfg.rope_theta, x.device)
+    args = (q_lat.transpose(0, 1), q[..., dn:], c_kv, k_pe,
+            entry["ckv"][idx], entry["kpe"][idx], pos, freqs)
+    kw = dict(scale=L.mla_softmax_scale(m), rope_scale=rs)
+    o_lat = MD.mla_decode_fused(*args, **kw) \
+        if MD.route(_dt(cfg), x.device) == "kernel" \
+        else MD_ref.mla_decode_fused_ref(*args, **kw)    # [B, H, R]
+    o = torch.bmm(o_lat.transpose(0, 1),
+                  w_b[..., dn:].transpose(0, 1))          # [H, B, dv]
+    return x + (o.transpose(0, 1).reshape(b, H * dv) @ p["wo"])[:, None, :]
+
+
+def _mixer_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, entry: dict,
+                  idx: int, pos: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
+    """An attention mixer of a decode step: MLA, each layer's launches in
+    the span ``slicemoe.decode_forward.mla``, or GQA attention."""
+    if cfg.mla is None:
+        return _attn_decode(p, x, cfg, entry, idx, pos, window)
+    with span(MLA_SPAN):
+        return _mla_decode(p, x, cfg, entry, idx, pos)
 
 
 @torch.no_grad()
@@ -843,6 +1019,12 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         return v[period]
 
     new_cache = {"pos": pos + 1}
+    for i in range(cfg.lead_dense_layers):
+        p = _index(params["lead"], i)
+        x = _mixer_decode(p, x, cfg, cache["lead"], i, pos, window)
+        x, _ = _ffn_block(p, x, cfg, LEAD_SPEC, collect=False)
+    if cfg.lead_dense_layers:
+        new_cache["lead"] = cache["lead"]
     aux_rows = []
     for period in range(cfg.n_periods):
         period_params = _index(params["blocks"], period)
@@ -852,7 +1034,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             p = period_params[key]
             entry = cache[key]
             if spec.mixer == "attn":
-                x = _attn_decode(p, x, cfg, entry, period, pos, window)
+                x = _mixer_decode(p, x, cfg, entry, period, pos, window)
                 if cfg.is_encdec:
                     x = _cross_attn_block(p, x, entry["ck"][period],
                                           entry["cv"][period], cfg)

@@ -29,6 +29,8 @@ The spans and their nesting, in the order a scheduler step runs them::
     slicemoe.prefill_charge            its routing to the host, the charge
     slicemoe.sched.prepare             the token and slot-mask arrays
     slicemoe.decode_forward            decode_batch: the forward's launches
+        slicemoe.decode_forward.mla        each MLA layer's launches (only
+                                           configurations with MLA)
     slicemoe.decode_charge             the charge path, which holds
         slicemoe.decode_charge.to_host     the wait for the forward and the
                                            routing trace's copy to the host

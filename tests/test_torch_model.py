@@ -40,6 +40,7 @@ j_decode_step = jax.jit(JM.decode_step, static_argnames=("cfg",
 def test_repro_configs_equal_reference(arch):
     j, t = get_config(arch), TC.get_config(arch)
     jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
+    assert {k: td.pop(k) for k in TC.PORT_ONLY} == TC.PORT_ONLY
     assert set(jd) == set(td)
     assert jd == td
     assert t.n_periods == j.n_periods and t.block_pattern == tuple(
